@@ -1,0 +1,111 @@
+"""Fill the port's modules from the JAX package's parameter trees.
+
+``load_jax_params(module, params)`` takes the tree that a JAX module's
+``init`` returns (or the output of spider_tpu/models/convert.py for real
+HF/diffusers checkpoints), as numpy or JAX arrays, and copies it into the
+port's module. The port names its submodules after the JAX tree, so this is
+one generic walk with per-leaf layout rules:
+
+  * Dense ``kernel`` [in, out]     -> ``weight`` [out, in] (transpose)
+  * Conv ``kernel`` HWIO           -> ``weight`` OIHW
+  * int8 ``kernel_q`` [in, out]    -> ``kernel_q`` [out, in]; ``kernel_scale`` as is
+  * Embed ``embedding``            -> ``weight``
+  * LayerNorm/GroupNorm ``scale``  -> ``weight``
+  * a scanned ``layers`` subtree with a leading L axis -> one slice per
+    entry of an ``nn.ModuleList``
+  * anything else (biases, raw parameters such as ``input_layernorm``)
+    -> the attribute of the same name, as is.
+
+Every JAX leaf must land on a parameter or buffer of the same shape, and
+every parameter and persistent buffer of the module must be filled.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Set
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _as_numpy(x) -> np.ndarray:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes bfloat16 has no torch view
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def _slice_layer(node, i: int):
+    if isinstance(node, Mapping):
+        return {k: _slice_layer(v, i) for k, v in node.items()}
+    return _as_numpy(node)[i]
+
+
+def _leaf(mod: nn.Module, key: str, arr: np.ndarray):
+    if key == "kernel":
+        if isinstance(mod, nn.Conv2d):
+            return "weight", arr.transpose(3, 2, 0, 1)
+        return "weight", arr.T
+    if key == "kernel_q":
+        return "kernel_q", arr.T
+    if key == "embedding":
+        return "weight", arr
+    if key == "scale" and isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        return "weight", arr
+    return key, arr
+
+
+def _walk(mod: nn.Module, node: Mapping, prefix: str, filled: Set[str]) -> None:
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            child = getattr(mod, key, None)
+            if not isinstance(child, nn.Module):
+                raise KeyError(f"no submodule {prefix}{key} for the JAX subtree")
+            if isinstance(child, nn.ModuleList):
+                for i, layer in enumerate(child):
+                    _walk(layer, _slice_layer(val, i), f"{prefix}{key}.{i}.", filled)
+                n = {_as_numpy(v).shape[0] for v in _leaves(val)}
+                if n != {len(child)}:
+                    raise ValueError(f"{prefix}{key}: layer axis {n} vs {len(child)} layers")
+            else:
+                _walk(child, val, f"{prefix}{key}.", filled)
+            continue
+        name, arr = _leaf(mod, key, _as_numpy(val))
+        target = getattr(mod, name, None)
+        if not isinstance(target, torch.Tensor):
+            raise KeyError(f"no parameter {prefix}{name} for JAX leaf {prefix}{key}")
+        if tuple(target.shape) != arr.shape:
+            raise ValueError(f"{prefix}{name}: shape {tuple(target.shape)} vs JAX "
+                             f"{prefix}{key} {arr.shape}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.array(arr, order="C")))
+        filled.add(prefix + name)
+
+
+def _leaves(node):
+    if isinstance(node, Mapping):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def state_names(module: nn.Module) -> Set[str]:
+    """Names of every parameter and persistent buffer of `module`."""
+    return set(module.state_dict().keys())
+
+
+def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree into `module` (in place); returns it.
+    Takes either the ``params`` collection or the whole variables dict that
+    ``init`` returns (other collections, such as sown activations, are
+    ignored)."""
+    if "params" in params:
+        params = params["params"]
+    filled: Set[str] = set()
+    _walk(module, params, "", filled)
+    missing = state_names(module) - filled
+    if missing:
+        raise KeyError(f"not filled from the JAX tree: {sorted(missing)[:10]}")
+    return module

@@ -1,0 +1,88 @@
+"""Random-init builders of the slice's full-size models on an explicit
+device, from a seeded ``torch.Generator`` (counterpart of the random-init
+branch of spider_tpu/models/factory.py::from_pretrained). Weight values do
+not change the work a forward pass does; real weights load through
+spider_tpu/models/convert.py and ``convert.load_jax_params``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import torch
+from torch import nn
+
+from spider_tpu_torch.models import llama as L
+from spider_tpu_torch.models.tokenizer import TinyTokenizer
+
+# Standard deviation of an int8 weight drawn uniformly from [-127, 127].
+_INT8_STD = (((2 * 127 + 1) ** 2 - 1) / 12) ** 0.5
+_ONES = ("input_layernorm", "post_attention_layernorm", "norm", "kernel_scale")
+
+
+def random_init_(module: nn.Module, generator: torch.Generator,
+                 scale: float = 0.02) -> nn.Module:
+    """Fill every parameter and persistent buffer in place: float weights
+    ~ N(0, scale); norm scales 1 and norm biases 0; int8 ``kernel_q``
+    uniform in [-127, 127] with ``kernel_scale`` = scale / its std, so an
+    int8 projection has the same effective spread as a float one."""
+    with torch.no_grad():
+        for mod in module.modules():
+            norm = isinstance(mod, (nn.LayerNorm, nn.GroupNorm))
+            own = dict(mod.named_parameters(recurse=False))
+            own.update((n, b) for n, b in mod.named_buffers(recurse=False)
+                       if n not in mod._non_persistent_buffers_set)
+            for name, t in own.items():
+                if t is None:
+                    continue
+                if norm:
+                    t.fill_(1.0 if name == "weight" else 0.0)
+                elif name == "kernel_q":
+                    t.random_(-127, 128, generator=generator)
+                elif name == "kernel_scale":
+                    t.fill_(scale / _INT8_STD)
+                elif name in _ONES:
+                    t.fill_(1.0)
+                elif t.is_floating_point():
+                    t.normal_(0.0, scale, generator=generator)
+    return module
+
+
+def build_llama(cfg: L.LlamaConfig, device, seed: int = 0) -> L.LlamaForCausalLM:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return random_init_(L.LlamaForCausalLM(cfg, device).eval(), gen)
+
+
+def llama3_8b_int8() -> L.LlamaConfig:
+    """The serving configuration of the chat backbone: llama3_8b with int8
+    weight-only projections and bf16 embeddings and norms."""
+    return dataclasses.replace(L.llama3_8b(), quantization="int8",
+                               param_dtype=torch.bfloat16)
+
+
+def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
+                    seed: int = 0):
+    """Full-size random-init model on `device`.
+
+    kinds: 'sd15' -> StableDiffusionPipeline at 512px (text encoder, UNet
+    and VAE in `dtype`); 'llama' -> (LlamaForCausalLM 8B int8, TinyTokenizer).
+    There is no checkpoint path yet: convert a checkpoint with
+    spider_tpu/models/convert.py, then fill the returned module with
+    ``spider_tpu_torch.models.convert.load_jax_params``.
+    """
+    if kind == "llama":
+        return build_llama(llama3_8b_int8(), device, seed), TinyTokenizer()
+    if kind == "sd15":
+        from spider_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_l14
+        from spider_tpu_torch.models.pipelines.sd import StableDiffusionPipeline
+        from spider_tpu_torch.models.unet2d import UNet2DConditionModel, unet_sd15
+        from spider_tpu_torch.models.vae import AutoencoderKL, vae_sd
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        text = CLIPTextModel(dataclasses.replace(clip_vit_l14(), dtype=dtype), device)
+        unet = UNet2DConditionModel(dataclasses.replace(unet_sd15(), dtype=dtype), device)
+        vae = AutoencoderKL(dataclasses.replace(vae_sd(), dtype=dtype), device)
+        for m in (text, unet, vae):
+            random_init_(m.eval(), gen)
+        return StableDiffusionPipeline(TinyTokenizer(), text, unet, vae, height=512,
+                                       width=512)
+    raise ValueError(f"unknown kind {kind!r} (expected 'sd15' or 'llama')")

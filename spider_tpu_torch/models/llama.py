@@ -1,0 +1,282 @@
+"""Llama-family decoder in PyTorch (counterpart of spider_tpu/models/llama.py).
+
+Submodule and parameter names follow the JAX parameter tree
+(``embed_tokens``, ``model.layers.<i>.self_attn.q_proj``, ``lm_head``, ...)
+so that ``convert.load_jax_params`` fills the port from JAX weights with one
+generic walk. The JAX model stacks its layers under ``nn.scan``; here they
+are an ``nn.ModuleList`` and the converter unstacks the layer axis.
+
+Attention: prefill (T > 1) runs the flash kernel over the whole KV cache;
+single-token decode is plain torch over the cache, as the reference keeps it
+an XLA einsum. The KV cache is updated IN PLACE (JAX returns a new one);
+every call returns the cache it was given.
+
+Parameters are stored in ``param_dtype`` and cast to ``dtype`` for compute.
+``quantization='int8'`` stores each projection as int8 [out, in] plus a
+per-output-channel fp32 scale applied to the matmul output. Eager PyTorch
+makes a bf16 copy of each int8 weight on every call: correct, and slow; a
+W8A16 kernel is later work. Left out for now: LoRA, int4, the paged cache,
+MoE, mrope, context parallelism, projection biases and tied embeddings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spider_tpu_torch.ops.attention import flash_attention, mha_reference
+from spider_tpu_torch.ops.norms import rms_norm
+from spider_tpu_torch.ops.rope import apply_rope, rope_inv_freq
+
+KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    head_dim: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[Dict[str, float]] = None
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    # 'int8': weight-only per-output-channel quantization of every
+    # projection and the lm_head (embeddings and norms stay high precision).
+    quantization: Optional[str] = None
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+
+def llama3_8b() -> LlamaConfig:
+    """DeepSeek-R1-Distill-Llama-8B shares this architecture."""
+    return LlamaConfig(
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        max_position_embeddings=131072,
+        rope_theta=500000.0,
+        rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                          original_max_position_embeddings=8192),
+    )
+
+
+def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
+    """Small config for CPU tests."""
+    return LlamaConfig(
+        vocab_size=vocab_size,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        num_key_value_heads=2,
+        max_position_embeddings=512,
+        rope_theta=10000.0,
+        dtype=torch.float32,
+    )
+
+
+class LoraDense(nn.Module):
+    """y = x W, with W either a float ``weight`` [out, in] or, under
+    quantization='int8', ``kernel_q`` int8 [out, in] and ``kernel_scale``
+    fp32 [out]: y = (x @ kernel_q.to(dtype)^T) * kernel_scale.to(dtype).
+    The LoRA branch and the bias of the JAX module are not ported yet."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32,
+                 quantization: Optional[str] = None, device=None):
+        super().__init__()
+        if quantization not in (None, "int8"):
+            raise NotImplementedError(f"quantization={quantization!r} is not ported")
+        self.dtype = dtype
+        self.quantization = quantization
+        if quantization == "int8":
+            self.register_buffer("kernel_q", torch.zeros(
+                features, in_features, dtype=torch.int8, device=device))
+            self.register_buffer("kernel_scale", torch.ones(
+                features, dtype=torch.float32, device=device))
+        else:
+            self.weight = nn.Parameter(torch.zeros(
+                features, in_features, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantization == "int8":
+            return F.linear(x, self.kernel_q.to(self.dtype)) * self.kernel_scale.to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype))
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor,
+                 index: Union[int, torch.Tensor]) -> None:
+    """cache [B, S, Hkv, D] <- new [B, T, Hkv, D] at row `index` (scalar,
+    shared by the batch) or at per-sample rows index [B]. The start is
+    clamped to [0, S - T] as jax.lax.dynamic_update_slice clamps it."""
+    S, T = cache.shape[1], new.shape[1]
+    new = new.to(cache.dtype)
+    if not torch.is_tensor(index) or index.dim() == 0:
+        i = min(max(int(index), 0), S - T)
+        cache[:, i:i + T] = new
+        return
+    start = index.to(torch.long).clamp(0, S - T)
+    rows = start[:, None] + torch.arange(T, device=cache.device)
+    cache[torch.arange(cache.shape[0], device=cache.device)[:, None], rows] = new
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.head_dim_
+        H, Hq, Hkv = cfg.hidden_size, cfg.num_attention_heads, cfg.num_key_value_heads
+
+        def proj(i, o):
+            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device)
+
+        self.q_proj = proj(H, Hq * D)
+        self.k_proj = proj(H, Hkv * D)
+        self.v_proj = proj(H, Hkv * D)
+        self.o_proj = proj(Hq * D, H)
+        self.register_buffer("inv_freq", rope_inv_freq(D, cfg.rope_theta, cfg.rope_scaling,
+                                                       device=device), persistent=False)
+
+    def forward(self, x, positions, kv_write_index, kv_cache: Optional[KVCache] = None,
+                kv_len: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
+        B, T, _ = x.shape
+        q = apply_rope(self.q_proj(x).reshape(B, T, Hq, D), positions, self.inv_freq)
+        k = apply_rope(self.k_proj(x).reshape(B, T, Hkv, D), positions, self.inv_freq)
+        v = self.v_proj(x).reshape(B, T, Hkv, D)
+        if kv_cache is not None:
+            ck, cv = kv_cache                    # [B, S_max, Hkv, D], updated in place
+            _write_cache(ck, k, kv_write_index)
+            _write_cache(cv, v, kv_write_index)
+            if T == 1:
+                # Single-token decode: plain attention over the cache.
+                out = mha_reference(q, ck, cv, causal=False, kv_len=kv_len)
+            else:
+                out = flash_attention(q, ck, cv, causal=True, kv_len=kv_len,
+                                      q_offset=kv_write_index)
+        else:
+            out = flash_attention(q, k, v, causal=True)
+        return self.o_proj(out.reshape(B, T, Hq * D)), kv_cache
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+
+        def proj(i, o):
+            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device)
+
+        self.gate_proj = proj(cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = proj(cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = proj(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = nn.Parameter(
+            torch.ones(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
+        self.self_attn = LlamaAttention(cfg, device)
+        self.post_attention_layernorm = nn.Parameter(
+            torch.ones(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
+        self.mlp = LlamaMLP(cfg, device)
+
+    def forward(self, x, positions, kv_write_index, kv_cache=None, kv_len=None):
+        eps = self.cfg.rms_norm_eps
+        attn_out, kv_cache = self.self_attn(rms_norm(x, self.input_layernorm, eps),
+                                            positions, kv_write_index, kv_cache, kv_len)
+        x = x + attn_out
+        x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
+        return x, kv_cache
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(LlamaBlock(cfg, device)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.norm = nn.Parameter(torch.ones(cfg.hidden_size, dtype=cfg.param_dtype,
+                                            device=device))
+
+    def forward(self, inputs_embeds, positions, kv_write_index=0,
+                kv_cache: Optional[KVCache] = None, kv_len=None,
+                output_hidden_states: bool = False):
+        """kv_cache: (k, v) each [L, B, S_max, Hkv, D] (init_kv_cache)."""
+        x = inputs_embeds.to(self.cfg.dtype)
+        outs: List[torch.Tensor] = []
+        for i, layer in enumerate(self.layers):
+            layer_cache = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
+            x, _ = layer(x, positions, kv_write_index, layer_cache, kv_len)
+            if output_hidden_states:
+                outs.append(x)
+        final = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+        hidden_states = None
+        if output_hidden_states:
+            # HF convention: [embeds, layer_1..layer_{N-1} outputs, final norm].
+            hidden_states = torch.stack(
+                [inputs_embeds.to(self.cfg.dtype)] + outs[:-1] + [final], dim=0)
+        return final, hidden_states, kv_cache
+
+
+class LlamaForCausalLM(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         dtype=cfg.param_dtype, device=device)
+        self.model = LlamaModel(cfg, device)
+        self.lm_head = LoraDense(cfg.hidden_size, cfg.vocab_size, cfg.dtype, cfg.param_dtype,
+                                 cfg.quantization, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.weight.device
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids).to(self.config.dtype)
+
+    def forward(self, input_ids=None, inputs_embeds=None, positions=None,
+                kv_write_index=0, kv_cache: Optional[KVCache] = None, kv_len=None,
+                output_hidden_states: bool = False):
+        """(logits [B,T,V], hidden_states [L+1,B,T,H] | None, kv_cache | None)."""
+        if inputs_embeds is None:
+            inputs_embeds = self.embed(input_ids)
+        T = inputs_embeds.shape[1]
+        if positions is None:
+            positions = (torch.arange(T, dtype=torch.int32, device=inputs_embeds.device)[None]
+                         + kv_write_index)
+        final, hidden_states, kv_cache = self.model(
+            inputs_embeds, positions, kv_write_index, kv_cache, kv_len,
+            output_hidden_states)
+        return self.lm_head(final), hidden_states, kv_cache
+
+
+def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
+                  device=None) -> KVCache:
+    """(k, v) each [L, B, max_len, Hkv, D] in cfg.dtype, zero-filled."""
+    shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads,
+             cfg.head_dim_)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))

@@ -1,0 +1,280 @@
+"""Conditional 2-D UNet in PyTorch (counterpart of
+spider_tpu/models/unet2d.py): the denoiser of SD-1.5.
+
+``forward`` takes and returns NHWC latents, as the JAX module does; inside,
+the convolutions run in NCHW. Submodule names follow the JAX parameter tree
+(``down_0_res_0``, ``up_3_attn_2.block_0.attn1.to_q``, ...).
+
+Numerics held to the reference: the transformer-block LayerNorms use Flax's
+default eps=1e-6; GroupNorm eps is 1e-5 in the resnets and 1e-6 in
+Transformer2D; the GEGLU feed-forward uses the tanh form of GELU, which is
+jax.nn.gelu's default.
+
+Left out for now: the story paths (story_kv / story, _attention_lse, the
+group bank) and the text_time / class_embed additional embeddings of the
+SDXL and AudioLDM configurations.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from contextvars import ContextVar
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spider_tpu_torch.models.schedulers import timestep_embedding
+from spider_tpu_torch.ops.attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    cross_attn_blocks: Tuple[bool, ...] = (True, True, True, False)
+    layers_per_block: int = 2
+    transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
+    num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    dtype: torch.dtype = torch.float32
+
+
+def unet_sd15() -> UNet2DConfig:
+    return UNet2DConfig()
+
+
+def unet_tiny(cross_attention_dim: int = 32) -> UNet2DConfig:
+    return UNet2DConfig(block_out_channels=(16, 32), cross_attn_blocks=(True, True),
+                        layers_per_block=1, transformer_layers_per_block=(1, 1),
+                        num_attention_heads=(2, 2), cross_attention_dim=cross_attention_dim,
+                        norm_num_groups=4)
+
+
+# Spatial-attention routing override for A/B checks: "auto" = the
+# reference's predicate below; "einsum" = plain attention everywhere.
+_SPATIAL_FLASH = ContextVar("spatial_flash", default="auto")
+
+
+@contextlib.contextmanager
+def spatial_flash_config(mode: str):
+    if mode not in ("auto", "einsum"):
+        raise ValueError(mode)
+    tok = _SPATIAL_FLASH.set(mode)
+    try:
+        yield
+    finally:
+        _SPATIAL_FLASH.reset(tok)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Softmax attention on [B, T, C] projections.
+
+    Routed to the flash kernel exactly where the reference routes to its
+    TPU kernel (unet2d.py's predicate, with "the tensors are on CUDA" for
+    "the backend is a TPU"): D <= 128 and either T >= 4096 or, for D >= 64,
+    fp32 logits over 512 MB. At SD-1.5 512px that is level 0 (T = 4096,
+    D = 40), self- and cross-attention. The kernel masks the ragged edges
+    and takes D = 40 itself, so none of the reference's padding is needed.
+    Elsewhere: the plain einsum + fp32 softmax of the reference.
+    """
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    logits_bytes = 4 * B * heads * T * S
+    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda and D <= 128
+                 and (T >= 4096 or (D >= 64 and logits_bytes > 512 * 1024 * 1024)))
+    if use_flash:
+        out = flash_attention(q.reshape(B, T, heads, D), k.reshape(B, S, heads, D),
+                              v.reshape(B, S, heads, D), causal=False,
+                              sm_scale=1.0 / (D ** 0.5))
+        return out.reshape(B, T, C)
+    q = q.reshape(B, T, heads, D).transpose(1, 2)
+    k = k.reshape(B, S, heads, D).transpose(1, 2)
+    v = v.reshape(B, S, heads, D).transpose(1, 2)
+    logits = torch.einsum("bhtd,bhsd->bhts", q, k).float() / (D ** 0.5)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, v)
+    return out.transpose(1, 2).reshape(B, T, C)
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, cin: int, cout: int, groups: int, temb_dim: int, dt, device=None):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(groups, cin, eps=1e-5, dtype=dt, device=device)
+        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1, dtype=dt, device=device)
+        self.time_emb_proj = nn.Linear(temb_dim, cout, dtype=dt, device=device)
+        self.norm2 = nn.GroupNorm(groups, cout, eps=1e-5, dtype=dt, device=device)
+        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, dtype=dt, device=device)
+        self.conv_shortcut = (nn.Conv2d(cin, cout, 1, dtype=dt, device=device)
+                              if cin != cout else None)
+
+    def forward(self, x, temb):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, ch: int, ctx_dim: int, heads: int, dt, device=None):
+        super().__init__()
+        self.heads = heads
+        self.to_q = nn.Linear(ch, ch, bias=False, dtype=dt, device=device)
+        self.to_k = nn.Linear(ctx_dim, ch, bias=False, dtype=dt, device=device)
+        self.to_v = nn.Linear(ctx_dim, ch, bias=False, dtype=dt, device=device)
+        self.to_out = nn.Linear(ch, ch, dtype=dt, device=device)
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        out = _attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads)
+        return self.to_out(out)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, ch: int, dt, device=None):
+        super().__init__()
+        self.proj_in = nn.Linear(ch, ch * 8, dtype=dt, device=device)
+        self.proj_out = nn.Linear(ch * 4, ch, dtype=dt, device=device)
+
+    def forward(self, x):
+        a, b = self.proj_in(x).chunk(2, dim=-1)
+        return self.proj_out(a * F.gelu(b, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, ch: int, ctx_dim: int, heads: int, dt, device=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(ch, eps=1e-6, dtype=dt, device=device)
+        self.attn1 = CrossAttention(ch, ch, heads, dt, device)
+        self.norm2 = nn.LayerNorm(ch, eps=1e-6, dtype=dt, device=device)
+        self.attn2 = CrossAttention(ch, ctx_dim, heads, dt, device)
+        self.norm3 = nn.LayerNorm(ch, eps=1e-6, dtype=dt, device=device)
+        self.ff = FeedForward(ch, dt, device)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, ch: int, ctx_dim: int, heads: int, depth: int, groups: int, dt,
+                 device=None):
+        super().__init__()
+        self.depth = depth
+        self.norm = nn.GroupNorm(groups, ch, eps=1e-6, dtype=dt, device=device)
+        self.proj_in = nn.Linear(ch, ch, dtype=dt, device=device)
+        for i in range(depth):
+            self.add_module(f"block_{i}", BasicTransformerBlock(ch, ctx_dim, heads, dt,
+                                                                device))
+        self.proj_out = nn.Linear(ch, ch, dtype=dt, device=device)
+
+    def forward(self, x, context):
+        B, C, H, W = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = self.proj_in(h)
+        for i in range(self.depth):
+            h = getattr(self, f"block_{i}")(h, context)
+        h = self.proj_out(h)
+        return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
+
+
+class UNet2DConditionModel(nn.Module):
+    def __init__(self, cfg: UNet2DConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        dt, g = cfg.dtype, cfg.norm_num_groups
+        chs = cfg.block_out_channels
+        ctx = cfg.cross_attention_dim
+        tdim = chs[0] * 4
+        self.time_embed_1 = nn.Linear(chs[0], tdim, dtype=dt, device=device)
+        self.time_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1, dtype=dt,
+                                 device=device)
+        cur = chs[0]
+        skips = [cur]
+        for i, ch in enumerate(chs):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_res_{j}", ResnetBlock2D(cur, ch, g, tdim, dt, device))
+                cur = ch
+                if self._has_attn_down(i):
+                    self.add_module(f"down_{i}_attn_{j}", Transformer2D(
+                        ch, ctx, cfg.num_attention_heads[i],
+                        cfg.transformer_layers_per_block[i], g, dt, device))
+                skips.append(ch)
+            if i < len(chs) - 1:
+                self.add_module(f"down_{i}_downsample", nn.Conv2d(
+                    ch, ch, 3, stride=2, padding=1, dtype=dt, device=device))
+                skips.append(ch)
+        self.mid_res_0 = ResnetBlock2D(cur, cur, g, tdim, dt, device)
+        self.mid_attn = (Transformer2D(cur, ctx, cfg.num_attention_heads[-1],
+                                       max(cfg.transformer_layers_per_block[-1], 1), g, dt,
+                                       device)
+                         if cfg.cross_attn_blocks[-1] else None)
+        self.mid_res_1 = ResnetBlock2D(cur, cur, g, tdim, dt, device)
+        n = len(chs)
+        for i, ch in enumerate(reversed(chs)):
+            for j in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{i}_res_{j}",
+                                ResnetBlock2D(cur + skips.pop(), ch, g, tdim, dt, device))
+                cur = ch
+                if self._has_attn_up(i):
+                    self.add_module(f"up_{i}_attn_{j}", Transformer2D(
+                        ch, ctx, cfg.num_attention_heads[n - 1 - i],
+                        cfg.transformer_layers_per_block[n - 1 - i], g, dt, device))
+            if i < n - 1:
+                self.add_module(f"up_{i}_upsample", nn.Conv2d(ch, ch, 3, padding=1, dtype=dt,
+                                                              device=device))
+        self.norm_out = nn.GroupNorm(g, cur, eps=1e-5, dtype=dt, device=device)
+        self.conv_out = nn.Conv2d(cur, cfg.out_channels, 3, padding=1, dtype=dt,
+                                  device=device)
+
+    def _has_attn_down(self, i: int) -> bool:
+        cfg = self.config
+        return cfg.cross_attn_blocks[i] and cfg.transformer_layers_per_block[i] > 0
+
+    def _has_attn_up(self, i: int) -> bool:
+        return self._has_attn_down(len(self.config.block_out_channels) - 1 - i)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        """sample [B,H,W,Cin] NHWC; timesteps [B]; encoder_hidden_states
+        [B,S,Dctx] -> [B,H,W,Cout] in the model's dtype."""
+        cfg = self.config
+        dt = cfg.dtype
+        n = len(cfg.block_out_channels)
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
+        temb = self.time_embed_2(F.silu(self.time_embed_1(temb)))
+        ctx = encoder_hidden_states.to(dt)
+        x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2).contiguous())
+        skips = [x]
+        for i in range(n):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_res_{j}")(x, temb)
+                if self._has_attn_down(i):
+                    x = getattr(self, f"down_{i}_attn_{j}")(x, ctx)
+                skips.append(x)
+            if i < n - 1:
+                x = getattr(self, f"down_{i}_downsample")(x)
+                skips.append(x)
+        x = self.mid_res_0(x, temb)
+        if self.mid_attn is not None:
+            x = self.mid_attn(x, ctx)
+        x = self.mid_res_1(x, temb)
+        for i in range(n):
+            for j in range(cfg.layers_per_block + 1):
+                x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1), temb)
+                if self._has_attn_up(i):
+                    x = getattr(self, f"up_{i}_attn_{j}")(x, ctx)
+            if i < n - 1:
+                x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
+                                                                    mode="nearest"))
+        x = self.conv_out(F.silu(self.norm_out(x)))
+        return x.permute(0, 2, 3, 1).contiguous()

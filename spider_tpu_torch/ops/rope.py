@@ -1,0 +1,58 @@
+"""Rotary position embeddings (RoPE) with Llama-3 frequency scaling
+(counterpart of spider_tpu/ops/rope.py).
+
+Functional: precompute inv_freq once; apply per call with integer positions
+so the same code serves prefill (positions 0..T) and KV-cached decode
+(position = cache offset)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def rope_inv_freq(head_dim: int, theta: float = 10000.0,
+                  llama3_scaling: Optional[dict] = None,
+                  device=None) -> torch.Tensor:
+    """Inverse frequencies [head_dim / 2] fp32, optionally with
+    Llama-3.1-style scaling.
+
+    llama3_scaling keys: factor, low_freq_factor, high_freq_factor,
+    original_max_position_embeddings.
+    """
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=device) / head_dim))
+    if llama3_scaling:
+        factor = llama3_scaling["factor"]
+        low = llama3_scaling["low_freq_factor"]
+        high = llama3_scaling["high_freq_factor"]
+        orig = llama3_scaling["original_max_position_embeddings"]
+        low_wavelen = orig / low
+        high_wavelen = orig / high
+        wavelen = 2.0 * math.pi / inv_freq
+        smooth = (orig / wavelen - low) / (high - low)
+        inv_freq = torch.where(
+            wavelen > low_wavelen,
+            inv_freq / factor,
+            torch.where(wavelen < high_wavelen, inv_freq,
+                        (1.0 - smooth) / factor * inv_freq + smooth * inv_freq))
+    return inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (x[..., :d/2], x[..., d/2:]) — HF Llama convention.
+
+    x: [..., T, num_heads, head_dim]; positions: broadcastable to [..., T].
+    """
+    angles = positions[..., None].float() * inv_freq       # [..., T, d/2]
+    cos = torch.cos(angles)[..., None, :]                   # [..., T, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    d2 = x.shape[-1] // 2
+    x1f = x[..., :d2].float()
+    x2f = x[..., d2:].float()
+    out1 = x1f * cos - x2f * sin
+    out2 = x2f * cos + x1f * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
