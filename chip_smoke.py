@@ -4,22 +4,33 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  build    compile the flash-attention kernel (spider_tpu_torch/csrc) with nvcc
-  kernel   the kernel against its plain PyTorch version at the slice's shapes
-  chat     the 8B int8 Llama (llama3_8b width and depth, random weights from a
-           seed) through make_llama_chat_fn: a 128-token prompt, 150 greedy tokens
-  request  SpiderFree.chat text+image requests: the 8B chat backbone, tag
-           dispatch, SD-1.5 at 512x512 with 40 DDIM steps and CFG 7.5
+  build        compile both kernels (spider_tpu_torch/csrc) with nvcc, in parallel
+  kernel       each kernel against its plain PyTorch version at the path's shapes
+  unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
+  unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
+  chat         the 8B int8 Llama (llama3_8b width and depth, random weights from a
+               seed) through make_llama_chat_fn: a 128-token prompt, 150 greedy tokens
+  request      SpiderFree.chat text+image requests: the 8B chat backbone, tag
+               dispatch, SD-1.5 at 512x512 with 40 DDIM steps and CFG 7.5
+  any_to_many  SpiderFree.chat requests that render text, image, audio and video:
+               the above plus AudioLDM-l (5 s, 40 steps) and ZeroScope (576x320,
+               16 frames, 40 steps); the first is a warm-up, both are printed
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
-A random-weight LLM never emits tags, so the request's chat function
-appends a fixed <IMAGE>...</IMAGE> span to the model's real output, standing
-in for a trained checkpoint.
+Each main-path phase (chat, request, any_to_many) sets every kernel's launch
+count to 0 just before it runs and reads the counts just after; the kernel
+summary's `launches` is their sum. Launches made to compare a kernel with its
+plain version are not counted.
+
+A random-weight LLM never emits tags, so the requests' chat function
+appends fixed tag spans to the model's real output, standing in for a
+trained checkpoint.
 
 It needs a CUDA device and exits non-zero, printing no result, without one
-or when any phase fails. TF32 is off for matmuls and convolutions, so the
-plain versions compute in full fp32 where they take fp32.
+or when any phase fails. It uses cuda:0 only. TF32 is off for matmuls and
+convolutions, so the plain versions compute in full fp32 where they take
+fp32.
 """
 
 import json
@@ -31,17 +42,26 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SD_CAPTION = "a running horse on a beach"
+AUDIO_CAPTION = "galloping hooves on sand"
+VIDEO_CAPTION = "a horse running on a beach"
 PROMPT_TOKENS = 128
 NEW_TOKENS = 150
 STEPS = 40
 GUIDANCE = 7.5
-REQUESTS = 3
+REQUESTS = 2
+ANY_TO_MANY_REQUESTS = 2
+VIDEO_HW_FRAMES = (320, 576, 16)
+AUDIO_SECONDS = 5.0
 # Kernel vs plain: bf16 output rounding plus another summation order.
 OUT_ATOL = 2e-2
 LSE_ATOL = 1e-3
-# The bf16 UNet with the kernel may be at most this factor (plus 1e-3) less
+# Temporal attention adds bf16's unit roundoff times |plain|: over 16 frames
+# an output can pass 4, where one bf16 step is 0.03125.
+BF16_EPS = 2.0 ** -8
+# A bf16 UNet with a kernel may be at most this factor (plus 1e-3) less
 # accurate, against an fp32 UNet, than the bf16 UNet with plain attention.
 UNET_REL_SLACK = 1.5
+KERNELS = ("flash_fwd", "tattn_fwd")
 
 
 def emit(obj) -> None:
@@ -73,6 +93,22 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def launch_counters():
+    from spider_tpu_torch.ops.attention import flash_attention
+    from spider_tpu_torch.ops.temporal_attention import temporal_attention
+
+    return {"flash_fwd": flash_attention, "tattn_fwd": temporal_attention}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
 def spider_free_prompt_len(tokenizer) -> int:
     from spider_tpu_torch.common.config import Config
     from spider_tpu_torch.serving.spider_free import SpiderFree
@@ -84,9 +120,60 @@ def spider_free_prompt_len(tokenizer) -> int:
     return len(tokenizer(prompt).input_ids)
 
 
-def phase_kernel(dev, spider_free_T: int):
+# ---------------------------------------------------------------------------
+# Launch counts the main path must show, from the model configurations
+# ---------------------------------------------------------------------------
+
+def flash_launches_per_unet2d_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
+                                   batch: int) -> int:
+    """Flash launches in one UNet2D call: each transformer block's self- and
+    cross-attention where unet2d.spatial_flash_predicate holds."""
+    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+
+    def block(level: int) -> int:
+        T = (lat_h >> level) * (lat_w >> level)
+        H = cfg.num_attention_heads[level]
+        D = cfg.block_out_channels[level] // H
+        return (spatial_flash_predicate(batch, T, T, H, D)
+                + spatial_flash_predicate(batch, T, ctx_len, H, D))
+
+    n = len(cfg.block_out_channels)
+    total = 0
+    for lvl in range(n):
+        if cfg.cross_attn_blocks[lvl] and cfg.transformer_layers_per_block[lvl] > 0:
+            blocks = (2 * cfg.layers_per_block + 1) * cfg.transformer_layers_per_block[lvl]
+            total += blocks * block(lvl)
+    if cfg.cross_attn_blocks[-1]:
+        total += max(cfg.transformer_layers_per_block[-1], 1) * block(n - 1)
+    return total
+
+
+def tattn_launches_per_unet3d_call(cfg, lat_h: int, lat_w: int, frames: int) -> int:
+    """Temporal-kernel launches in one UNet3D call: two attentions in each
+    TransformerTemporal whose level is inside the kernel's predicate."""
+    from spider_tpu_torch.ops.temporal_attention import kernel_predicate
+
+    def tt(level: int) -> int:
+        P = (lat_h >> level) * (lat_w >> level)
+        return 2 * kernel_predicate(cfg.num_attention_heads[level], frames, P,
+                                    cfg.block_out_channels[level])
+
+    n = len(cfg.block_out_channels)
+    total = tt(0) + tt(n - 1)                      # transformer_in, mid_tattn
+    for lvl in range(n):
+        if cfg.cross_attn_blocks[lvl]:
+            total += (2 * cfg.layers_per_block + 1) * tt(lvl)   # down + up blocks
+    return total
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain
+# ---------------------------------------------------------------------------
+
+def phase_kernel_flash(dev, spider_free_T: int):
     import torch
 
+    from spider_tpu_torch.models.unet2d import _attention, spatial_flash_config
     from spider_tpu_torch.ops import attention as A
 
     def inputs(B, T, S, Hq, Hkv, D, seed):
@@ -107,6 +194,11 @@ def phase_kernel(dev, spider_free_T: int):
         ("unet_cross_T4096_S77_D40", (2, 4096, 77, 8, 8, 40), dict(causal=False)),
         ("ragged_kv_len", (2, 333, 1000, 32, 8, 128),
          dict(causal=False, kv_len=i32(777, 1000))),
+        # ZeroScope spatial level 0: routed to the plain einsum by the
+        # reference's predicate; measured here only.
+        ("zeroscope_self_T2880_D40", (32, 2880, 2880, 8, 8, 40), dict(causal=False)),
+        ("audioldm_self_T8192_D16", (2, 8192, 8192, 8, 8, 16), dict(causal=False)),
+        ("audioldm_cross_T8192_S1_D16", (2, 8192, 1, 8, 8, 16), dict(causal=False)),
     ]
     rows = []
     for i, (name, shape, kw) in enumerate(cases):
@@ -117,51 +209,73 @@ def phase_kernel(dev, spider_free_T: int):
         err = (out.float() - want.float()).abs().max().item()
         err_lse = (lse - want_lse).abs().max().item()
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        del out, lse, want, want_lse
         ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: A.mha_reference_with_lse(q, k, v, **kw))
         B, T, S, Hq, Hkv, D = shape
-        rows.append(dict(name=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=D,
-                         causal=kw["causal"], max_abs_err=err, max_abs_err_lse=err_lse,
-                         ms=ms, plain_ms=plain_ms, ok=finite and err <= OUT_ATOL
-                         and err_lse <= LSE_ATOL))
-        del q, k, v, out, lse, want, want_lse
+        row = dict(kernel="flash_fwd", name=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=D,
+                   causal=kw["causal"], max_abs_err=err, max_abs_err_lse=err_lse, ms=ms,
+                   plain_ms=plain_ms, ok=finite and err <= OUT_ATOL and err_lse <= LSE_ATOL)
+        if name.startswith("zeroscope"):
+            # The plain path the UNet3D really runs there: unet2d's einsum.
+            flat = [x.reshape(B, -1, Hq * D) for x in (q, k, v)]
+            with spatial_flash_config("einsum"):
+                row["unet_einsum_ms"] = cuda_ms(lambda: _attention(*flat, Hq))
+            del flat
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
-def timed_chat(chat_fn, prompt):
+def phase_kernel_tattn(dev):
     import torch
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    text = chat_fn(prompt)
-    torch.cuda.synchronize()
-    return text, time.perf_counter() - t0
+    from spider_tpu_torch.ops import temporal_attention as TA
+
+    # (name, B, F, P, C, H, layout): ZeroScope's four levels (CFG batch 2,
+    # 16 frames, 8 heads), one pixel-major case and a P that is not a
+    # multiple of any pixel tile the kernel picks.
+    cases = [("zeroscope_L0_D40", 2, 16, 2880, 320, 8, "bfpc"),
+             ("zeroscope_L1_D80", 2, 16, 720, 640, 8, "bfpc"),
+             ("zeroscope_L2_D160", 2, 16, 180, 1280, 8, "bfpc"),
+             ("zeroscope_mid_D160", 2, 16, 45, 1280, 8, "bfpc"),
+             ("bpfc_L1_D80", 2, 16, 720, 640, 8, "bpfc"),
+             ("ragged_P1001_D80", 2, 16, 1001, 640, 8, "bfpc")]
+    rows = []
+    for i, (name, B, F, P, C, H, layout) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        shape = (B, P, F, C) if layout == "bpfc" else (B, F, P, C)
+        q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        out = TA.temporal_attention_kernel(q, k, v, H, layout=layout)
+        want = TA.temporal_attention_reference(q, k, v, H, layout=layout)
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        err = diff.max().item()
+        excess = (diff - (OUT_ATOL + BF16_EPS * want.float().abs())).max().item()
+        finite = bool(torch.isfinite(out).all())
+        ms = cuda_ms(lambda: TA.temporal_attention_kernel(q, k, v, H, layout=layout))
+        plain_ms = cuda_ms(lambda: TA.temporal_attention_reference(q, k, v, H, layout=layout))
+        moved = 4 * q.numel() * q.element_size()          # q, k, v read; out written
+        rows.append(dict(kernel="tattn_fwd", name=name, B=B, F=F, P=P, C=C, H=H, D=C // H,
+                         layout=layout, max_abs_err=err, excess_over_bound=excess,
+                         max_abs_plain=want.float().abs().max().item(), ms=ms,
+                         plain_ms=plain_ms,
+                         gb_per_s=moved / (ms * 1e-3) / 1e9,
+                         plain_gb_per_s=moved / (plain_ms * 1e-3) / 1e9,
+                         ok=finite and excess <= 0))
+        del q, k, v, out, want, diff
+    return rows
 
 
-def phase_chat(model, tokenizer, spider_free_T: int):
-    from spider_tpu_torch.ops.attention import flash_attention
-    from spider_tpu_torch.serving.spider_free import make_llama_chat_fn
+# ---------------------------------------------------------------------------
+# the kernels inside the real models
+# ---------------------------------------------------------------------------
 
-    prompt = ("Describe a horse running on a beach at sunset. " * 8)[:PROMPT_TOKENS - 1]
-    assert len(tokenizer(prompt).input_ids) == PROMPT_TOKENS
-    long_prompt = ("x" * (spider_free_T - 1))
-    first = make_llama_chat_fn(model, tokenizer, max_new_tokens=1)
-    full = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
-    timed_chat(first, prompt)                     # warm-up
-    before = flash_attention.launches
-    prefill_s = min(timed_chat(first, prompt)[1] for _ in range(3))
-    prefill_long_s = min(timed_chat(first, long_prompt)[1] for _ in range(3))
-    text, total_s = timed_chat(full, prompt)
-    launches = flash_attention.launches - before
-    decode_s = total_s - prefill_s
-    return dict(phase="chat", model="llama3_8b int8 weight-only (random weights)",
-                prompt_tokens=PROMPT_TOKENS, new_tokens=NEW_TOKENS,
-                prefill_ms_T128=prefill_s * 1e3,
-                prefill_ms_T_spider_free=prefill_long_s * 1e3,
-                spider_free_prompt_tokens=spider_free_T,
-                generate_s=total_s, decode_tok_s=(NEW_TOKENS - 1) / decode_s,
-                flash_launches=launches, text_chars=len(text),
-                ok=launches > 0 and isinstance(text, str))
+def _rel_errors(routed, plain, ref):
+    rel = lambda a: ((a - ref).norm() / ref.norm()).item()
+    return rel(routed), rel(plain)
 
 
 def phase_unet_check(pipe, dev):
@@ -189,20 +303,119 @@ def phase_unet_check(pipe, dev):
             plain = pipe.unet(lat, t, ctx).float()
             ref = ref_unet(lat, t, ctx.float())
     del ref_unet
-    rel = lambda a: ((a - ref).norm() / ref.norm()).item()
-    err_kernel, err_plain = rel(routed), rel(plain)
+    err_kernel, err_plain = _rel_errors(routed, plain, ref)
     return dict(phase="unet_check", rel_err_kernel_vs_fp32=err_kernel,
                 rel_err_plain_vs_fp32=err_plain,
                 ok=bool(torch.isfinite(routed).all())
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 
-def phase_request(model, tokenizer, pipe, dev):
+def phase_unet3d_check(pipe, dev):
+    """The same check for the ZeroScope UNet3D at full size (CFG batch 2,
+    16 frames, 576x320): temporal attention through the kernel at all four
+    levels, then plain, each against an fp32 copy with plain attention."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models.unet3d import UNet3DConditionModel
+    from spider_tpu_torch.ops.temporal_attention import (temporal_attention,
+                                                         temporal_attention_config)
+
+    h, w, frames = VIDEO_HW_FRAMES
+    g = torch.Generator(device=dev).manual_seed(8)
+    lat = torch.randn((2, frames, h // 8, w // 8, 4), generator=g, device=dev)
+    ctx = torch.cat([pipe.encode_prompt([""]), pipe.encode_prompt([VIDEO_CAPTION])])
+    t = torch.full((2,), 981, dtype=torch.int32, device=dev)
+    ref_unet = UNet3DConditionModel(
+        dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
+    ref_unet.load_state_dict(pipe.unet.state_dict())
+    with torch.inference_mode():
+        before = temporal_attention.launches
+        routed = pipe.unet(lat, t, ctx).float()
+        launches = temporal_attention.launches - before
+        with temporal_attention_config("plain"):
+            plain = pipe.unet(lat, t, ctx).float()
+            ref = ref_unet(lat, t, ctx.float())
+    del ref_unet
+    torch.cuda.empty_cache()
+    err_kernel, err_plain = _rel_errors(routed, plain, ref)
+    want = tattn_launches_per_unet3d_call(pipe.unet.config, h // 8, w // 8, frames)
+    return dict(phase="unet3d_check", rel_err_kernel_vs_fp32=err_kernel,
+                rel_err_plain_vs_fp32=err_plain, tattn_launches=launches,
+                tattn_launches_expected=want,
+                ok=bool(torch.isfinite(routed).all()) and launches == want
+                and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
+
+def timed_chat(chat_fn, prompt):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = chat_fn(prompt)
+    torch.cuda.synchronize()
+    return text, time.perf_counter() - t0
+
+
+def phase_chat(model, tokenizer, spider_free_T: int):
+    from spider_tpu_torch.serving.spider_free import make_llama_chat_fn
+
+    prompt = ("Describe a horse running on a beach at sunset. " * 8)[:PROMPT_TOKENS - 1]
+    assert len(tokenizer(prompt).input_ids) == PROMPT_TOKENS
+    long_prompt = ("x" * (spider_free_T - 1))
+    first = make_llama_chat_fn(model, tokenizer, max_new_tokens=1)
+    full = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
+    reset_launches()
+    timed_chat(first, prompt)                     # warm-up
+    prefill_s = min(timed_chat(first, prompt)[1] for _ in range(3))
+    prefill_long_s = min(timed_chat(first, long_prompt)[1] for _ in range(3))
+    text, total_s = timed_chat(full, prompt)
+    launches = read_launches()
+    decode_s = total_s - prefill_s
+    return dict(phase="chat", model="llama3_8b int8 weight-only (random weights)",
+                prompt_tokens=PROMPT_TOKENS, new_tokens=NEW_TOKENS,
+                prefill_ms_T128=prefill_s * 1e3,
+                prefill_ms_T_spider_free=prefill_long_s * 1e3,
+                spider_free_prompt_tokens=spider_free_T,
+                generate_s=total_s, decode_tok_s=(NEW_TOKENS - 1) / decode_s,
+                launches=launches, text_chars=len(text),
+                ok=launches["flash_fwd"] > 0 and isinstance(text, str))
+
+
+def _timed_decoder(pipe, key: str, timing: dict, seed: int):
+    """A SpiderDecoder callable running `pipe` with a seeded generator and
+    recording its seconds, output shape, arguments and kernel launches."""
     import numpy as np
     import torch
 
+    def fn(prompt, **kw):
+        g = torch.Generator(device=pipe.device).manual_seed(seed)
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = pipe(prompt=prompt, generator=g, **kw)
+        torch.cuda.synchronize()
+        timing[f"{key}_s"] = time.perf_counter() - t0
+        timing[f"{key}_launches"] = {n: c - before[n] for n, c in read_launches().items()}
+        timing[f"{key}_shape"] = list(out.shape)
+        timing[f"{key}_kw"] = kw
+        arr = np.asarray(out, np.float32)
+        timing[f"{key}_finite"] = bool(np.isfinite(arr).all())
+        timing[f"{key}_range"] = [float(arr.min()), float(arr.max())]
+        timing[f"{key}_dtype"] = str(out.dtype)
+        return out
+    return fn
+
+
+def phase_request(model, tokenizer, pipe):
+    import torch
+
     from spider_tpu_torch.common.config import Config
-    from spider_tpu_torch.ops.attention import flash_attention
     from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
 
     llm_chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
@@ -213,44 +426,113 @@ def phase_request(model, tokenizer, pipe, dev):
         timing["chat_s"] = s
         return text + f" <IMAGE>{SD_CAPTION}</IMAGE>"
 
-    def image_fn(prompt, **kw):
-        g = torch.Generator(device=dev).manual_seed(1)
-        torch.cuda.synchronize()
-        before = flash_attention.launches
-        t0 = time.perf_counter()
-        img = pipe(prompt=prompt, generator=g, **kw)
-        torch.cuda.synchronize()
-        timing["image_s"] = time.perf_counter() - t0
-        timing["image_launches"] = flash_attention.launches - before
-        timing["image_shape"] = list(img.shape)
-        timing["image_kw"] = kw
-        return img
-
     cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
-    sf = SpiderFree(cfg, chat_fn=chat_fn, decoders={"IMAGE": image_fn})
+    sf = SpiderFree(cfg, chat_fn=chat_fn,
+                    decoders={"IMAGE": _timed_decoder(pipe, "image", timing, seed=1)})
+    want_image = STEPS * flash_launches_per_unet2d_call(pipe.unet.config, 64, 64, 77, 2)
     rows = []
     for r in range(REQUESTS):
         timing.clear()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         events = sf.chat(f"Show me {SD_CAPTION}.", task_prompt="IMAGE")[0]
         total = time.perf_counter() - t0
+        launches = read_launches()
         kinds = [k for k, _ in events]
         images = [p["media"] for k, p in events if k == "image"]
-        img = np.asarray(images[0], np.float32) if images else None
-        ok = (kinds[:1] == ["text"] and len(images) == 1
+        ok = (kinds == ["text", "image"] and len(images) == 1
               and timing.get("image_shape") == [1, 512, 512, 3]
-              and img.shape == (512, 512, 3) and bool(np.isfinite(img).all())
-              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
-              and timing.get("image_launches", 0) > 0
+              and images[0].shape == (512, 512, 3) and timing.get("image_finite")
+              and timing["image_range"][0] >= 0.0 and timing["image_range"][1] <= 1.0
+              and timing["image_launches"]["flash_fwd"] == want_image
               and timing.get("image_kw") == dict(guidance_scale=GUIDANCE,
                                                  num_inference_steps=STEPS))
         rows.append(dict(phase="request", request=r, events=kinds, seconds=total,
                          chat_s=timing.get("chat_s"), image_s=timing.get("image_s"),
                          image_launches=timing.get("image_launches"),
+                         image_launches_expected=want_image,
                          image_shape=timing.get("image_shape"),
-                         image_min=None if img is None else float(img.min()),
-                         image_max=None if img is None else float(img.max()), ok=ok))
+                         image_range=timing.get("image_range"), launches=launches, ok=ok))
+    return rows
+
+
+def phase_any_to_many(model, tokenizer, sd, ad, vd):
+    import torch
+
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models.vocoder import output_length
+    from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
+
+    llm_chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
+    timing = {}
+    tags = (f" <IMAGE>{SD_CAPTION}</IMAGE> <AUDIO>{AUDIO_CAPTION}</AUDIO>"
+            f" <VIDEO>{VIDEO_CAPTION}</VIDEO>")
+
+    def chat_fn(prompt):
+        text, s = timed_chat(llm_chat, prompt)
+        timing["chat_s"] = s
+        return text + tags
+
+    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+    sf = SpiderFree(cfg, chat_fn=chat_fn, decoders={
+        "IMAGE": _timed_decoder(sd, "image", timing, seed=1),
+        "AUDIO": _timed_decoder(ad, "audio", timing, seed=2),
+        "VIDEO": _timed_decoder(vd, "video", timing, seed=3)})
+
+    # What the configurations say the request must show.
+    h, w, frames = VIDEO_HW_FRAMES
+    lat = ad.latent_shape(1, AUDIO_SECONDS)
+    mel_frames = lat[1] * 2 ** (len(ad.vae.config.block_out_channels) - 1)
+    want = dict(
+        image_flash=STEPS * flash_launches_per_unet2d_call(sd.unet.config, 64, 64, 77, 2),
+        audio_flash=STEPS * flash_launches_per_unet2d_call(ad.unet.config, lat[1], lat[2],
+                                                           1, 2),
+        video_tattn=STEPS * tattn_launches_per_unet3d_call(vd.unet.config, h // 8, w // 8,
+                                                           frames),
+        audio_shape=[1, output_length(ad.vocoder.config, mel_frames)],
+        video_shape=[1, frames, h, w, 3])
+    rows = []
+    for r in range(ANY_TO_MANY_REQUESTS):
+        timing.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events = sf.chat(f"Show me {SD_CAPTION}, let me hear it and film it.",
+                         task_prompt="SMARTMULTIMODAL")[0]
+        total = time.perf_counter() - t0
+        launches = read_launches()
+        kinds = [k for k, _ in events]
+        media = {k: p["media"] for k, p in events if k != "text"}
+        ok = (
+            # the controller dispatches in its key order: IMAGE, VIDEO, AUDIO
+            kinds == ["text", "image", "video", "audio"]
+            and timing.get("image_shape") == [1, 512, 512, 3]
+            and media["image"].shape == (512, 512, 3) and timing["image_finite"]
+            and 0.0 <= timing["image_range"][0] and timing["image_range"][1] <= 1.0
+            and timing["image_launches"]["flash_fwd"] == want["image_flash"]
+            and timing.get("audio_shape") == want["audio_shape"] and timing["audio_finite"]
+            and -1.0 <= timing["audio_range"][0] and timing["audio_range"][1] <= 1.0
+            and timing["audio_launches"]["flash_fwd"] == want["audio_flash"]
+            and timing.get("audio_kw") == dict(guidance_scale=GUIDANCE,
+                                               num_inference_steps=STEPS,
+                                               audio_length_in_s=AUDIO_SECONDS)
+            and timing.get("video_shape") == want["video_shape"]
+            and timing["video_dtype"] == "uint8"
+            and timing["video_launches"]["tattn_fwd"] == want["video_tattn"]
+            and timing.get("video_kw") == dict(guidance_scale=GUIDANCE,
+                                               num_inference_steps=STEPS, height=h, width=w,
+                                               num_frames=frames))
+        rows.append(dict(
+            phase="any_to_many", request=r, warm_up=r == 0, events=kinds, seconds=total,
+            chat_s=timing.get("chat_s"), image_s=timing.get("image_s"),
+            audio_s=timing.get("audio_s"), video_s=timing.get("video_s"),
+            image_launches=timing.get("image_launches"),
+            audio_launches=timing.get("audio_launches"),
+            video_launches=timing.get("video_launches"), expected=want,
+            audio_shape=timing.get("audio_shape"), audio_range=timing.get("audio_range"),
+            video_shape=timing.get("video_shape"), video_dtype=timing.get("video_dtype"),
+            launches=launches, ok=ok))
     return rows
 
 
@@ -277,55 +559,68 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     ok = True
 
-    # ---- build
+    # ---- build: one nvcc per kernel source, all started together
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    cuda_build.load("flash_fwd")
+    cuda_build.load_all(KERNELS)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds=cuda_build.BUILD_SECONDS.get("flash_fwd", 0.0), nvidia_smi=smi,
-              tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+              nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k, 0.0) for k in KERNELS},
+              nvidia_smi=smi, tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
               tf32_cudnn=torch.backends.cudnn.allow_tf32))
 
     from spider_tpu_torch.models import factory
-    from spider_tpu_torch.ops.attention import flash_attention
 
     model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
     spider_free_T = spider_free_prompt_len(tokenizer)
 
     # ---- kernel vs plain (these launches are not the main path's)
-    rows = phase_kernel(dev, spider_free_T)
+    rows = phase_kernel_flash(dev, spider_free_T) + phase_kernel_tattn(dev)
     for row in rows:
         emit(dict(phase="kernel", **row))
         ok &= row["ok"]
 
-    pipe = factory.from_pretrained("sd15", device=dev, dtype=torch.bfloat16, seed=0)
-    check = phase_unet_check(pipe, dev)
+    sd = factory.from_pretrained("sd15", device=dev, dtype=torch.bfloat16, seed=0)
+    check = phase_unet_check(sd, dev)
     emit(check)
     ok &= check["ok"]
+    vd = factory.from_pretrained("zeroscope", device=dev, dtype=torch.bfloat16, seed=1)
+    check = phase_unet3d_check(vd, dev)
+    emit(check)
+    ok &= check["ok"]
+    ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
 
-    # ---- the main path: chat, then text+image requests
-    flash_attention.launches = 0
-    chat = phase_chat(model, tokenizer, spider_free_T)
-    emit(chat)
-    ok &= chat["ok"]
-    for row in phase_request(model, tokenizer, pipe, dev):
+    # ---- the main path: chat, text+image requests, any-to-many requests;
+    # each phase zeroes the counts before it runs and reads them after.
+    main_launches = dict.fromkeys(KERNELS, 0)
+    phases = [phase_chat(model, tokenizer, spider_free_T)]
+    phases += phase_request(model, tokenizer, sd)
+    phases += phase_any_to_many(model, tokenizer, sd, ad, vd)
+    for row in phases:
         emit(row)
         ok &= row["ok"]
-    launches = flash_attention.launches
-    ok &= launches > 0
+        for name in KERNELS:
+            main_launches[name] += row["launches"][name]
+    ok &= all(n > 0 for n in main_launches.values())
 
-    sd_row = next(r for r in rows if r["name"] == "unet_self_T4096_D40")
-    emit({"kernels": [dict(
-        name="flash_fwd", route="cuda", source="spider_tpu_torch/csrc/flash_fwd.cu",
-        replaces="spider_tpu/ops/attention.py:67", launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows), ms=sd_row["ms"],
-        plain_ms=sd_row["plain_ms"])]})
+    by_name = {r["name"]: r for r in rows}
+    flash_row, tattn_row = by_name["unet_self_T4096_D40"], by_name["zeroscope_L0_D40"]
+    emit({"kernels": [
+        dict(name="flash_fwd", route="cuda", source="spider_tpu_torch/csrc/flash_fwd.cu",
+             replaces="spider_tpu/ops/attention.py:67", launches=main_launches["flash_fwd"],
+             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "flash_fwd"),
+             ms=flash_row["ms"], plain_ms=flash_row["plain_ms"]),
+        dict(name="tattn_fwd", route="cuda", source="spider_tpu_torch/csrc/tattn_fwd.cu",
+             replaces="spider_tpu/ops/temporal_attention.py:45",
+             launches=main_launches["tattn_fwd"],
+             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "tattn_fwd"),
+             ms=tattn_row["ms"], plain_ms=tattn_row["plain_ms"])]})
     print(smi, flush=True)
     if not ok:
         print("chip_smoke: a phase failed (see the JSON lines above)", file=sys.stderr)
         return 1
+    # The run uses one device, cuda:0, whatever else the machine shows.
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

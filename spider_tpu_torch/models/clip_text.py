@@ -1,9 +1,10 @@
-"""CLIP text encoder in PyTorch (counterpart of
-spider_tpu/models/clip_text.py): SD-1.5 conditions on CLIP ViT-L/14 (768-d).
-Submodule names follow the JAX parameter tree (``layers_<i>.q_proj``, ...).
-The attention is plain torch, as the reference keeps it an XLA einsum.
-Both presets use quick_gelu; the "gelu" activation of OpenCLIP bigG and the
-CLAP text branch of AudioLDM are not ported yet."""
+"""CLIP-family text encoders in PyTorch (counterpart of
+spider_tpu/models/clip_text.py): SD-1.5 conditions on CLIP ViT-L/14 (768-d),
+ZeroScope on CLIP ViT-H (1024-d), AudioLDM on the CLAP text branch (512-d
+pooled projection). Submodule names follow the JAX parameter tree
+(``layers_<i>.q_proj``, ``l<i>_q``, ...). The attention is plain torch, as
+the reference keeps it an XLA einsum. "gelu" is the tanh form, which is
+jax.nn.gelu's default."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.ops.attention import mha_reference
@@ -24,6 +26,7 @@ class CLIPTextConfig:
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     max_position_embeddings: int = 77
+    hidden_act: str = "quick_gelu"        # or "gelu" (tanh form)
     eos_token_id: int = 49407
     projection_dim: Optional[int] = None  # text_projection output (pooled)
     dtype: torch.dtype = torch.float32
@@ -31,6 +34,11 @@ class CLIPTextConfig:
 
 def clip_vit_l14() -> CLIPTextConfig:
     return CLIPTextConfig()
+
+
+def clip_vit_h14() -> CLIPTextConfig:
+    return CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_hidden_layers=23,
+                          num_attention_heads=16)
 
 
 def clip_tiny(vocab_size: int = 1000) -> CLIPTextConfig:
@@ -41,6 +49,14 @@ def clip_tiny(vocab_size: int = 1000) -> CLIPTextConfig:
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+def _act(name: str):
+    if name == "quick_gelu":
+        return quick_gelu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown hidden_act {name!r}")
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -67,7 +83,7 @@ class CLIPEncoderLayer(nn.Module):
         v = self.v_proj(y).reshape(B, T, nh, H // nh)
         attn = mha_reference(q, k, v, causal=True)          # CLIP text is causal
         x = x + self.out_proj(attn.reshape(B, T, H))
-        y = self.fc2(quick_gelu(self.fc1(self.layer_norm2(x))))
+        y = self.fc2(_act(cfg.hidden_act)(self.fc1(self.layer_norm2(x))))
         return x + y
 
 
@@ -104,3 +120,72 @@ class CLIPTextModel(nn.Module):
         if self.text_projection is not None:
             pooled = self.text_projection(pooled)
         return x, torch.stack(hiddens, dim=0), pooled
+
+
+@dataclasses.dataclass(frozen=True)
+class ClapTextConfig:
+    """CLAP text branch (RoBERTa-style bidirectional encoder + projection),
+    AudioLDM's prompt conditioning (512-d pooled)."""
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 514
+    projection_dim: int = 512
+    dtype: torch.dtype = torch.float32
+
+
+def clap_tiny(vocab_size: int = 1000) -> ClapTextConfig:
+    return ClapTextConfig(vocab_size=vocab_size, hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=4, projection_dim=16)
+
+
+class ClapTextModel(nn.Module):
+    """forward(input_ids [B, T], attention_mask [B, T] or None) ->
+    (last_hidden [B, T, hidden], pooled projection [B, projection_dim]).
+
+    Post-norm layers with LayerNorm eps 1e-12 and tanh GELU; keys past each
+    row's ``attention_mask.sum()`` are masked (the reference's kv_len); the
+    first token is pooled, then a ReLU MLP projects it."""
+
+    def __init__(self, cfg: ClapTextConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        Hd, dt = cfg.hidden_size, cfg.dtype
+        lin = lambda i, o: nn.Linear(i, o, dtype=dt, device=device)
+        ln = lambda: nn.LayerNorm(Hd, eps=1e-12, dtype=dt, device=device)
+        self.token_embedding = nn.Embedding(cfg.vocab_size, Hd, dtype=dt, device=device)
+        # Held in fp32 as the reference's param is, cast at use.
+        self.position_embedding = nn.Parameter(torch.zeros(
+            cfg.max_position_embeddings, Hd, dtype=torch.float32, device=device))
+        self.embed_ln = ln()
+        for i in range(cfg.num_hidden_layers):
+            for name in ("q", "k", "v", "out"):
+                self.add_module(f"l{i}_{name}", lin(Hd, Hd))
+            self.add_module(f"l{i}_ln1", ln())
+            self.add_module(f"l{i}_fc1", lin(Hd, cfg.intermediate_size))
+            self.add_module(f"l{i}_fc2", lin(cfg.intermediate_size, Hd))
+            self.add_module(f"l{i}_ln2", ln())
+        self.proj_fc1 = lin(Hd, cfg.projection_dim)
+        self.proj_fc2 = lin(cfg.projection_dim, cfg.projection_dim)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None):
+        cfg = self.config
+        B, T = input_ids.shape
+        nh = cfg.num_attention_heads
+        x = self.token_embedding(input_ids) + self.position_embedding[None, :T].to(cfg.dtype)
+        x = self.embed_ln(x)
+        if attention_mask is None:
+            attention_mask = torch.ones((B, T), dtype=torch.int32, device=input_ids.device)
+        kv_len = attention_mask.sum(dim=-1).to(torch.int32)
+        heads = lambda t: t.reshape(B, T, nh, -1)
+        for i in range(cfg.num_hidden_layers):
+            layer = lambda name: getattr(self, f"l{i}_{name}")
+            attn = mha_reference(heads(layer("q")(x)), heads(layer("k")(x)),
+                                 heads(layer("v")(x)), causal=False, kv_len=kv_len)
+            x = layer("ln1")(x + layer("out")(attn.reshape(B, T, -1)))
+            y = layer("fc2")(F.gelu(layer("fc1")(x), approximate="tanh"))
+            x = layer("ln2")(x + y)
+        p = self.proj_fc2(torch.relu(self.proj_fc1(x[:, 0])))
+        return x, p

@@ -7,13 +7,20 @@ port's module. The port names its submodules after the JAX tree, so this is
 one generic walk with per-leaf layout rules:
 
   * Dense ``kernel`` [in, out]     -> ``weight`` [out, in] (transpose)
-  * Conv ``kernel`` HWIO           -> ``weight`` OIHW
+  * Conv ``kernel`` HWIO           -> ``weight`` OIHW; this also carries
+    UNet3D's frame-axis conv, [3, 1, Cin, Cout], onto the port's
+    ``nn.Conv2d`` with a (3, 1) kernel over (frames, pixels)
+  * Conv1d ``kernel`` [k, in, out] -> ``weight`` [out, in, k]
+  * ConvTranspose1dTorch ``kernel`` [k, in, out] -> ``weight`` [in, out, k],
+    no flip (the JAX module flips it in its forward pass, torch's
+    ConvTranspose1d applies the weight as is)
   * int8 ``kernel_q`` [in, out]    -> ``kernel_q`` [out, in]; ``kernel_scale`` as is
   * Embed ``embedding``            -> ``weight``
   * LayerNorm/GroupNorm ``scale``  -> ``weight``
   * a scanned ``layers`` subtree with a leading L axis -> one slice per
     entry of an ``nn.ModuleList``
-  * anything else (biases, raw parameters such as ``input_layernorm``)
+  * anything else (biases, raw parameters such as ``input_layernorm``,
+    CLAP's ``position_embedding``, HiFi-GAN's ``mean`` and ``scale``)
     -> the attribute of the same name, as is.
 
 Every JAX leaf must land on a parameter or buffer of the same shape, and
@@ -46,6 +53,10 @@ def _leaf(mod: nn.Module, key: str, arr: np.ndarray):
     if key == "kernel":
         if isinstance(mod, nn.Conv2d):
             return "weight", arr.transpose(3, 2, 0, 1)
+        if isinstance(mod, nn.ConvTranspose1d):
+            return "weight", arr.transpose(1, 2, 0)
+        if isinstance(mod, nn.Conv1d):
+            return "weight", arr.transpose(2, 1, 0)
         return "weight", arr.T
     if key == "kernel_q":
         return "kernel_q", arr.T

@@ -16,7 +16,8 @@ from spider_tpu_torch.models.tokenizer import TinyTokenizer
 
 # Standard deviation of an int8 weight drawn uniformly from [-127, 127].
 _INT8_STD = (((2 * 127 + 1) ** 2 - 1) / 12) ** 0.5
-_ONES = ("input_layernorm", "post_attention_layernorm", "norm", "kernel_scale")
+# Multiplicative scales start at 1 (HiFi-GAN divides by its raw ``scale``).
+_ONES = ("input_layernorm", "post_attention_layernorm", "norm", "kernel_scale", "scale")
 
 
 def random_init_(module: nn.Module, generator: torch.Generator,
@@ -64,7 +65,11 @@ def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
     """Full-size random-init model on `device`.
 
     kinds: 'sd15' -> StableDiffusionPipeline at 512px (text encoder, UNet
-    and VAE in `dtype`); 'llama' -> (LlamaForCausalLM 8B int8, TinyTokenizer).
+    and VAE in `dtype`); 'zeroscope' -> TextToVideoSDPipeline at 576x320
+    (CLIP ViT-H, the 1.4B UNet3D and the SD VAE in `dtype`); 'audioldm' ->
+    AudioLDMPipeline (CLAP text, the AudioLDM-l UNet and mel VAE in `dtype`;
+    the HiFi-GAN vocoder in fp32, as the reference computes it); 'llama' ->
+    (LlamaForCausalLM 8B int8, TinyTokenizer).
     There is no checkpoint path yet: convert a checkpoint with
     spider_tpu/models/convert.py, then fill the returned module with
     ``spider_tpu_torch.models.convert.load_jax_params``.
@@ -85,4 +90,41 @@ def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
             random_init_(m.eval(), gen)
         return StableDiffusionPipeline(TinyTokenizer(), text, unet, vae, height=512,
                                        width=512)
-    raise ValueError(f"unknown kind {kind!r} (expected 'sd15' or 'llama')")
+    if kind == "zeroscope":
+        from spider_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_h14
+        from spider_tpu_torch.models.pipelines.vd import TextToVideoSDPipeline
+        from spider_tpu_torch.models.unet3d import UNet3DConditionModel, unet3d_zeroscope
+        from spider_tpu_torch.models.vae import AutoencoderKL, vae_sd
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        text = CLIPTextModel(dataclasses.replace(clip_vit_h14(), dtype=dtype), device)
+        unet = UNet3DConditionModel(dataclasses.replace(unet3d_zeroscope(), dtype=dtype),
+                                    device)
+        vae = AutoencoderKL(dataclasses.replace(vae_sd(), dtype=dtype), device)
+        for m in (text, unet, vae):
+            random_init_(m.eval(), gen)
+        return TextToVideoSDPipeline(TinyTokenizer(), text, unet, vae)
+    if kind == "audioldm":
+        from spider_tpu_torch.models.clip_text import ClapTextConfig, ClapTextModel
+        from spider_tpu_torch.models.pipelines.ad import AudioLDMPipeline
+        from spider_tpu_torch.models.unet2d import UNet2DConditionModel, unet_audioldm
+        from spider_tpu_torch.models.vae import AutoencoderKL, vae_audioldm
+        from spider_tpu_torch.models.vocoder import HifiGan, hifigan_audioldm
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        tcfg = dataclasses.replace(ClapTextConfig(), dtype=dtype)
+        # The cross-attention context is the CLAP vector itself, so its
+        # width is the CLAP projection width (pipelines/ad.py).
+        ucfg = dataclasses.replace(unet_audioldm(), dtype=dtype,
+                                   cross_attention_dim=tcfg.projection_dim,
+                                   addition_embed_type="class_embed",
+                                   projection_class_embeddings_input_dim=tcfg.projection_dim)
+        text = ClapTextModel(tcfg, device)
+        unet = UNet2DConditionModel(ucfg, device)
+        vae = AutoencoderKL(dataclasses.replace(vae_audioldm(), dtype=dtype), device)
+        vocoder = HifiGan(hifigan_audioldm(), device)
+        for m in (text, unet, vae, vocoder):
+            random_init_(m.eval(), gen)
+        return AudioLDMPipeline(TinyTokenizer(), text, unet, vae, vocoder, mel_bins=64)
+    raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', 'audioldm' "
+                     f"or 'llama')")

@@ -1,5 +1,6 @@
 """Conditional 2-D UNet in PyTorch (counterpart of
-spider_tpu/models/unet2d.py): the denoiser of SD-1.5.
+spider_tpu/models/unet2d.py): the denoiser of SD-1.5 and, in 8-channel mel
+form with the CLAP class embedding, of AudioLDM.
 
 ``forward`` takes and returns NHWC latents, as the JAX module does; inside,
 the convolutions run in NCHW. Submodule names follow the JAX parameter tree
@@ -11,8 +12,7 @@ Transformer2D; the GEGLU feed-forward uses the tanh form of GELU, which is
 jax.nn.gelu's default.
 
 Left out for now: the story paths (story_kv / story, _attention_lse, the
-group bank) and the text_time / class_embed additional embeddings of the
-SDXL and AudioLDM configurations.
+group bank) and the text_time additional embedding of SDXL.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from contextvars import ContextVar
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +41,8 @@ class UNet2DConfig:
     num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
+    addition_embed_type: Optional[str] = None           # "class_embed" for AudioLDM
+    projection_class_embeddings_input_dim: int = 2816
     dtype: torch.dtype = torch.float32
 
 
@@ -48,11 +50,24 @@ def unet_sd15() -> UNet2DConfig:
     return UNet2DConfig()
 
 
-def unet_tiny(cross_attention_dim: int = 32) -> UNet2DConfig:
-    return UNet2DConfig(block_out_channels=(16, 32), cross_attn_blocks=(True, True),
+def unet_audioldm() -> UNet2DConfig:
+    """AudioLDM-l: 8 latent channels; the CLAP embedding enters through the
+    class embedding (pipelines/ad.py sets addition_embed_type and the CLAP
+    widths)."""
+    return UNet2DConfig(in_channels=8, out_channels=8, block_out_channels=(128, 256, 384, 640),
+                        cross_attn_blocks=(True, True, True, True),
+                        num_attention_heads=(8, 8, 8, 8), cross_attention_dim=128)
+
+
+def unet_tiny(cross_attention_dim: int = 32, addition_embed_type: Optional[str] = None,
+              projection_dim: int = 40, in_channels: int = 4,
+              out_channels: int = 4) -> UNet2DConfig:
+    return UNet2DConfig(in_channels=in_channels, out_channels=out_channels,
+                        block_out_channels=(16, 32), cross_attn_blocks=(True, True),
                         layers_per_block=1, transformer_layers_per_block=(1, 1),
                         num_attention_heads=(2, 2), cross_attention_dim=cross_attention_dim,
-                        norm_num_groups=4)
+                        norm_num_groups=4, addition_embed_type=addition_embed_type,
+                        projection_class_embeddings_input_dim=projection_dim)
 
 
 # Spatial-attention routing override for A/B checks: "auto" = the
@@ -71,23 +86,30 @@ def spatial_flash_config(mode: str):
         _SPATIAL_FLASH.reset(tok)
 
 
+def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
+    """Where the reference routes spatial attention to its TPU flash kernel
+    (unet2d.py:163-165, minus "the backend is a TPU"): D <= 128 and either
+    T >= 4096 or, for D >= 64, fp32 logits over 512 MiB."""
+    logits_bytes = 4 * B * heads * T * S
+    return D <= 128 and (T >= 4096 or (D >= 64 and logits_bytes > 512 * 1024 * 1024))
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """Softmax attention on [B, T, C] projections.
 
-    Routed to the flash kernel exactly where the reference routes to its
-    TPU kernel (unet2d.py's predicate, with "the tensors are on CUDA" for
-    "the backend is a TPU"): D <= 128 and either T >= 4096 or, for D >= 64,
-    fp32 logits over 512 MB. At SD-1.5 512px that is level 0 (T = 4096,
-    D = 40), self- and cross-attention. The kernel masks the ragged edges
-    and takes D = 40 itself, so none of the reference's padding is needed.
-    Elsewhere: the plain einsum + fp32 softmax of the reference.
+    Routed to the flash kernel on CUDA tensors where
+    ``spatial_flash_predicate`` holds. At SD-1.5 512px that is level 0
+    (T = 4096, D = 40), at AudioLDM 5 s level 0 (T = 8192, D = 16; S = 1 in
+    cross-attention), self- and cross-attention; at ZeroScope no level. The
+    kernel masks the ragged edges and takes D = 16 or 40 itself, so none of
+    the reference's padding is needed. Elsewhere: the plain einsum + fp32
+    softmax of the reference.
     """
     B, T, C = q.shape
     S = k.shape[1]
     D = C // heads
-    logits_bytes = 4 * B * heads * T * S
-    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda and D <= 128
-                 and (T >= 4096 or (D >= 64 and logits_bytes > 512 * 1024 * 1024)))
+    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda
+                 and spatial_flash_predicate(B, T, S, heads, D))
     if use_flash:
         out = flash_attention(q.reshape(B, T, heads, D), k.reshape(B, S, heads, D),
                               v.reshape(B, S, heads, D), causal=False,
@@ -196,6 +218,12 @@ class UNet2DConditionModel(nn.Module):
         tdim = chs[0] * 4
         self.time_embed_1 = nn.Linear(chs[0], tdim, dtype=dt, device=device)
         self.time_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
+        if cfg.addition_embed_type not in (None, "class_embed"):
+            raise NotImplementedError(f"addition_embed_type={cfg.addition_embed_type!r}")
+        if cfg.addition_embed_type == "class_embed":
+            self.class_embed_1 = nn.Linear(cfg.projection_class_embeddings_input_dim, tdim,
+                                           dtype=dt, device=device)
+            self.class_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1, dtype=dt,
                                  device=device)
         cur = chs[0]
@@ -244,14 +272,22 @@ class UNet2DConditionModel(nn.Module):
         return self._has_attn_down(len(self.config.block_out_channels) - 1 - i)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """sample [B,H,W,Cin] NHWC; timesteps [B]; encoder_hidden_states
-        [B,S,Dctx] -> [B,H,W,Cout] in the model's dtype."""
+        [B,S,Dctx]; added_cond {"class_embeds": [B, Dcls]} for the
+        class_embed configuration -> [B,H,W,Cout] in the model's dtype."""
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
         temb = self.time_embed_2(F.silu(self.time_embed_1(temb)))
+        if cfg.addition_embed_type == "class_embed":
+            # AudioLDM: the CLAP embedding projected into the time embedding.
+            if added_cond is None:
+                raise ValueError("the class_embed UNet needs added_cond['class_embeds']")
+            cls = added_cond["class_embeds"].to(dt)
+            temb = temb + self.class_embed_2(F.silu(self.class_embed_1(cls)))
         ctx = encoder_hidden_states.to(dt)
         x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2).contiguous())
         skips = [x]

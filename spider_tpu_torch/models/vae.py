@@ -1,5 +1,6 @@
 """AutoencoderKL in PyTorch (counterpart of spider_tpu/models/vae.py): the
-latent codec of SD-1.5.
+latent codec of SD-1.5, of ZeroScope (frame by frame) and, in 1-channel mel
+form, of AudioLDM.
 
 The public methods take and return NHWC tensors, as the JAX module does;
 inside, the convolutions run in PyTorch's NCHW. Submodule names follow the
@@ -31,6 +32,12 @@ class VAEConfig:
 
 def vae_sd() -> VAEConfig:
     return VAEConfig()
+
+
+def vae_audioldm() -> VAEConfig:
+    """AudioLDM: 1-channel mel input, 8 latent channels, 2 blocks."""
+    return VAEConfig(in_channels=1, out_channels=1, latent_channels=8,
+                     block_out_channels=(128, 256), scaling_factor=0.9227914)
 
 
 def vae_tiny() -> VAEConfig:

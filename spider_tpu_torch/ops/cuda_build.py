@@ -4,7 +4,8 @@ Each kernel lives in ``spider_tpu_torch/csrc/<name>.cu`` behind a plain C
 entry point. At first use it is compiled for ``sm_90a`` into
 ``spider_tpu_torch/build/lib<name>-<hash>.so``, where the hash covers the
 source and the flags, so an edited source never loads a stale library. The
-build runs only when a kernel is launched on a CUDA tensor, never on import.
+build runs only when a kernel is launched on a CUDA tensor (or ``load_all``
+is called), never on import.
 nvcc's output, with ptxas's registers, shared memory and spills per kernel,
 is kept beside the library as ``lib<name>-<hash>.log``.
 """
@@ -73,3 +74,14 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(build(name))
     return lib
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """Build the named kernels at once, one nvcc process each, then load
+    them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
+    return {name: load(name) for name in names}

@@ -85,6 +85,13 @@ def test_kernel_unet_cross_attention_shape(dev):
     _check(q, k, v, 2e-2, 1e-3, causal=False)
 
 
+@pytest.mark.parametrize("T,S", [(300, 300), (500, 1)])
+def test_kernel_audioldm_shapes(dev, T, S):
+    # AudioLDM level 0: D = 16; its cross-attention has one key (the CLAP vector).
+    q, k, v = _inputs(2, T, S, 8, 8, 16, torch.bfloat16, dev, seed=5)
+    _check(q, k, v, 2e-2, 1e-3, causal=False)
+
+
 def test_kernel_fp32_inputs(dev):
     q, k, v = _inputs(1, 130, 130, 4, 2, 64, torch.float32, dev, seed=4)
     _check(q, k, v, 3e-2, 3e-2, causal=True)
