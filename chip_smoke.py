@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  build        compile both kernels (spider_tpu_torch/csrc) with nvcc, in parallel
+  build        compile the four kernels (spider_tpu_torch/csrc) with nvcc, in parallel
   kernel       each kernel against its plain PyTorch version at the path's shapes
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
+  paged_check  one decode chunk of the 8B int8 model over a paged pool, through the
+               paged decode kernel and through its plain version
+  int4_check   one forward of the 8B int4 model (a 128-token prefill and a 16-slot
+               decode step), through the int4 kernel and through its plain version
   chat         the 8B int8 Llama (llama3_8b width and depth, random weights from a
                seed) through make_llama_chat_fn: a 128-token prompt, 150 greedy tokens
   request      SpiderFree.chat text+image requests: the 8B chat backbone, tag
@@ -15,11 +19,16 @@ Phases, each printing one JSON line:
   any_to_many  SpiderFree.chat requests that render text, image, audio and video:
                the above plus AudioLDM-l (5 s, 40 steps) and ZeroScope (576x320,
                16 frames, 40 steps); the first is a warm-up, both are printed
+  serving      bench_suite.py::bench_paged_serving through the port: 24 mixed-length
+               prompts, 48 new tokens each, after 4 warm-up requests, through the
+               contiguous batcher (8 slots, int8), the paged batcher (16 slots over
+               32 blocks of 128, int8) and the same paged batcher on the int4 model
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
-Each main-path phase (chat, request, any_to_many) sets every kernel's launch
-count to 0 just before it runs and reads the counts just after; the kernel
+Each main-path phase (chat, request, any_to_many, each serving configuration)
+sets every kernel's launch count to 0 just before it runs and reads the
+counts just after; the kernel
 summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted.
 
@@ -61,7 +70,22 @@ BF16_EPS = 2.0 ** -8
 # A bf16 UNet with a kernel may be at most this factor (plus 1e-3) less
 # accurate, against an fp32 UNet, than the bf16 UNet with plain attention.
 UNET_REL_SLACK = 1.5
-KERNELS = ("flash_fwd", "tattn_fwd")
+# In-model checks of the serving kernels (paged_check, int4_check): the two
+# routes round each layer's attention or projection output to bf16 on either
+# side of a rounding edge at times, and the residual stream carries that
+# through 32 layers. Random-weight logits have a spread of ~1-2 and a top-2
+# gap of ~0.3, so the logits may differ by a few tenths and a few argmaxes
+# may flip; a wrong page, mask or nibble moves logits by their own spread
+# and leaves ~1/vocab of the argmaxes in agreement.
+LOGIT_ATOL = 0.5
+AGREE_MIN = 0.75
+# int4 kernel vs plain: summation order, then bf16 output rounding (one step
+# is 2^-8 relative, so half a step plus one step across an edge).
+INT4_REL = 2.0 ** -7
+SERVING_REQUESTS = 24
+SERVING_NEW_TOKENS = 48
+SERVING_WARMUP = 4
+KERNELS = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul")
 
 
 def emit(obj) -> None:
@@ -93,11 +117,34 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time per call, without the host's launch cost: the calls are
+    queued behind a kernel that sleeps ~20 ms, so the card runs them back to
+    back. For kernels shorter than their Python wrapper's host time, which
+    cuda_ms then measures instead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def launch_counters():
     from spider_tpu_torch.ops.attention import flash_attention
+    from spider_tpu_torch.ops.paged_attention import paged_decode_attention
+    from spider_tpu_torch.ops.quant import int4_matmul
     from spider_tpu_torch.ops.temporal_attention import temporal_attention
 
-    return {"flash_fwd": flash_attention, "tattn_fwd": temporal_attention}
+    return {"flash_fwd": flash_attention, "tattn_fwd": temporal_attention,
+            "paged_decode": paged_decode_attention, "int4_matmul": int4_matmul}
 
 
 def reset_launches() -> None:
@@ -269,9 +316,198 @@ def phase_kernel_tattn(dev):
     return rows
 
 
+def phase_kernel_paged(dev):
+    import torch
+
+    from spider_tpu_torch.ops import paged_attention as PA
+
+    page, Hq, Hkv, D = 128, 32, 8, 128
+    # (name, slots, max_pages, kv_len per slot): the serving shape (16 slots,
+    # max_len 512) with lengths at page edges and one past the table; the
+    # chat's long context in one slot.
+    serving_lens = [1, 127, 128, 129, 512, 4 * page + 5, 300, 2, 255, 256, 257, 384, 511,
+                    64, 65, 400]
+    cases = [("serving_B16_MP4", 16, 4, serving_lens), ("chat_B1_MP14_len1758", 1, 14, [1758])]
+    rows = []
+    for i, (name, B, MP, lens) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        n_blocks = B * MP + 1
+        q = torch.randn((B, Hq, D), generator=g, device=dev, dtype=torch.bfloat16)
+        pk, pv = (torch.randn((n_blocks, page, Hkv, D), generator=g, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        table = (1 + torch.randperm(B * MP, generator=g, device=dev)).reshape(B, MP).int()
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, pk, pv, table, kv_len)
+        out = PA.paged_decode_kernel(*args)
+        want = PA.paged_decode_reference(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        ms = cuda_ms(lambda: PA.paged_decode_kernel(*args))
+        plain_ms = cuda_ms(lambda: PA.paged_decode_reference(*args))
+        dev_ms = device_ms(lambda: PA.paged_decode_kernel(*args))
+        plain_dev_ms = device_ms(lambda: PA.paged_decode_reference(*args))
+        live = sum(min(n, MP * page) for n in lens)
+        moved = 2 * live * Hkv * D * 2                     # live K and V bytes read
+        rows.append(dict(kernel="paged_decode", name=name, B=B, Hq=Hq, Hkv=Hkv, D=D, page=page,
+                         max_pages=MP, kv_len=lens, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                         gb_per_s=moved / (dev_ms * 1e-3) / 1e9,
+                         plain_gb_per_s=moved / (plain_dev_ms * 1e-3) / 1e9,
+                         ok=finite and err <= OUT_ATOL))
+        del q, pk, pv, out, want
+    return rows
+
+
+def phase_kernel_int4(dev):
+    import torch
+
+    from spider_tpu_torch.ops import quant as Q
+
+    # llama3_8b's projections (K in, N out); gate and up share a shape.
+    shapes = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+              "down": (14336, 4096), "lm_head": (4096, 128256)}
+    cases = [(f"{n}_M{M}", M, K, N) for M in (1, 16) for n, (K, N) in shapes.items()]
+    cases += [(f"{n}_M{M}", M, *shapes[n]) for M in (128, 1024) for n in ("gate_up", "down")]
+    cases.append(("ragged_M37_K4100_N1000", 37, 4100, 1000))
+    rows = []
+    for i, (name, M, K, N) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(400 + i)
+        x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+        packed = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev,
+                               dtype=torch.int8)
+        scale = torch.full((N,), 1.0 / (4.61 * K ** 0.5), device=dev)
+        out = Q.int4_matmul_kernel(x, packed, scale, torch.bfloat16)
+        want = Q.int4_matmul_reference(x, packed, scale, torch.bfloat16)
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        err = diff.max().item()
+        excess = (diff - (1e-3 + INT4_REL * want.float().abs())).max().item()
+        finite = bool(torch.isfinite(out).all())
+        del out, want, diff
+        kernel = lambda: Q.int4_matmul_kernel(x, packed, scale, torch.bfloat16)
+        plain = lambda: Q.int4_matmul_reference(x, packed, scale, torch.bfloat16)
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        dev_ms, plain_dev_ms = device_ms(kernel), device_ms(plain, calls=5)
+        moved = N * K // 2 + 2 * M * K + 2 * M * N     # packed weight, x, out
+        rows.append(dict(kernel="int4_matmul", name=name, M=M, K=K, N=N, max_abs_err=err,
+                         excess_over_bound=excess, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                         plain_device_ms=plain_dev_ms,
+                         gb_per_s=moved / (dev_ms * 1e-3) / 1e9,
+                         tflop_per_s=2 * M * K * N / (dev_ms * 1e-3) / 1e12,
+                         ok=finite and excess <= 0))
+        del x, packed, scale
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the kernels inside the real models
 # ---------------------------------------------------------------------------
+
+def _logit_agreement(routed, plain):
+    """(max abs difference, share of rows whose argmax agrees, max |plain|)."""
+    return ((routed - plain).abs().max().item(),
+            (routed.argmax(-1) == plain.argmax(-1)).float().mean().item(),
+            plain.abs().max().item())
+
+
+def phase_paged_check(model, dev):
+    """One decode chunk (8 single-token steps) of the 8B int8 model at 16
+    slots over one paged pool state, through the paged kernel and through
+    paged_decode_reference. Both runs take the same tokens (teacher
+    forcing), so every step's logits compare; one slot decodes past its
+    4-page table (dropped writes)."""
+    import torch
+
+    from spider_tpu_torch.models.llama import init_paged_kv_cache
+    from spider_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_config
+
+    cfg = model.config
+    S, page, MP, steps = 16, 128, 4, 8
+    g = torch.Generator(device=dev).manual_seed(9)
+    pool = init_paged_kv_cache(cfg, 1 + S * MP, page, device=dev)
+    for p in pool:
+        p.normal_(generator=g)
+    table = (1 + torch.randperm(S * MP, generator=g, device=dev)).reshape(S, MP).int()
+    kv0 = torch.tensor([1, 60, 127, 128, 200, 255, 256, 300, 333, 384, 400, 450, 490, 500,
+                        505, 509], dtype=torch.int32, device=dev)
+    toks = torch.randint(3, cfg.vocab_size, (steps, S, 1), generator=g, device=dev)
+
+    def chunk():
+        state = tuple(p.clone() for p in pool)
+        kv, out = kv0.clone(), []
+        for t in range(steps):
+            logits, _, _ = model(input_ids=toks[t], positions=kv[:, None], kv_write_index=kv,
+                                 kv_cache=state, kv_len=kv + 1, page_table=table)
+            out.append(logits[:, -1].float())
+            kv = kv + 1
+        return torch.stack(out)                             # [steps, S, V]
+
+    with torch.inference_mode():
+        before = paged_decode_attention.launches
+        routed = chunk()
+        torch.cuda.synchronize()
+        launches = paged_decode_attention.launches - before
+        with paged_decode_config("plain"):
+            plain = chunk()
+    diff, agree, scale = _logit_agreement(routed, plain)
+    want = cfg.num_hidden_layers * steps
+    ok = (bool(torch.isfinite(routed).all()) and launches == want and diff <= LOGIT_ATOL
+          and agree >= AGREE_MIN)
+    del pool, routed, plain
+    torch.cuda.empty_cache()
+    return dict(phase="paged_check", model="llama3_8b int8", slots=S, steps=steps,
+                logits_max_abs_diff=diff, logits_max_abs=scale, argmax_agree_share=agree,
+                paged_launches=launches, paged_launches_expected=want,
+                bounds=dict(logits_atol=LOGIT_ATOL, agree_min=AGREE_MIN), ok=ok)
+
+
+def phase_int4_check(model, dev):
+    """One forward of the 8B int4 model, a 128-token prefill and then a
+    16-slot decode step over a contiguous cache, through the int4 kernel
+    and through int4_matmul_reference."""
+    import torch
+
+    from spider_tpu_torch.models.llama import init_kv_cache
+    from spider_tpu_torch.ops.quant import int4_matmul, int4_matmul_config
+
+    cfg = model.config
+    S, T = 16, 128
+    g = torch.Generator(device=dev).manual_seed(10)
+    ids = torch.randint(3, cfg.vocab_size, (1, T), generator=g, device=dev)
+    cache = init_kv_cache(cfg, S, T + 8, device=dev)
+    for c in cache:
+        c.normal_(generator=g)
+    kv = torch.randint(1, T, (S,), generator=g, device=dev, dtype=torch.int32)
+    tok = torch.randint(3, cfg.vocab_size, (S, 1), generator=g, device=dev)
+
+    def forward():
+        prefill = model(input_ids=ids)[0][0].float()                     # [T, V]
+        state = tuple(c.clone() for c in cache)
+        step = model(input_ids=tok, positions=kv[:, None], kv_write_index=kv,
+                     kv_cache=state, kv_len=kv + 1)[0][:, -1].float()   # [S, V]
+        return prefill, step
+
+    with torch.inference_mode():
+        before = int4_matmul.launches
+        routed = forward()
+        torch.cuda.synchronize()
+        launches = int4_matmul.launches - before
+        with int4_matmul_config("plain"):
+            plain = forward()
+    rows = {}
+    ok = launches == 2 * (7 * cfg.num_hidden_layers + 1)
+    for name, r, p in zip(("prefill_T128", "decode_S16"), routed, plain):
+        diff, agree, scale = _logit_agreement(r, p)
+        rows[name] = dict(logits_max_abs_diff=diff, logits_max_abs=scale,
+                          argmax_agree_share=agree)
+        ok &= bool(torch.isfinite(r).all()) and diff <= LOGIT_ATOL and agree >= AGREE_MIN
+    del cache, routed, plain
+    torch.cuda.empty_cache()
+    return dict(phase="int4_check", model="llama3_8b int4", **rows, int4_launches=launches,
+                int4_launches_expected=2 * (7 * cfg.num_hidden_layers + 1),
+                bounds=dict(logits_atol=LOGIT_ATOL, agree_min=AGREE_MIN), ok=ok)
 
 def _rel_errors(routed, plain, ref):
     rel = lambda a: ((a - ref).norm() / ref.norm()).item()
@@ -536,6 +772,115 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
     return rows
 
 
+def serving_prompts(n: int):
+    """bench_suite.py::bench_paged_serving's mixed-length prompts."""
+    words = ["horse", "beach", "run", "paint", "sky", "song", "red", "cat"]
+    return [" ".join(words[(i * 3) % 8:] * ((i % 7) + 1))[: 40 * ((i % 6) + 1)]
+            for i in range(n)]
+
+
+def _greedy_tokens(model, tokenizer, prompts, n):
+    """A standalone greedy generate of each prompt (one right-padded batch):
+    token ids without pads."""
+    import torch
+
+    from spider_tpu_torch.models.decode import GenerateConfig, generate
+
+    ids = [tokenizer(p, add_special_tokens=True).input_ids for p in prompts]
+    T = max(len(i) for i in ids)
+    arr = torch.tensor([i + [tokenizer.pad_token_id] * (T - len(i)) for i in ids],
+                       device=model.device)
+    with torch.inference_mode():
+        emb = model.embed(arr)
+    out = generate(model, emb, torch.tensor([len(i) for i in ids], dtype=torch.int32),
+                   GenerateConfig(max_new_tokens=n, eos_ids=(tokenizer.eos_token_id,),
+                                  pad_id=tokenizer.pad_token_id))
+    return [[t for t in row if t != tokenizer.pad_token_id]
+            for row in out["tokens"].tolist()]
+
+
+def phase_serving(model8, model4, tokenizer):
+    """bench_suite.py::bench_paged_serving through the port: for each batcher,
+    4 warm-up requests, then 24 timed ones (tok/s = 24 * 48 / seconds, as
+    there); the launch counts are zeroed just before the timed requests and
+    read just after."""
+    import torch
+
+    from spider_tpu_torch.serving.continuous import ContinuousBatcher, PagedContinuousBatcher
+
+    prompts = serving_prompts(SERVING_REQUESTS)
+    n_new = SERVING_NEW_TOKENS
+    configs = [
+        ("contiguous_bs8_int8", model8,
+         lambda m: ContinuousBatcher(m, tokenizer, num_slots=8, max_len=512,
+                                     max_new_tokens=n_new)),
+        ("paged_bs16_int8", model8,
+         lambda m: PagedContinuousBatcher(m, tokenizer, num_slots=16, max_len=512,
+                                          max_new_tokens=n_new, page=128, num_blocks=32)),
+        ("paged_bs16_int4", model4,
+         lambda m: PagedContinuousBatcher(m, tokenizer, num_slots=16, max_len=512,
+                                          max_new_tokens=n_new, page=128, num_blocks=32)),
+    ]
+    rows = []
+    for name, model, make in configs:
+        cfg = model.config
+        cb = make(model)
+        # Record each finished request's token ids, for the parity report.
+        emitted = {}
+        finish = cb._finish
+
+        def record(slot, cb=cb, finish=finish, emitted=emitted):
+            req = cb._requests[slot]
+            finish(slot)
+            emitted[id(req.future)] = list(req.emitted)
+
+        cb._finish = record
+        warm = [f.result(timeout=600) for f in [cb.submit(p) for p in prompts[:SERVING_WARMUP]]]
+        steps0, prefills0 = cb.n_decode_steps, cb.n_prefills
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        futs = [cb.submit(p) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        steps, prefills = cb.n_decode_steps - steps0, cb.n_prefills - prefills0
+        cb.close()
+        alive = cb._thread.is_alive()
+        paged = isinstance(cb, PagedContinuousBatcher)
+        drained = sorted(cb._free) == list(range(1, 33)) if paged else True
+        want = dict(
+            flash_fwd=cfg.num_hidden_layers * prefills,
+            paged_decode=cfg.num_hidden_layers * steps if paged else 0,
+            # 7 projections a layer and the lm_head, in every decode step and
+            # every prefill (each prefill bucket is at most 512 rows)
+            int4_matmul=((7 * cfg.num_hidden_layers + 1) * (steps + prefills)
+                         if cfg.quantization == "int4" else 0),
+            tattn_fwd=0)
+        got = [emitted[id(f)] for f in futs[:SERVING_WARMUP]]
+        ref = _greedy_tokens(model, tokenizer, prompts[:SERVING_WARMUP], n_new)
+        leading = []
+        for a, b in zip(got, ref):
+            n = 0
+            while n < min(len(a), len(b)) and a[n] == b[n]:
+                n += 1
+            leading.append(n)
+        ok = (all(isinstance(o, str) for o in warm + outs) and drained and not alive
+              and launches == want)
+        rows.append(dict(
+            phase="serving", config=name, model=f"llama3_8b {cfg.quantization}",
+            requests=SERVING_REQUESTS, new_tokens=n_new, seconds=seconds,
+            tok_s=SERVING_REQUESTS * n_new / seconds,
+            emitted_tokens=sum(len(emitted[id(f)]) for f in futs),
+            decode_steps=steps, prefills=prefills,
+            n_preempts=getattr(cb, "n_preempts", None), pool_drained=drained,
+            launches=launches, launches_expected=want,
+            leading_tokens_equal_generate=leading, ok=ok))
+        del cb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -574,10 +919,16 @@ def main() -> int:
     spider_free_T = spider_free_prompt_len(tokenizer)
 
     # ---- kernel vs plain (these launches are not the main path's)
-    rows = phase_kernel_flash(dev, spider_free_T) + phase_kernel_tattn(dev)
+    rows = (phase_kernel_flash(dev, spider_free_T) + phase_kernel_tattn(dev)
+            + phase_kernel_paged(dev) + phase_kernel_int4(dev))
     for row in rows:
         emit(dict(phase="kernel", **row))
         ok &= row["ok"]
+
+    model4, _ = factory.from_pretrained("llama", device=dev, seed=0, quantization="int4")
+    for check in (phase_paged_check(model, dev), phase_int4_check(model4, dev)):
+        emit(check)
+        ok &= check["ok"]
 
     sd = factory.from_pretrained("sd15", device=dev, dtype=torch.bfloat16, seed=0)
     check = phase_unet_check(sd, dev)
@@ -589,12 +940,14 @@ def main() -> int:
     ok &= check["ok"]
     ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
 
-    # ---- the main path: chat, text+image requests, any-to-many requests;
-    # each phase zeroes the counts before it runs and reads them after.
+    # ---- the main path: chat, text+image requests, any-to-many requests,
+    # continuous-batching serving; each phase zeroes the counts before it
+    # runs and reads them after.
     main_launches = dict.fromkeys(KERNELS, 0)
     phases = [phase_chat(model, tokenizer, spider_free_T)]
     phases += phase_request(model, tokenizer, sd)
     phases += phase_any_to_many(model, tokenizer, sd, ad, vd)
+    phases += phase_serving(model, model4, tokenizer)
     for row in phases:
         emit(row)
         ok &= row["ok"]
@@ -604,6 +957,7 @@ def main() -> int:
 
     by_name = {r["name"]: r for r in rows}
     flash_row, tattn_row = by_name["unet_self_T4096_D40"], by_name["zeroscope_L0_D40"]
+    paged_row, int4_row = by_name["serving_B16_MP4"], by_name["gate_up_M16"]
     emit({"kernels": [
         dict(name="flash_fwd", route="cuda", source="spider_tpu_torch/csrc/flash_fwd.cu",
              replaces="spider_tpu/ops/attention.py:67", launches=main_launches["flash_fwd"],
@@ -613,7 +967,16 @@ def main() -> int:
              replaces="spider_tpu/ops/temporal_attention.py:45",
              launches=main_launches["tattn_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "tattn_fwd"),
-             ms=tattn_row["ms"], plain_ms=tattn_row["plain_ms"])]})
+             ms=tattn_row["ms"], plain_ms=tattn_row["plain_ms"]),
+        dict(name="paged_decode", route="cuda", source="spider_tpu_torch/csrc/paged_decode.cu",
+             replaces="spider_tpu/ops/paged_attention.py:31",
+             launches=main_launches["paged_decode"],
+             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "paged_decode"),
+             ms=paged_row["ms"], plain_ms=paged_row["plain_ms"]),
+        dict(name="int4_matmul", route="cuda", source="spider_tpu_torch/csrc/int4_matmul.cu",
+             replaces="spider_tpu/ops/quant.py:65", launches=main_launches["int4_matmul"],
+             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "int4_matmul"),
+             ms=int4_row["ms"], plain_ms=int4_row["plain_ms"])]})
     print(smi, flush=True)
     if not ok:
         print("chip_smoke: a phase failed (see the JSON lines above)", file=sys.stderr)

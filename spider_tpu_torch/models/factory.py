@@ -14,8 +14,10 @@ from torch import nn
 from spider_tpu_torch.models import llama as L
 from spider_tpu_torch.models.tokenizer import TinyTokenizer
 
-# Standard deviation of an int8 weight drawn uniformly from [-127, 127].
+# Standard deviation of an int8 weight drawn uniformly from [-127, 127], and
+# of an int4 weight, a nibble of a uniformly drawn byte, uniform in [-8, 7].
 _INT8_STD = (((2 * 127 + 1) ** 2 - 1) / 12) ** 0.5
+_INT4_STD = ((16 ** 2 - 1) / 12) ** 0.5
 # Multiplicative scales start at 1 (HiFi-GAN divides by its raw ``scale``).
 _ONES = ("input_layernorm", "post_attention_layernorm", "norm", "kernel_scale", "scale")
 
@@ -24,23 +26,26 @@ def random_init_(module: nn.Module, generator: torch.Generator,
                  scale: float = 0.02) -> nn.Module:
     """Fill every parameter and persistent buffer in place: float weights
     ~ N(0, scale); norm scales 1 and norm biases 0; int8 ``kernel_q``
-    uniform in [-127, 127] with ``kernel_scale`` = scale / its std, so an
-    int8 projection has the same effective spread as a float one."""
+    uniform in [-127, 127], or for an int4 module every packed byte uniform
+    in [-128, 127] (each nibble uniform in [-8, 7]), with ``kernel_scale`` =
+    scale / the weight's std, so a quantized projection has the same
+    effective spread as a float one."""
     with torch.no_grad():
         for mod in module.modules():
             norm = isinstance(mod, (nn.LayerNorm, nn.GroupNorm))
             own = dict(mod.named_parameters(recurse=False))
             own.update((n, b) for n, b in mod.named_buffers(recurse=False)
                        if n not in mod._non_persistent_buffers_set)
+            int4 = getattr(mod, "quantization", None) == "int4"
             for name, t in own.items():
                 if t is None:
                     continue
                 if norm:
                     t.fill_(1.0 if name == "weight" else 0.0)
                 elif name == "kernel_q":
-                    t.random_(-127, 128, generator=generator)
+                    t.random_(-128 if int4 else -127, 128, generator=generator)
                 elif name == "kernel_scale":
-                    t.fill_(scale / _INT8_STD)
+                    t.fill_(scale / (_INT4_STD if int4 else _INT8_STD))
                 elif name in _ONES:
                     t.fill_(1.0)
                 elif t.is_floating_point():
@@ -53,15 +58,16 @@ def build_llama(cfg: L.LlamaConfig, device, seed: int = 0) -> L.LlamaForCausalLM
     return random_init_(L.LlamaForCausalLM(cfg, device).eval(), gen)
 
 
-def llama3_8b_int8() -> L.LlamaConfig:
+def llama3_8b_quantized(quantization: str = "int8") -> L.LlamaConfig:
     """The serving configuration of the chat backbone: llama3_8b with int8
-    weight-only projections and bf16 embeddings and norms."""
-    return dataclasses.replace(L.llama3_8b(), quantization="int8",
+    (or, given 'int4', int4) weight-only projections and bf16 embeddings and
+    norms."""
+    return dataclasses.replace(L.llama3_8b(), quantization=quantization,
                                param_dtype=torch.bfloat16)
 
 
 def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
-                    seed: int = 0):
+                    seed: int = 0, quantization: str = "int8"):
     """Full-size random-init model on `device`.
 
     kinds: 'sd15' -> StableDiffusionPipeline at 512px (text encoder, UNet
@@ -69,13 +75,17 @@ def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
     (CLIP ViT-H, the 1.4B UNet3D and the SD VAE in `dtype`); 'audioldm' ->
     AudioLDMPipeline (CLAP text, the AudioLDM-l UNet and mel VAE in `dtype`;
     the HiFi-GAN vocoder in fp32, as the reference computes it); 'llama' ->
-    (LlamaForCausalLM 8B int8, TinyTokenizer).
+    (LlamaForCausalLM 8B with `quantization` 'int8' or 'int4' projections,
+    TinyTokenizer).
     There is no checkpoint path yet: convert a checkpoint with
     spider_tpu/models/convert.py, then fill the returned module with
     ``spider_tpu_torch.models.convert.load_jax_params``.
     """
     if kind == "llama":
-        return build_llama(llama3_8b_int8(), device, seed), TinyTokenizer()
+        if quantization not in ("int8", "int4"):
+            raise ValueError(f"llama quantization must be 'int8' or 'int4', got "
+                             f"{quantization!r}")
+        return build_llama(llama3_8b_quantized(quantization), device, seed), TinyTokenizer()
     if kind == "sd15":
         from spider_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_l14
         from spider_tpu_torch.models.pipelines.sd import StableDiffusionPipeline

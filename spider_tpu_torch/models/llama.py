@@ -7,16 +7,20 @@ generic walk. The JAX model stacks its layers under ``nn.scan``; here they
 are an ``nn.ModuleList`` and the converter unstacks the layer axis.
 
 Attention: prefill (T > 1) runs the flash kernel over the whole KV cache;
-single-token decode is plain torch over the cache, as the reference keeps it
-an XLA einsum. The KV cache is updated IN PLACE (JAX returns a new one);
-every call returns the cache it was given.
+single-token decode over the contiguous cache is plain torch, as the
+reference keeps it an XLA einsum; single-token decode over a block-paged
+pool (``page_table`` given; serving/continuous.py) runs the paged decode
+kernel. Caches and pools are updated IN PLACE (JAX returns new ones); every
+call returns the cache it was given.
 
 Parameters are stored in ``param_dtype`` and cast to ``dtype`` for compute.
 ``quantization='int8'`` stores each projection as int8 [out, in] plus a
 per-output-channel fp32 scale applied to the matmul output. Eager PyTorch
 makes a bf16 copy of each int8 weight on every call: correct, and slow; a
-W8A16 kernel is later work. Left out for now: LoRA, int4, the paged cache,
-MoE, mrope, context parallelism, projection biases and tied embeddings.
+W8A16 kernel is later work. ``quantization='int4'`` packs two signed 4-bit
+weights per byte, [out, in/2] (ops/quant.py has the layout), and runs the
+int4 matmul kernel. Left out for now: LoRA, MoE, mrope, context
+parallelism, projection biases and tied embeddings.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from torch import nn
 
 from spider_tpu_torch.ops.attention import flash_attention, mha_reference
 from spider_tpu_torch.ops.norms import rms_norm
+from spider_tpu_torch.ops.paged_attention import paged_decode_attention
+from spider_tpu_torch.ops.quant import int4_matmul
 from spider_tpu_torch.ops.rope import apply_rope, rope_inv_freq
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
@@ -50,7 +56,7 @@ class LlamaConfig:
     rope_scaling: Optional[Dict[str, float]] = None
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # 'int8': weight-only per-output-channel quantization of every
+    # 'int8' or 'int4': weight-only per-output-channel quantization of every
     # projection and the lm_head (embeddings and norms stay high precision).
     quantization: Optional[str] = None
 
@@ -93,21 +99,28 @@ def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
 class LoraDense(nn.Module):
     """y = x W, with W either a float ``weight`` [out, in] or, under
     quantization='int8', ``kernel_q`` int8 [out, in] and ``kernel_scale``
-    fp32 [out]: y = (x @ kernel_q.to(dtype)^T) * kernel_scale.to(dtype).
-    The LoRA branch and the bias of the JAX module are not ported yet."""
+    fp32 [out]: y = (x @ kernel_q.to(dtype)^T) * kernel_scale.to(dtype); or,
+    under quantization='int4', ``kernel_q`` int8 [out, in/2] holding two
+    signed nibbles a byte (in-rows i and i + in/2) and ``kernel_scale`` fp32
+    [out]: y = int4_matmul(x, kernel_q, kernel_scale) in dtype, the scale on
+    the fp32 accumulator. The LoRA branch and the bias of the JAX module are
+    not ported yet."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
                  quantization: Optional[str] = None, device=None):
         super().__init__()
-        if quantization not in (None, "int8"):
+        if quantization not in (None, "int8", "int4"):
             raise NotImplementedError(f"quantization={quantization!r} is not ported")
+        if quantization == "int4" and in_features % 2:
+            raise ValueError(f"int4 packs pairs of input rows; in_features={in_features}")
         self.dtype = dtype
         self.quantization = quantization
-        if quantization == "int8":
+        if quantization in ("int8", "int4"):
+            packed = in_features // 2 if quantization == "int4" else in_features
             self.register_buffer("kernel_q", torch.zeros(
-                features, in_features, dtype=torch.int8, device=device))
+                features, packed, dtype=torch.int8, device=device))
             self.register_buffer("kernel_scale", torch.ones(
                 features, dtype=torch.float32, device=device))
         else:
@@ -117,6 +130,8 @@ class LoraDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quantization == "int8":
             return F.linear(x, self.kernel_q.to(self.dtype)) * self.kernel_scale.to(self.dtype)
+        if self.quantization == "int4":
+            return int4_matmul(x, self.kernel_q, self.kernel_scale, out_dtype=self.dtype)
         return F.linear(x, self.weight.to(self.dtype))
 
 
@@ -134,6 +149,25 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor,
     start = index.to(torch.long).clamp(0, S - T)
     rows = start[:, None] + torch.arange(T, device=cache.device)
     cache[torch.arange(cache.shape[0], device=cache.device)[:, None], rows] = new
+
+
+def _write_pool(pool: torch.Tensor, new: torch.Tensor, page_table: torch.Tensor,
+                index: Union[int, torch.Tensor]) -> None:
+    """pool [N, page, Hkv, D] <- new [B, Hkv, D]: slot b's row goes to
+    position index[b], that is block page_table[b, index[b] // page], row
+    index[b] % page. A position whose logical page is at or past max_pages
+    has no block, and its write is dropped, as JAX drops an out-of-range
+    scatter (a torch index there would fault on the card). The dropped row
+    writes back what its slot's last block already holds there, so the step
+    needs no host sync."""
+    B = new.shape[0]
+    page, max_pages = pool.shape[1], page_table.shape[1]
+    index = torch.as_tensor(index, device=pool.device).to(torch.long).reshape(-1).expand(B)
+    logical = index // page
+    blocks = page_table.gather(1, logical.clamp(max=max_pages - 1)[:, None])[:, 0].long()
+    offs = index % page
+    keep = (logical < max_pages)[:, None, None]
+    pool[blocks, offs] = torch.where(keep, new.to(pool.dtype), pool[blocks, offs])
 
 
 class LlamaAttention(nn.Module):
@@ -154,13 +188,26 @@ class LlamaAttention(nn.Module):
                                                        device=device), persistent=False)
 
     def forward(self, x, positions, kv_write_index, kv_cache: Optional[KVCache] = None,
-                kv_len: Optional[torch.Tensor] = None):
+                kv_len: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None):
         cfg = self.cfg
         D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
         B, T, _ = x.shape
         q = apply_rope(self.q_proj(x).reshape(B, T, Hq, D), positions, self.inv_freq)
         k = apply_rope(self.k_proj(x).reshape(B, T, Hkv, D), positions, self.inv_freq)
         v = self.v_proj(x).reshape(B, T, Hkv, D)
+        if kv_cache is not None and page_table is not None:
+            # Block-paged pool (serving): kv_cache is (pool_k, pool_v), each
+            # [N_blocks, page, Hkv, D]; page_table [B, max_pages] maps each
+            # slot's logical pages to pool blocks.
+            if T != 1:
+                raise ValueError(f"the paged path is single-token decode, got T={T}")
+            pool_k, pool_v = kv_cache
+            _write_pool(pool_k, k[:, 0], page_table, kv_write_index)
+            _write_pool(pool_v, v[:, 0], page_table, kv_write_index)
+            out = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v, page_table,
+                                         kv_len)
+            return self.o_proj(out.reshape(B, T, Hq * D)), kv_cache
         if kv_cache is not None:
             ck, cv = kv_cache                    # [B, S_max, Hkv, D], updated in place
             _write_cache(ck, k, kv_write_index)
@@ -202,10 +249,12 @@ class LlamaBlock(nn.Module):
             torch.ones(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x, positions, kv_write_index, kv_cache=None, kv_len=None):
+    def forward(self, x, positions, kv_write_index, kv_cache=None, kv_len=None,
+                page_table=None):
         eps = self.cfg.rms_norm_eps
         attn_out, kv_cache = self.self_attn(rms_norm(x, self.input_layernorm, eps),
-                                            positions, kv_write_index, kv_cache, kv_len)
+                                            positions, kv_write_index, kv_cache, kv_len,
+                                            page_table)
         x = x + attn_out
         x = x + self.mlp(rms_norm(x, self.post_attention_layernorm, eps))
         return x, kv_cache
@@ -222,13 +271,15 @@ class LlamaModel(nn.Module):
 
     def forward(self, inputs_embeds, positions, kv_write_index=0,
                 kv_cache: Optional[KVCache] = None, kv_len=None,
-                output_hidden_states: bool = False):
-        """kv_cache: (k, v) each [L, B, S_max, Hkv, D] (init_kv_cache)."""
+                output_hidden_states: bool = False, page_table=None):
+        """kv_cache: (k, v) each [L, B, S_max, Hkv, D] (init_kv_cache), or
+        with page_table [B, max_pages] (k, v) pools each
+        [L, N_blocks, page, Hkv, D] (init_paged_kv_cache)."""
         x = inputs_embeds.to(self.cfg.dtype)
         outs: List[torch.Tensor] = []
         for i, layer in enumerate(self.layers):
             layer_cache = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
-            x, _ = layer(x, positions, kv_write_index, layer_cache, kv_len)
+            x, _ = layer(x, positions, kv_write_index, layer_cache, kv_len, page_table)
             if output_hidden_states:
                 outs.append(x)
         final = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
@@ -259,8 +310,11 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids=None, inputs_embeds=None, positions=None,
                 kv_write_index=0, kv_cache: Optional[KVCache] = None, kv_len=None,
-                output_hidden_states: bool = False):
-        """(logits [B,T,V], hidden_states [L+1,B,T,H] | None, kv_cache | None)."""
+                output_hidden_states: bool = False, page_table=None):
+        """(logits [B,T,V], hidden_states [L+1,B,T,H] | None, kv_cache | None).
+
+        page_table [B, max_pages]: block-paged decode; kv_cache is then
+        (pool_k, pool_v), each [L, N_blocks, page, Hkv, D]."""
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
         T = inputs_embeds.shape[1]
@@ -269,7 +323,7 @@ class LlamaForCausalLM(nn.Module):
                          + kv_write_index)
         final, hidden_states, kv_cache = self.model(
             inputs_embeds, positions, kv_write_index, kv_cache, kv_len,
-            output_hidden_states)
+            output_hidden_states, page_table)
         return self.lm_head(final), hidden_states, kv_cache
 
 
@@ -277,6 +331,17 @@ def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
                   device=None) -> KVCache:
     """(k, v) each [L, B, max_len, Hkv, D] in cfg.dtype, zero-filled."""
     shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads,
+             cfg.head_dim_)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, page: int = 128,
+                        device=None) -> KVCache:
+    """Block-paged KV pool: (k, v) each [L, num_blocks, page, Hkv, D] in
+    cfg.dtype, zero-filled. Slots map logical pages to pool blocks through
+    a host-managed page table (serving/continuous.py)."""
+    shape = (cfg.num_hidden_layers, num_blocks, page, cfg.num_key_value_heads,
              cfg.head_dim_)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))

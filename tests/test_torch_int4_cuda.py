@@ -1,0 +1,112 @@
+"""The int4 weight-only matmul CUDA kernel against its plain PyTorch version.
+
+These tests need an NVIDIA GPU: the kernel has no CPU mode, so without a
+card they skip. They import torch only, so they also run where JAX is not
+installed: ``python -m pytest --noconftest tests/test_torch_int4_cuda.py``.
+
+Inputs: x ~ N(0, 1), int4 weights uniform in [-8, 7], scale
+1 / (4.61 sqrt(K)) so the outputs are O(1). Tolerances: the nibbles and
+bf16 x are exact in both versions and the products accumulate in fp32, so
+they differ only in summation order (~1e-6 here) and in the final bf16
+rounding of the output, half a step or 2^-9 |out|, plus one step where the
+two sums fall on either side of a rounding edge: bf16 out is held to
+1e-3 + 2^-7 |plain|. fp32 out with bf16 x: 1e-4. fp32 x goes through the
+tensor cores as a pair of bf16 (about 16 bits of mantissa): 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spider_tpu_torch.ops import quant as Q
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the int4 kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(M, K, N, x_dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(dev, x_dtype)
+    w = torch.from_numpy(rng.integers(-8, 8, size=(K, N)).astype(np.int8))
+    packed = Q.pack_int4(w).t().contiguous().to(dev)              # the port's [N, K/2]
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, N) / (4.61 * K ** 0.5))
+                             .astype(np.float32)).to(dev)
+    return x, packed, scale
+
+
+def _check(x, packed, scale, out_dtype, launches=1):
+    before = Q.int4_matmul.launches
+    out = Q.int4_matmul(x, packed, scale, out_dtype)
+    torch.cuda.synchronize()
+    assert Q.int4_matmul.launches == before + launches
+    want = Q.int4_matmul_reference(x, packed, scale, out_dtype)
+    assert out.shape == want.shape and out.dtype == want.dtype == out_dtype
+    assert torch.isfinite(out).all()
+    diff = (out.float() - want.float()).abs()
+    if out_dtype == torch.bfloat16:
+        bound = 1e-3 + 2.0 ** -7 * want.float().abs()
+    else:
+        bound = torch.full_like(diff, 1e-4)
+    assert (diff <= bound).all(), diff.max().item()
+
+
+@pytest.mark.parametrize("M", [1, 16, 128, 1024])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 512), (512, 4096)])
+def test_kernel_matches_plain_bf16(dev, M, K, N):
+    _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=M), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 4100, 1000), (5, 34, 9), (17, 96, 33)])
+def test_ragged_edges(dev, M, K, N):
+    # K/2 not a multiple of 16 (scalar loads), N and M not multiples of the
+    # block's 32 columns and 16 rows.
+    _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=1), torch.bfloat16)
+
+
+def test_leading_dims_and_fp32_output(dev):
+    x, packed, scale = _inputs(16, 1024, 256, torch.bfloat16, dev, seed=2)
+    _check(x.reshape(2, 8, 1024), packed, scale, torch.float32)
+
+
+def test_fp32_inputs(dev):
+    _check(*_inputs(16, 2048, 512, torch.float32, dev, seed=3), torch.float32)
+    _check(*_inputs(3, 66, 40, torch.float32, dev, seed=4), torch.bfloat16)
+
+
+def test_long_inputs_take_the_reference_routing(dev):
+    # M > 1024 rows: the JAX wrapper's own rule dequantises and calls the
+    # library product, so no kernel launch. Dequantised weights are exact in
+    # bf16; the product rounds to bf16 before the bf16 scale multiply: two
+    # roundings of 2^-9 each.
+    x, packed, scale = _inputs(1025, 512, 256, torch.bfloat16, dev, seed=5)
+    before = Q.int4_matmul.launches
+    out = Q.int4_matmul(x, packed, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert Q.int4_matmul.launches == before
+    want = Q.int4_matmul_reference(x, packed, scale, torch.bfloat16)
+    diff = (out.float() - want.float()).abs()
+    assert (diff <= 1e-3 + 2.0 ** -6 * want.float().abs()).all(), diff.max().item()
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    x, packed, scale = _inputs(4, 64, 32, torch.bfloat16, dev)
+    with pytest.raises(TypeError):
+        Q.int4_matmul(x.half(), packed, scale)
+    with pytest.raises(TypeError):
+        Q.int4_matmul(x, packed.to(torch.uint8), scale)
+    with pytest.raises(TypeError):
+        Q.int4_matmul(x, packed, scale[:-1])
+    with pytest.raises(ValueError):
+        Q.int4_matmul(x[:, :32], packed, scale)
+    with pytest.raises(ValueError):
+        Q.int4_matmul(x.t().contiguous().t(), packed, scale)
+    wide = torch.zeros(32, 64, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        Q.int4_matmul(x, wide[:, :32], scale)

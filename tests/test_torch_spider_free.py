@@ -219,6 +219,8 @@ SLICE_MODULES = [
     "spider_tpu_torch.ops.temporal_attention", "spider_tpu_torch.ops.convs",
     "spider_tpu_torch.models.unet3d", "spider_tpu_torch.models.vocoder",
     "spider_tpu_torch.models.pipelines.vd", "spider_tpu_torch.models.pipelines.ad",
+    "spider_tpu_torch.ops.paged_attention", "spider_tpu_torch.ops.quant",
+    "spider_tpu_torch.serving.continuous",
 ]
 
 
