@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  build        compile the four kernels (spider_tpu_torch/csrc) with nvcc, in parallel
-  kernel       each kernel against its plain PyTorch version at the path's shapes
+  build        compile the five kernel sources (spider_tpu_torch/csrc) with nvcc, in
+               parallel
+  kernel       each kernel against its plain PyTorch version at the path's shapes,
+               with its bound on this card and, where one PyTorch call computes the
+               same function, that call's time (timed here, used nowhere in the port)
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
   paged_check  one decode chunk of the 8B int8 model over a paged pool, through the
@@ -23,13 +26,21 @@ Phases, each printing one JSON line:
                prompts, 48 new tokens each, after 4 warm-up requests, through the
                contiguous batcher (8 slots, int8), the paged batcher (16 slots over
                32 blocks of 128, int8) and the same paged batcher on the int4 model
+  train        build_full_spider at full width (LoRA r 32 on the llama3_8b
+               architecture with the extended vocabulary, bf16 base frozen, remat;
+               ImageBind-huge; the MoE aligner) with the resident SD-1.5, ZeroScope and
+               AudioLDM pipelines as alignment targets: RunnerBase.train_step on
+               batches of 4 from the t2i_cc_sbu, i2t_cc_sbu and t2a_audiocap builders
+               (IMAGE, TEXT with an image input, AUDIO), 8 steps on one repeated batch,
+               one step's loss and LoRA gradients through the backward kernels against
+               the plain backward, make_lm_train_step at [4, 512], a profiled step of
+               each, and a checkpoint round trip
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
-Each main-path phase (chat, request, any_to_many, each serving configuration)
-sets every kernel's launch count to 0 just before it runs and reads the
-counts just after; the kernel
-summary's `launches` is their sum. Launches made to compare a kernel with its
+Each main-path phase (chat, request, any_to_many, each serving configuration,
+the train steps) sets every kernel's launch count to 0 just before it runs and
+reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted.
 
 A random-weight LLM never emits tags, so the requests' chat function
@@ -85,7 +96,31 @@ INT4_REL = 2.0 ** -7
 SERVING_REQUESTS = 24
 SERVING_NEW_TOKENS = 48
 SERVING_WARMUP = 4
-KERNELS = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul")
+SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn_fwd", "paged_decode",
+           "int4_matmul")
+# Flash backward kernels vs plain: the kernels round P and dS to bf16 for the
+# second products, sum in another order and round the gradients to bf16.
+BWD_ATOL = 2e-2
+BWD_REL = 2.0 ** -7
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): a kernel's
+# bound is the larger of bytes / HBM rate and operations / bf16 tensor rate.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+TRAIN_BATCH = 4
+TRAIN_BUCKET = 64
+TRAIN_IMAGE_SIZE = 224                # imagebind_huge's input
+TRAIN_MEL_BINS, TRAIN_MEL_FRAMES = 128, 204
+TRAIN_LM_SHAPE = (4, 512)
+FROZEN_ROWS = 128256
+# One train step's LoRA gradients through the backward kernels against the
+# same step through the plain backward: both routes round every layer's dq,
+# dk, dv to bf16, the kernels also P and dS, and 32 layers of bf16 backward
+# carry that noise down; a wrong mask, scale or transposition turns the
+# gradient of every layer below it into noise (relative difference ~1.4,
+# cosine ~0).
+GRAD_REL = 5e-2
+GRAD_COS = 0.999
 
 
 def emit(obj) -> None:
@@ -137,13 +172,39 @@ def device_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def bound_ms(moved_bytes: float, flops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the HBM rate, or the operations at the dense bf16
+    tensor rate, whichever is longer."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                moved_bytes=moved_bytes, flops=flops)
+
+
+def live_pairs(B, T, S, causal, kv_len=None, q_offset=None) -> int:
+    """(query, key) pairs the attention mask leaves live in this call."""
+    import torch
+
+    from spider_tpu_torch.ops.attention import _live_and_offset
+
+    live, off = _live_and_offset(B, T, S, kv_len, q_offset, "cpu")
+    per_row = live[:, None].expand(B, T).clamp(max=S).long()
+    if causal:
+        reach = torch.arange(T)[None, :] + off[:, None].long() + 1
+        per_row = torch.minimum(per_row, reach.clamp(min=0))
+    return int(per_row.sum())
+
+
 def launch_counters():
-    from spider_tpu_torch.ops.attention import flash_attention
+    from spider_tpu_torch.ops.attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
     from spider_tpu_torch.ops.paged_attention import paged_decode_attention
     from spider_tpu_torch.ops.quant import int4_matmul
     from spider_tpu_torch.ops.temporal_attention import temporal_attention
 
-    return {"flash_fwd": flash_attention, "tattn_fwd": temporal_attention,
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "tattn_fwd": temporal_attention,
             "paged_decode": paged_decode_attention, "int4_matmul": int4_matmul}
 
 
@@ -260,9 +321,23 @@ def phase_kernel_flash(dev, spider_free_T: int):
         ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: A.mha_reference_with_lse(q, k, v, **kw))
         B, T, S, Hq, Hkv, D = shape
+        pairs = live_pairs(B, T, S, kw["causal"], kw.get("kv_len"), kw.get("q_offset"))
+        keys = live_pairs(B, 1, S, False, kw.get("kv_len"))       # keys below kv_len
+        # q, out [B,T,Hq,D] and the live rows of k, v in bf16, lse fp32; QK^T and PV
         row = dict(kernel="flash_fwd", name=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=D,
                    causal=kw["causal"], max_abs_err=err, max_abs_err_lse=err_lse, ms=ms,
-                   plain_ms=plain_ms, ok=finite and err <= OUT_ATOL and err_lse <= LSE_ATOL)
+                   plain_ms=plain_ms, library_ms=None,
+                   **bound_ms(2 * (2 * B * T * Hq * D + 2 * keys * Hkv * D) + 4 * B * Hq * T,
+                              4 * Hq * D * pairs),
+                   ok=finite and err <= OUT_ATOL and err_lse <= LSE_ATOL)
+        if name.startswith(("unet_self", "prefill")):
+            # One PyTorch call for the same function: the live window only
+            # (kv_len keys), heads first, as SDPA takes them.
+            n_live = int(kw["kv_len"][0]) if "kv_len" in kw else S
+            qs, ks, vs = (x[:, :n].transpose(1, 2) for x, n in ((q, T), (k, n_live),
+                                                                (v, n_live)))
+            row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=kw["causal"], enable_gqa=Hq != Hkv))
         if name.startswith("zeroscope"):
             # The plain path the UNet3D really runs there: unet2d's einsum.
             flat = [x.reshape(B, -1, Hq * D) for x in (q, k, v)]
@@ -271,6 +346,84 @@ def phase_kernel_flash(dev, spider_free_T: int):
             del flat
         rows.append(row)
         del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_flash_bwd(dev):
+    """The two backward kernels against flash_backward_reference on the
+    forward kernel's out and lse: one row per kernel and case. `ms` is that
+    kernel alone; `plain_ms` the plain version, which computes dq, dk and dv
+    together; `library_ms` the backward of F.scaled_dot_product_attention
+    (all three gradients too), timed where one call computes the case."""
+    import torch
+    import torch.nn.functional as F
+
+    from spider_tpu_torch.ops import attention as A
+
+    def i32(*x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    B, T = TRAIN_LM_SHAPE
+    cases = [
+        (f"train_B{B}_T{T}", (B, T, T, 32, 8, 128), dict(causal=True), False),
+        ("long_B1_T2048", (1, 2048, 2048, 32, 8, 128), dict(causal=True), False),
+        ("padded_prefill_kv_len", (2, 333, 512, 32, 8, 128),
+         dict(causal=True, kv_len=i32(333, 200)), False),
+        ("ragged_full_D40", (2, 333, 1000, 8, 8, 40), dict(causal=False), False),
+        ("with_g_lse", (2, 256, 256, 32, 8, 128), dict(causal=True), True),
+    ]
+    rows = []
+    for i, (name, shape, kw, with_lse) in enumerate(cases):
+        Bc, Tc, S, Hq, Hkv, D = shape
+        g = torch.Generator(device=dev).manual_seed(500 + i)
+        mk = lambda *s: torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
+        q, k, v, do = mk(Bc, Tc, Hq, D), mk(Bc, S, Hkv, D), mk(Bc, S, Hkv, D), mk(Bc, Tc, Hq, D)
+        g_lse = (torch.randn((Bc, Hq, Tc), generator=g, device=dev) if with_lse else None)
+        out, lse = A.flash_attention_with_lse(q, k, v, **kw)
+        got = A.flash_backward(q, k, v, out, lse, do, g_lse=g_lse, **kw)
+        want = A.flash_backward_reference(q, k, v, out, lse, do, g_lse=g_lse, **kw)
+        torch.cuda.synchronize()
+        errs, excess, finite = [], [], True
+        for a, b in zip(got, want):
+            diff = (a.float() - b.float()).abs()
+            errs.append(diff.max().item())
+            excess.append((diff - (BWD_ATOL + BWD_REL * b.float().abs())).max().item())
+            finite &= bool(torch.isfinite(a).all())
+        del got, want
+        live, off = A._live_and_offset(Bc, Tc, S, kw.get("kv_len"), None, dev)
+        delta = A._delta(do, out, g_lse)
+        args = (q, k, v, do, lse, delta, live, off, kw["causal"], None)
+        dq_ms = cuda_ms(lambda: A.flash_bwd_dq(*args))
+        dkv_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args))
+        plain_ms = cuda_ms(lambda: A.flash_backward_reference(q, k, v, out, lse, do,
+                                                             g_lse=g_lse, **kw), reps=3)
+        library_ms = None
+        if Tc == S and "kv_len" not in kw and not with_lse:
+            leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"],
+                                               enable_gqa=Hq != Hkv)
+            go = do.transpose(1, 2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, go, retain_graph=True))
+            del leaves, o
+        pairs = live_pairs(Bc, Tc, S, kw["causal"], kw.get("kv_len"))
+        keys = live_pairs(Bc, 1, S, False, kw.get("kv_len"))
+        q_bytes, kv_bytes = 2 * Bc * Tc * Hq * D, 2 * keys * Hkv * D
+        rows_bytes = 2 * 4 * Bc * Hq * Tc                           # lse and delta, fp32
+        common = dict(name=name, B=Bc, T=Tc, S=S, Hq=Hq, Hkv=Hkv, D=D, causal=kw["causal"],
+                      g_lse=with_lse, plain_ms=plain_ms, library_ms=library_ms)
+        # dq: q, dO read and dq written, live k, v read; S, dP and dS K
+        rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=errs[0], ms=dq_ms,
+                         **bound_ms(3 * q_bytes + 2 * kv_bytes + rows_bytes,
+                                    6 * Hq * D * pairs),
+                         ok=finite and excess[0] <= 0))
+        # dk/dv: q, dO, live k, v read, dk, dv written; S, dP, P^T dO and dS^T Q
+        rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=max(errs[1:]),
+                         max_abs_err_dk=errs[1], max_abs_err_dv=errs[2], ms=dkv_ms,
+                         **bound_ms(2 * q_bytes + 4 * kv_bytes + rows_bytes,
+                                    8 * Hq * D * pairs),
+                         ok=finite and max(excess[1:]) <= 0))
+        del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return rows
 
@@ -305,10 +458,19 @@ def phase_kernel_tattn(dev):
         ms = cuda_ms(lambda: TA.temporal_attention_kernel(q, k, v, H, layout=layout))
         plain_ms = cuda_ms(lambda: TA.temporal_attention_reference(q, k, v, H, layout=layout))
         moved = 4 * q.numel() * q.element_size()          # q, k, v read; out written
+        library_ms = None
+        if name == "zeroscope_L0_D40":
+            # One PyTorch call for the same function: frames as the sequence,
+            # (batch, pixel, head) as SDPA's batch dimensions.
+            qs, ks, vs = (x.reshape(B, F, P, H, C // H).permute(0, 2, 3, 1, 4)
+                          for x in (q, k, v))
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs))
         rows.append(dict(kernel="tattn_fwd", name=name, B=B, F=F, P=P, C=C, H=H, D=C // H,
                          layout=layout, max_abs_err=err, excess_over_bound=excess,
                          max_abs_plain=want.float().abs().max().item(), ms=ms,
-                         plain_ms=plain_ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         **bound_ms(moved, 4 * B * P * H * F * F * (C // H)),
                          gb_per_s=moved / (ms * 1e-3) / 1e9,
                          plain_gb_per_s=moved / (plain_ms * 1e-3) / 1e9,
                          ok=finite and excess <= 0))
@@ -351,6 +513,10 @@ def phase_kernel_paged(dev):
         moved = 2 * live * Hkv * D * 2                     # live K and V bytes read
         rows.append(dict(kernel="paged_decode", name=name, B=B, Hq=Hq, Hkv=Hkv, D=D, page=page,
                          max_pages=MP, kv_len=lens, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None,      # no one PyTorch call walks a page table
+                         # live K and V, q and out, the table and lengths
+                         **bound_ms(moved + 2 * B * Hq * D * 2 + 4 * B * (MP + 1),
+                                    4 * Hq * D * live),
                          device_ms=dev_ms, plain_device_ms=plain_dev_ms,
                          gb_per_s=moved / (dev_ms * 1e-3) / 1e9,
                          plain_gb_per_s=moved / (plain_dev_ms * 1e-3) / 1e9,
@@ -392,6 +558,8 @@ def phase_kernel_int4(dev):
         moved = N * K // 2 + 2 * M * K + 2 * M * N     # packed weight, x, out
         rows.append(dict(kernel="int4_matmul", name=name, M=M, K=K, N=N, max_abs_err=err,
                          excess_over_bound=excess, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                         library_ms=None,      # no PyTorch call takes packed int4 weights
+                         **bound_ms(moved + 4 * N, 2 * M * K * N),
                          plain_device_ms=plain_dev_ms,
                          gb_per_s=moved / (dev_ms * 1e-3) / 1e9,
                          tflop_per_s=2 * M * K * N / (dev_ms * 1e-3) / 1e12,
@@ -856,7 +1024,7 @@ def phase_serving(model8, model4, tokenizer):
             # every prefill (each prefill bucket is at most 512 rows)
             int4_matmul=((7 * cfg.num_hidden_layers + 1) * (steps + prefills)
                          if cfg.quantization == "int4" else 0),
-            tattn_fwd=0)
+            tattn_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
         got = [emitted[id(f)] for f in futs[:SERVING_WARMUP]]
         ref = _greedy_tokens(model, tokenizer, prompts[:SERVING_WARMUP], n_new)
         leading = []
@@ -879,6 +1047,296 @@ def phase_serving(model8, model4, tokenizer):
         del cb
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _checksum(t) -> int:
+    """An exact fingerprint of a tensor's bits."""
+    import torch
+
+    view = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    return int(t.detach().contiguous().view(view).sum(dtype=torch.int64))
+
+
+def _device_profile(fn, step_s: float, top: int = 8) -> dict:
+    """One torch.profiler pass over fn(): device time by kernel name (device
+    rows only; host-op rows repeat their kernels' time), and the share of an
+    unprofiled step of `step_s` seconds that the device is busy (the
+    profiler stretches the host's part of the window it records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return dict(profiled_wall_ms=wall_ms, step_ms=step_s * 1e3, device_ms=total,
+                device_busy_share=total / (step_s * 1e3) if total else None,
+                device_kernels=sum(r[2] for r in rows),
+                top=[dict(kernel=k[:80], ms=ms, launches=n, share=ms / total)
+                     for k, ms, n in rows[:top]])
+
+
+def phase_train(sd, ad, vd, dev, smi: str):
+    """The training path at full width. Returns (rows, launches): the JSON
+    rows and the main path's launch counts (the timed and checked train
+    steps; launches made while profiling or routed to the plain backward
+    are left out)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spider_tpu_torch import train as T
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.datasets.utils.loaders import batched
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.ops.attention import flash_backward_config
+    from spider_tpu_torch.runners.runner import RunnerBase, _pad_to_bucket
+    from spider_tpu_torch.runners.train_step import build_optimizer, make_lm_train_step
+    from spider_tpu_torch.tasks import setup_task
+
+    T.register_all()
+    rows, ok_all = [], True
+    launches = dict.fromkeys(KERNELS, 0)
+    out_dir = tempfile.mkdtemp(prefix="spider_train_")
+
+    def add(counts):
+        for name in KERNELS:
+            launches[name] += counts[name]
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        spider = factory.build_full_spider(
+            device=dev, seed=3, diffusion_pipes={"IMAGE": sd, "VIDEO": vd, "AUDIO": ad})
+        torch.cuda.synchronize()
+        cfg = Config.fromdict(dict(
+            datasets=dict(
+                t2i_cc_sbu=dict(batch_size=TRAIN_BATCH,
+                                build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=1)),
+                i2t_cc_sbu=dict(batch_size=TRAIN_BATCH,
+                                build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=2)),
+                t2a_audiocap=dict(batch_size=TRAIN_BATCH,
+                                  build_info=dict(num_mels=TRAIN_MEL_BINS,
+                                                  target_length=TRAIN_MEL_FRAMES, seed=3))),
+            run=dict(task="image_text_pretrain", lr_sched="warmup_decay_lr", init_lr=3e-4,
+                     warmup_steps=0, max_epoch=1, iters_per_epoch=1000, weight_decay=0.01,
+                     max_grad_norm=1.0, accum_grad_iters=1, num_frozen_embed_rows=FROZEN_ROWS,
+                     length_bucket=TRAIN_BUCKET, output_dir=out_dir)))
+        task = setup_task(cfg)
+        datasets = task.build_datasets(cfg)["train"]
+        loaders = {name: batched(iter(entry["dataset"]), entry["batch_size"])
+                   for name, entry in datasets.items()}
+        runner = RunnerBase(cfg, task, spider, {}, "chip_smoke")
+        llm_cfg = spider.llm.config
+        L = llm_cfg.num_hidden_layers
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(flash_fwd=L * (1 + llm_cfg.remat), flash_bwd_dq=L, flash_bwd_dkv=L)
+        trainable = spider.trainable_params()
+        frozen = {n: p for n, p in spider.named_parameters() if n not in trainable}
+        n_trainable = sum(p.numel() for p in trainable.values())
+        n_frozen = sum(p.numel() for p in frozen.values())
+        rows.append(dict(
+            phase="train", part="build", seconds=time.perf_counter() - t0,
+            model="build_full_spider: llama3_8b architecture, LoRA r 32, vocab "
+                  f"{llm_cfg.vocab_size}, bf16 base frozen, remat; imagebind_huge; "
+                  "moe_transformer aligner (hidden 512, 3 experts x 4+4 layers)",
+            trainable_params=n_trainable, frozen_params=n_frozen,
+            resident_before_gb=resident_gb, allocated_gb=torch.cuda.memory_allocated() / 1e9,
+            ok=L == 32 and llm_cfg.hidden_size == 4096 and llm_cfg.lora.r == 32))
+
+        # fingerprints of everything that must not move
+        sums = {n: _checksum(p) for n, p in frozen.items()}
+        vocab = {n: p for n, p in trainable.items()
+                 if n.endswith(("embed_tokens.weight", "lm_head.weight"))}
+        row_sums = {n: (_checksum(p[:FROZEN_ROWS]), _checksum(p[FROZEN_ROWS:]))
+                    for n, p in vocab.items()}
+
+        def timed_step(samples):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runner.train_step(samples)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_launches()
+            add(counts)
+            pad = spider.tokenizer.pad_token_id
+            tokens = _pad_to_bucket(spider.prepare_batch(samples), TRAIN_BUCKET,
+                                    pad).input_ids.size
+            return out, seconds, counts, tokens
+
+        # ---- warm-up, then steps cycling IMAGE / TEXT-with-image-input / AUDIO
+        names = ("t2i_cc_sbu", "i2t_cc_sbu", "t2a_audiocap")
+        for name in names:
+            timed_step(next(loaders[name]))
+        torch.cuda.reset_peak_memory_stats()
+        per_task = {name: [] for name in names}
+        for i in range(6):
+            name = names[i % 3]
+            out, seconds, counts, tokens = timed_step(next(loaders[name]))
+            per_task[name].append((seconds, tokens, out, counts))
+        for name, steps in per_task.items():
+            secs = [s for s, _, _, _ in steps]
+            finite = all(all(v == v and abs(v) != float("inf") for v in o.values())
+                         for _, _, o, _ in steps)
+            counts_ok = all(c == want for _, _, _, c in steps)
+            rows.append(dict(
+                phase="train", part="spider_step", dataset=name, batch=TRAIN_BATCH,
+                tokens_per_step=steps[-1][1], steps=len(steps),
+                s_per_step=statistics.median(secs), s_per_step_all=secs,
+                tokens_per_s=steps[-1][1] / statistics.median(secs),
+                losses=[o["loss"] for _, _, o, _ in steps], loss_keys=sorted(steps[-1][2]),
+                launches_per_step=steps[-1][3], launches_expected=want,
+                peak_gb=peak_gb(), ok=finite and counts_ok))
+
+        # ---- one repeated batch: the loss falls
+        samples = next(loaders["t2i_cc_sbu"])
+        losses = []
+        for _ in range(8):
+            out, _, counts, _ = timed_step(samples)
+            losses.append(out["loss"])
+        rows.append(dict(phase="train", part="repeated_batch", steps=8, losses=losses,
+                         ok=all(x == x for x in losses) and losses[-1] < losses[0]
+                         and counts == want))
+
+        # ---- one step's loss and LoRA gradients: kernels vs the plain backward
+        def lora_grads():
+            spider.zero_grad(set_to_none=True)
+            out = runner.loss_dict(samples)
+            out["loss"].backward()
+            flat = torch.cat([p.grad.float().flatten() for n, p in trainable.items()
+                              if "lora_" in n])
+            spider.zero_grad(set_to_none=True)
+            return float(out["loss"].detach()), flat
+
+        reset_launches()
+        loss_k, g_k = lora_grads()
+        counts = read_launches()
+        add(counts)
+        with flash_backward_config("plain"):
+            reset_launches()
+            loss_p, g_p = lora_grads()
+            plain_counts = read_launches()
+        rel = ((g_k - g_p).norm() / g_p.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
+        rows.append(dict(
+            phase="train", part="grad_check", loss_kernels=loss_k, loss_plain=loss_p,
+            lora_grad_rel_diff=rel, lora_grad_cosine=cos, lora_grad_norm=g_p.norm().item(),
+            lora_grad_elements=g_p.numel(), launches=counts, launches_plain_route=plain_counts,
+            bounds=dict(rel=GRAD_REL, cosine=GRAD_COS),
+            ok=abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= GRAD_REL and cos >= GRAD_COS and counts == want
+            and plain_counts["flash_bwd_dq"] == 0 and plain_counts["flash_bwd_dkv"] == 0
+            and bool(torch.isfinite(g_k).all()) and g_p.norm().item() > 0))
+        del g_k, g_p
+
+        # ---- nothing frozen moved; the new vocabulary rows did
+        moved = [n for n, p in frozen.items() if _checksum(p) != sums[n]]
+        rows_ok = all(_checksum(p[:FROZEN_ROWS]) == row_sums[n][0]
+                      and _checksum(p[FROZEN_ROWS:]) != row_sums[n][1]
+                      for n, p in vocab.items())
+        rows.append(dict(phase="train", part="frozen_check", frozen_tensors=len(frozen),
+                         frozen_tensors_moved=moved[:5], frozen_vocab_rows=FROZEN_ROWS,
+                         vocab_matrices=sorted(vocab), optimizer_updates=runner.optimizer.count,
+                         ok=not moved and rows_ok and len(vocab) == 2))
+
+        # ---- where a Spider step's time goes
+        rows.append(dict(phase="train", part="spider_step_profile", dataset="t2i_cc_sbu",
+                         **_device_profile(lambda: runner.train_step(samples),
+                                           statistics.median(per_task["t2i_cc_sbu"][i][0]
+                                                             for i in range(2))), ok=True))
+        del runner
+        torch.cuda.empty_cache()
+
+        # ---- the LM step (input_ids/labels) at [4, 512]
+        B, T_len = TRAIN_LM_SHAPE
+        g = torch.Generator(device=dev).manual_seed(11)
+        opt = build_optimizer(3e-4, params={n: p for n, p in spider.llm.named_parameters()
+                                            if p.requires_grad},
+                              weight_decay=0.01, num_frozen_embed_rows=FROZEN_ROWS)
+        step = make_lm_train_step(spider.llm, opt)
+        spider.train()
+
+        def lm_batch():
+            ids = torch.randint(3, llm_cfg.vocab_size, (B, T_len), generator=g, device=dev)
+            labels = ids.clone()
+            labels[:, : T_len // 4] = -100
+            return dict(input_ids=ids, labels=labels)
+
+        step(lm_batch())                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, metrics, counts_ok = [], [], True
+        for _ in range(3):
+            batch = lm_batch()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = read_launches()
+            add(counts)
+            counts_ok &= counts == want
+            metrics.append({k: float(v) for k, v in m.items()})
+        finite = all(v == v and abs(v) != float("inf") for m in metrics for v in m.values())
+        rows.append(dict(phase="train", part="lm_step", batch=B, seq_len=T_len, steps=3,
+                         s_per_step=statistics.median(secs), s_per_step_all=secs,
+                         tokens_per_s=B * T_len / statistics.median(secs), metrics=metrics,
+                         launches_per_step=counts, launches_expected=want,
+                         peak_gb=peak_gb(), ok=finite and counts_ok))
+        batch = lm_batch()
+        rows.append(dict(phase="train", part="lm_step_profile", batch=B, seq_len=T_len,
+                         **_device_profile(lambda: step(batch), statistics.median(secs)),
+                         ok=True))
+        del opt, step
+        torch.cuda.empty_cache()
+
+        # ---- checkpoint round trip, on a runner that trains everything but
+        # the two vocabulary matrices (their fp32 Adam state alone is 8 GB)
+        cfg.run.trainable_patterns = ("lora_", "llama_proj", "moe_aligner", "logit_scale")
+        small = RunnerBase(cfg, task, spider, {}, "chip_smoke_ckpt")
+        runner = small
+        timed_step(samples)
+        t0 = time.perf_counter()
+        path = small.save_checkpoint(epoch=0)
+        save_s = time.perf_counter() - t0
+        saved = {n: _checksum(p) for n, p in small.optimizer.params.items()}
+        saved_mu = {n: _checksum(t) for n, t in small.optimizer.mu.items()}
+        timed_step(samples)                               # move on past the checkpoint
+        moved_on = sum(_checksum(p) != saved[n] for n, p in small.optimizer.params.items())
+        small.load_checkpoint(path)
+        restored = (all(_checksum(p) == saved[n] for n, p in small.optimizer.params.items())
+                    and all(_checksum(t) == saved_mu[n]
+                            for n, t in small.optimizer.mu.items()))
+        out_after, _, _, _ = timed_step(samples)
+        rows.append(dict(
+            phase="train", part="checkpoint", file_gb=os.path.getsize(path) / 1e9,
+            save_s=save_s, tensors=len(saved), tensors_moved_after_save=moved_on,
+            restored_bit_identical=restored, step_restored=small.global_step - 1,
+            start_epoch=small.start_epoch, loss_after_resume=out_after["loss"],
+            ok=restored and moved_on > 0 and small.start_epoch == 1
+            and small.optimizer.count == 2 and out_after["loss"] == out_after["loss"]))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for row in rows:
+        row["nvidia_smi"] = smi
+    return rows, launches
 
 
 def main() -> int:
@@ -907,9 +1365,9 @@ def main() -> int:
     # ---- build: one nvcc per kernel source, all started together
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    cuda_build.load_all(KERNELS)
+    cuda_build.load_all(SOURCES)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k, 0.0) for k in KERNELS},
+              nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k, 0.0) for k in SOURCES},
               nvidia_smi=smi, tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
               tf32_cudnn=torch.backends.cudnn.allow_tf32))
 
@@ -919,8 +1377,8 @@ def main() -> int:
     spider_free_T = spider_free_prompt_len(tokenizer)
 
     # ---- kernel vs plain (these launches are not the main path's)
-    rows = (phase_kernel_flash(dev, spider_free_T) + phase_kernel_tattn(dev)
-            + phase_kernel_paged(dev) + phase_kernel_int4(dev))
+    rows = (phase_kernel_flash(dev, spider_free_T) + phase_kernel_flash_bwd(dev)
+            + phase_kernel_tattn(dev) + phase_kernel_paged(dev) + phase_kernel_int4(dev))
     for row in rows:
         emit(dict(phase="kernel", **row))
         ok &= row["ok"]
@@ -940,9 +1398,9 @@ def main() -> int:
     ok &= check["ok"]
     ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
 
-    # ---- the main path: chat, text+image requests, any-to-many requests,
-    # continuous-batching serving; each phase zeroes the counts before it
-    # runs and reads them after.
+    # ---- the main paths: chat, text+image requests, any-to-many requests,
+    # continuous-batching serving, then training; each phase zeroes the
+    # counts before it runs and reads them after.
     main_launches = dict.fromkeys(KERNELS, 0)
     phases = [phase_chat(model, tokenizer, spider_free_T)]
     phases += phase_request(model, tokenizer, sd)
@@ -953,30 +1411,40 @@ def main() -> int:
         ok &= row["ok"]
         for name in KERNELS:
             main_launches[name] += row["launches"][name]
+
+    # The trainer needs the card's memory: the two chat models go first.
+    del model, model4
+    torch.cuda.empty_cache()
+    train_rows, train_launches = phase_train(sd, ad, vd, dev, smi)
+    for row in train_rows:
+        emit(row)
+        ok &= row["ok"]
+    for name in KERNELS:
+        main_launches[name] += train_launches[name]
     ok &= all(n > 0 for n in main_launches.values())
 
-    by_name = {r["name"]: r for r in rows}
-    flash_row, tattn_row = by_name["unet_self_T4096_D40"], by_name["zeroscope_L0_D40"]
-    paged_row, int4_row = by_name["serving_B16_MP4"], by_name["gate_up_M16"]
-    emit({"kernels": [
-        dict(name="flash_fwd", route="cuda", source="spider_tpu_torch/csrc/flash_fwd.cu",
-             replaces="spider_tpu/ops/attention.py:67", launches=main_launches["flash_fwd"],
-             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "flash_fwd"),
-             ms=flash_row["ms"], plain_ms=flash_row["plain_ms"]),
-        dict(name="tattn_fwd", route="cuda", source="spider_tpu_torch/csrc/tattn_fwd.cu",
-             replaces="spider_tpu/ops/temporal_attention.py:45",
-             launches=main_launches["tattn_fwd"],
-             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "tattn_fwd"),
-             ms=tattn_row["ms"], plain_ms=tattn_row["plain_ms"]),
-        dict(name="paged_decode", route="cuda", source="spider_tpu_torch/csrc/paged_decode.cu",
-             replaces="spider_tpu/ops/paged_attention.py:31",
-             launches=main_launches["paged_decode"],
-             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "paged_decode"),
-             ms=paged_row["ms"], plain_ms=paged_row["plain_ms"]),
-        dict(name="int4_matmul", route="cuda", source="spider_tpu_torch/csrc/int4_matmul.cu",
-             replaces="spider_tpu/ops/quant.py:65", launches=main_launches["int4_matmul"],
-             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == "int4_matmul"),
-             ms=int4_row["ms"], plain_ms=int4_row["plain_ms"])]})
+    # One row per kernel at a shape its main path gives it (name of the row
+    # in the `kernel` lines above).
+    summary = [
+        ("flash_fwd", "unet_self_T4096_D40", "flash_fwd", "attention.py:67"),
+        ("flash_bwd_dq", f"train_B{TRAIN_LM_SHAPE[0]}_T{TRAIN_LM_SHAPE[1]}", "flash_bwd",
+         "attention.py:263"),
+        ("flash_bwd_dkv", f"train_B{TRAIN_LM_SHAPE[0]}_T{TRAIN_LM_SHAPE[1]}", "flash_bwd",
+         "attention.py:299"),
+        ("tattn_fwd", "zeroscope_L0_D40", "tattn_fwd", "temporal_attention.py:45"),
+        ("paged_decode", "serving_B16_MP4", "paged_decode", "paged_attention.py:31"),
+        ("int4_matmul", "gate_up_M16", "int4_matmul", "quant.py:65")]
+    kernels = []
+    for kernel, shape_row, source, replaces in summary:
+        mine = [r for r in rows if r["kernel"] == kernel]
+        row = next(r for r in mine if r["name"] == shape_row)
+        kernels.append(dict(
+            name=kernel, route="cuda", source=f"spider_tpu_torch/csrc/{source}.cu",
+            replaces=f"spider_tpu/ops/{replaces}", launches=main_launches[kernel],
+            max_abs_err=max(r["max_abs_err"] for r in mine), ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shape=shape_row))
+    emit({"kernels": kernels})
     print(smi, flush=True)
     if not ok:
         print("chip_smoke: a phase failed (see the JSON lines above)", file=sys.stderr)

@@ -1,0 +1,539 @@
+// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
+// bound to Python through plain C entry points (loaded with ctypes by
+// spider_tpu_torch/ops/attention.py).
+//
+// Replaces the TPU kernels spider_tpu/ops/attention.py::_flash_bwd_dq_kernel
+// and ::_flash_bwd_dkv_kernel (driven by _flash_backward). They compute the
+// same function: with P recomputed from q, k and the forward's row logsumexp,
+//
+//   s  = q k^T * sm_scale
+//   p  = live ? exp(s - lse) : 0
+//   dp = dO v^T
+//   ds = p * (dp - delta) * sm_scale
+//   dq = ds k        dv = p^T dO        dk = ds^T q
+//
+//   q, dO, dq [B, T, Hq, D]; k, v, dk, dv [B, S, Hkv, D] (contiguous, bf16 or
+//   fp32, one dtype); lse, delta [B, Hq, T] fp32; kv_len, q_offset [B] int32.
+//
+// delta = rowsum(dO * O) - g_lse is computed by the caller (the TPU form left
+// it to XLA too). Key s of batch b is live for query row t when s < kv_len[b]
+// and, if causal, s <= t + q_offset[b]: the forward's three position
+// conventions arrive as kv_len and q_offset. A query row with no live key has
+// p = 0 everywhere and so takes and gives zero gradient, whatever lse holds.
+//
+// What bounds it on an H100: 10*B*Hq*T*S*D FLOPs (five products per block
+// pair; half of that under a causal mask) against q, dO, dq, k, v, dk, dv
+// moved once: at the training shape (B 4, T = S = 512, 32/8 heads, D 128)
+// 21.5 GFLOP causal against 67 MB, ~320 FLOP/byte, just above the card's
+// ~295 FLOP/byte ridge, and further above it as T grows: bound by the tensor
+// cores. (The two kernels each recompute S and dP, so they execute 14
+// products' worth where the function needs 10.)
+//
+// Design (a first, simple form on mma.sync; wgmma/TMA are later work):
+//  * dq: one block of 4 warps per (64 query rows, q head, batch); a loop
+//    inside the block walks the 64-key tiles up to the causal diagonal and
+//    kv_len (the TPU's sequential grid axis). Each warp owns 16 query rows,
+//    computes S and dP on mma.sync.m16n8k16 (bf16 in, fp32 out), forms dS in
+//    registers (the accumulator layout of S is the A-operand layout of the
+//    next product) and adds dS K into its fp32 dq accumulator.
+//  * dk/dv: one block per (64 keys, KV head, batch). It loops over the q
+//    heads of the GQA group and over the q tiles from the causal diagonal
+//    down, so dk and dv are summed in registers and written once: no atomics,
+//    no [B, Hq, S, D] intermediate, the same sum order every run. Each warp
+//    owns 16 keys and works on the transposed problem: S^T = K Q^T and
+//    dP^T = V dO^T, so P^T and dS^T come out in the A-operand layout for
+//    dv += P^T dO and dk += dS^T Q. A q tile is taken in two halves of 32
+//    rows to keep the four accumulators within the register file.
+//  * Tiles are staged in shared memory as bf16, zero-filled past the ragged
+//    T/S edges and from D up to DP (the next multiple of 16). fp32 inputs are
+//    rounded to bf16 there, and P and dS are rounded to bf16 for the second
+//    products, as the forward rounds P: the tensor cores take bf16 operands.
+//    Accumulation, exp and the dS arithmetic stay fp32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a * b for one 16x8x16 tile (A row-major 16x16, B column-major 16x8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage rows [row0, row0 + 64) of one head into dst [64][LD] as bf16; rows
+// past n_rows and columns past D are zero.
+template <typename T, int DP, int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const T* src, int row0,
+                                          int n_rows, int64_t row_stride, int D) {
+  for (int i = threadIdx.x; i < 64 * DP; i += NTHREADS) {
+    const int r = i / DP;
+    const int c = i % DP;
+    const int gr = row0 + r;
+    float x = 0.f;
+    if (gr < n_rows && c < D) x = to_float(src[(int64_t)gr * row_stride + c]);
+    dst[r * LD + c] = __float2bfloat16(x);
+  }
+}
+
+// A operand (16 rows x 16 deep) of rows r0, r0 + 8 at depth kk * 16 of a
+// row-major [rows][LD] tile.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int r0,
+                                       int kk, int t) {
+  const __nv_bfloat16* p = tile + r0 * LD + kk * 16 + 2 * t;
+  a[0] = load_u32(p);
+  a[1] = load_u32(p + 8 * LD);
+  a[2] = load_u32(p + 8);
+  a[3] = load_u32(p + 8 * LD + 8);
+}
+
+// acc += X Y^T, X given as an A operand, Y row `row` of a row-major tile
+// (the contraction runs along the tile's rows' depth, as in q k^T).
+template <int LD>
+__device__ __forceinline__ void mma_nt(float (&acc)[4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int row, int kk, int t) {
+  const __nv_bfloat16* p = tile + row * LD + kk * 16 + 2 * t;
+  mma_bf16(acc, a, load_u32(p), load_u32(p + 8));
+}
+
+// acc += X Y, X given as an A operand over 16 rows of Y starting at row
+// `krow0`, output columns col0 .. col0 + 7 of the row-major tile Y.
+template <int LD>
+__device__ __forceinline__ void mma_nn(float (&acc)[4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int krow0, int col0, int g,
+                                       int t) {
+  const __nv_bfloat16* p = tile + (krow0 + 2 * t) * LD + col0 + g;
+  mma_bf16(acc, a, pack_bf16(p[0], p[LD]), pack_bf16(p[8 * LD], p[9 * LD]));
+}
+
+// ---------------------------------------------------------------------------
+// dq
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const int* __restrict__ kv_len, const int* __restrict__ q_offset,
+                    int T_len, int S, int Hq, int Hkv, int D, float sm_scale, int causal) {
+  constexpr int LD = DP + 8;  // row pitch in bf16; the +8 spreads rows over banks
+  constexpr int NT_S = BK / 8;
+  constexpr int NT_O = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sDO = sQ + BQ * LD;
+  __nv_bfloat16* sK = sDO + BQ * LD;
+  __nv_bfloat16* sV = sK + BK * LD;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int live = max(0, min(kv_len[b], S));
+  const int qoff = q_offset[b];
+  int kv_hi = live;
+  if (causal) kv_hi = min(kv_hi, min(q0 + BQ, T_len) + qoff);
+  const int n_tiles = kv_hi > 0 ? (kv_hi + BK - 1) / BK : 0;
+
+  const int64_t q_stride = (int64_t)Hq * D;
+  const int64_t kv_stride = (int64_t)Hkv * D;
+  const T* qb = q + ((int64_t)b * T_len * Hq + h) * D;
+  const T* dob = dout + ((int64_t)b * T_len * Hq + h) * D;
+  const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+  const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  load_tile<T, DP, LD>(sQ, qb, q0, T_len, q_stride, D);
+  load_tile<T, DP, LD>(sDO, dob, q0, T_len, q_stride, D);
+
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int row0 = q0 + r0;
+  const int row1 = row0 + 8;
+  const float* lse_b = lse + ((int64_t)b * Hq + h) * T_len;
+  const float* delta_b = delta + ((int64_t)b * Hq + h) * T_len;
+  float lse2[2], dlt[2];  // lse in log2 units
+  lse2[0] = row0 < T_len ? lse_b[row0] * LOG2E : 0.f;
+  lse2[1] = row1 < T_len ? lse_b[row1] * LOG2E : 0.f;
+  dlt[0] = row0 < T_len ? delta_b[row0] : 0.f;
+  dlt[1] = row1 < T_len ? delta_b[row1] : 0.f;
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<T, DP, LD>(sK, kb, k0, S, kv_stride, D);
+    load_tile<T, DP, LD>(sV, vb, k0, S, kv_stride, D);
+    __syncthreads();
+
+    // ---- S = Q K^T and dP = dO V^T for this warp's 16 rows, 64 keys.
+    float s[NT_S][4], dp[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ad[4];
+      load_a<LD>(aq, sQ, r0, kk, t);
+      load_a<LD>(ad, sDO, r0, kk, t);
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+        mma_nt<LD>(s[j], aq, sK, j * 8 + g, kk, t);
+        mma_nt<LD>(dp[j], ad, sV, j * 8 + g, kk, t);
+      }
+    }
+
+    // ---- dS = P * (dP - delta) * scale, P recomputed from lse.
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+        const int r = e >> 1;
+        const int qpos = (r ? row1 : row0) + qoff;
+        const bool on = kpos < live && (!causal || qpos >= kpos);
+        const float p = on ? exp2f(s[j][e] * scale2 - lse2[r]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dlt[r]) * sm_scale;
+      }
+    }
+
+    // ---- dq += dS K. Two adjacent 8-key tiles form one 16-deep A operand.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n) mma_nn<LD>(acc[n], a, sK, kk * 16, n * 8, g, t);
+    }
+  }
+
+  T* dqb = dq + ((int64_t)b * T_len * Hq + h) * D;
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n * 8 + 2 * t + (e & 1);
+      const int row = (e < 2) ? row0 : row1;
+      if (row < T_len && col < D) store_out(dqb + row * q_stride + col, acc[n][e]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     const int* __restrict__ kv_len, const int* __restrict__ q_offset,
+                     int T_len, int S, int Hq, int Hkv, int D, float sm_scale, int causal) {
+  constexpr int LD = DP + 8;
+  constexpr int HALF = BQ / 2;       // query rows taken at once
+  constexpr int NT_H = HALF / 8;     // 8-row column tiles of S^T in one half
+  constexpr int NT_O = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + BK * LD;
+  __nv_bfloat16* sQ = sV + BK * LD;
+  __nv_bfloat16* sDO = sQ + BQ * LD;
+  float* sLse = reinterpret_cast<float*>(sDO + BQ * LD);  // log2 units
+  float* sDelta = sLse + BQ;
+
+  const int k0 = blockIdx.x * BK;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const int live = max(0, min(kv_len[b], S));
+  const int qoff = q_offset[b];
+  const int n_q_tiles = (T_len + BQ - 1) / BQ;
+  // First q tile with a row on or below the diagonal of this key tile; none
+  // when every key of the tile is past kv_len.
+  int qt_lo = 0;
+  if (causal) qt_lo = max(0, k0 - qoff) / BQ;
+  if (k0 >= live) qt_lo = n_q_tiles;
+
+  const int64_t q_stride = (int64_t)Hq * D;
+  const int64_t kv_stride = (int64_t)Hkv * D;
+  const T* kb = k + ((int64_t)b * S * Hkv + hk) * D;
+  const T* vb = v + ((int64_t)b * S * Hkv + hk) * D;
+  load_tile<T, DP, LD>(sK, kb, k0, S, kv_stride, D);
+  load_tile<T, DP, LD>(sV, vb, k0, S, kv_stride, D);
+
+  const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
+  const int kpos0 = k0 + r0;
+  const int kpos1 = kpos0 + 8;
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc_k[NT_O][4], acc_v[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[n][e] = 0.f;
+      acc_v[n][e] = 0.f;
+    }
+  }
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const T* qb = q + ((int64_t)b * T_len * Hq + h) * D;
+    const T* dob = dout + ((int64_t)b * T_len * Hq + h) * D;
+    const float* lse_b = lse + ((int64_t)b * Hq + h) * T_len;
+    const float* delta_b = delta + ((int64_t)b * Hq + h) * T_len;
+    for (int qt = qt_lo; qt < n_q_tiles; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // every warp is done with the previous Q/dO tile
+      load_tile<T, DP, LD>(sQ, qb, q0, T_len, q_stride, D);
+      load_tile<T, DP, LD>(sDO, dob, q0, T_len, q_stride, D);
+      if (threadIdx.x < BQ) {
+        const int row = q0 + threadIdx.x;
+        sLse[threadIdx.x] = row < T_len ? lse_b[row] * LOG2E : 0.f;
+        sDelta[threadIdx.x] = row < T_len ? delta_b[row] : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = half * HALF;  // first query row of this half in the tile
+        // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 query rows.
+        float st[NT_H][4], dpt[NT_H][4];
+#pragma unroll
+        for (int j = 0; j < NT_H; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = 0.f;
+            dpt[j][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          uint32_t ak[4], av[4];
+          load_a<LD>(ak, sK, r0, kk, t);
+          load_a<LD>(av, sV, r0, kk, t);
+#pragma unroll
+          for (int j = 0; j < NT_H; ++j) {
+            mma_nt<LD>(st[j], ak, sQ, c0 + j * 8 + g, kk, t);
+            mma_nt<LD>(dpt[j], av, sDO, c0 + j * 8 + g, kk, t);
+          }
+        }
+
+        // ---- P^T into st, dS^T into dpt.
+#pragma unroll
+        for (int j = 0; j < NT_H; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + j * 8 + 2 * t + (e & 1);
+            const int qrow = q0 + col;
+            const int kpos = (e < 2) ? kpos0 : kpos1;
+            const bool on =
+                qrow < T_len && kpos < live && (!causal || qrow + qoff >= kpos);
+            const float p = on ? exp2f(st[j][e] * scale2 - sLse[col]) : 0.f;
+            st[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - sDelta[col]) * sm_scale;
+          }
+        }
+
+        // ---- dv += P^T dO, dk += dS^T Q over this half's 32 query rows.
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk) {
+          uint32_t ap[4], ads[4];
+          ap[0] = pack_f32(st[2 * kk][0], st[2 * kk][1]);
+          ap[1] = pack_f32(st[2 * kk][2], st[2 * kk][3]);
+          ap[2] = pack_f32(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+          ap[3] = pack_f32(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+          ads[0] = pack_f32(dpt[2 * kk][0], dpt[2 * kk][1]);
+          ads[1] = pack_f32(dpt[2 * kk][2], dpt[2 * kk][3]);
+          ads[2] = pack_f32(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
+          ads[3] = pack_f32(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+#pragma unroll
+          for (int n = 0; n < NT_O; ++n) {
+            mma_nn<LD>(acc_v[n], ap, sDO, c0 + kk * 16, n * 8, g, t);
+            mma_nn<LD>(acc_k[n], ads, sQ, c0 + kk * 16, n * 8, g, t);
+          }
+        }
+      }
+    }
+  }
+
+  T* dkb = dk + ((int64_t)b * S * Hkv + hk) * D;
+  T* dvb = dv + ((int64_t)b * S * Hkv + hk) * D;
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n * 8 + 2 * t + (e & 1);
+      const int row = (e < 2) ? kpos0 : kpos1;
+      if (row < S && col < D) {
+        store_out(dkb + row * kv_stride + col, acc_k[n][e]);
+        store_out(dvb + row * kv_stride + col, acc_v[n][e]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  const void *kv_len, *q_offset;
+  int B, T_len, S, Hq, Hkv, D;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int DP>
+cudaError_t launch_dq(const Args& a) {
+  constexpr int LD = DP + 8;
+  const size_t smem = (size_t)(2 * BQ + 2 * BK) * LD * sizeof(__nv_bfloat16);
+  auto kernel = flash_bwd_dq_kernel<T, DP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.T_len + BQ - 1) / BQ, a.Hq, a.B);
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq),
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.q_offset), a.T_len, a.S,
+      a.Hq, a.Hkv, a.D, a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv(const Args& a) {
+  constexpr int LD = DP + 8;
+  const size_t smem =
+      (size_t)(2 * BQ + 2 * BK) * LD * sizeof(__nv_bfloat16) + 2 * BQ * sizeof(float);
+  auto kernel = flash_bwd_dkv_kernel<T, DP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.S + BK - 1) / BK, a.Hkv, a.B);
+  kernel<<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.q_offset), a.T_len, a.S,
+      a.Hq, a.Hkv, a.D, a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dim(const Args& a, bool dkv) {
+#define SPIDER_FLASH_CASE(DP_) \
+  case DP_ / 16:               \
+    return dkv ? launch_dkv<T, DP_>(a) : launch_dq<T, DP_>(a);
+  switch ((a.D + 15) / 16) {
+    SPIDER_FLASH_CASE(16)
+    SPIDER_FLASH_CASE(32)
+    SPIDER_FLASH_CASE(48)
+    SPIDER_FLASH_CASE(64)
+    SPIDER_FLASH_CASE(80)
+    SPIDER_FLASH_CASE(96)
+    SPIDER_FLASH_CASE(112)
+    SPIDER_FLASH_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SPIDER_FLASH_CASE
+}
+
+int run(const Args& a, int is_fp32, bool dkv) {
+  if (a.B <= 0 || a.T_len <= 0 || a.S <= 0 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.D <= 0 ||
+      a.D > 128)
+    return (int)cudaErrorInvalidValue;
+  return (int)(is_fp32 ? dispatch_dim<float>(a, dkv) : dispatch_dim<__nv_bfloat16>(a, dkv));
+}
+
+}  // namespace
+
+// Each returns the cudaError_t of the launch (0 on success), launches on
+// `stream` and does not synchronise; the outputs are allocated by the caller.
+extern "C" int spider_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dq, const void* kv_len, const void* q_offset, int B,
+                                   int T_len, int S, int Hq, int Hkv, int D, float sm_scale,
+                                   int causal, int is_fp32, void* stream) {
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, kv_len, q_offset, B, T_len, S,
+         Hq, Hkv, D, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return run(a, is_fp32, false);
+}
+
+extern "C" int spider_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dk, void* dv, const void* kv_len,
+                                    const void* q_offset, int B, int T_len, int S, int Hq,
+                                    int Hkv, int D, float sm_scale, int causal, int is_fp32,
+                                    void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, kv_len, q_offset, B, T_len, S,
+         Hq, Hkv, D, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return run(a, is_fp32, true);
+}

@@ -19,8 +19,12 @@ per-output-channel fp32 scale applied to the matmul output. Eager PyTorch
 makes a bf16 copy of each int8 weight on every call: correct, and slow; a
 W8A16 kernel is later work. ``quantization='int4'`` packs two signed 4-bit
 weights per byte, [out, in/2] (ops/quant.py has the layout), and runs the
-int4 matmul kernel. Left out for now: LoRA, MoE, mrope, context
-parallelism, projection biases and tied embeddings.
+int4 matmul kernel. ``lora.r > 0`` adds the additive LoRA branch to the
+targeted projections; ``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), so the flash forward kernel runs twice there.
+The cache-free forward is differentiable: its flash attention carries the
+backward kernels. Left out for now: MoE, mrope, context parallelism,
+projection biases and tied embeddings.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spider_tpu_torch.ops.attention import flash_attention, mha_reference
 from spider_tpu_torch.ops.norms import rms_norm
@@ -39,6 +44,13 @@ from spider_tpu_torch.ops.quant import int4_matmul
 from spider_tpu_torch.ops.rope import apply_rope, rope_inv_freq
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    r: int = 0                      # 0 disables LoRA
+    alpha: float = 21.0
+    targets: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +68,8 @@ class LlamaConfig:
     rope_scaling: Optional[Dict[str, float]] = None
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    lora: LoraConfig = dataclasses.field(default_factory=LoraConfig)
+    remat: bool = False
     # 'int8' or 'int4': weight-only per-output-channel quantization of every
     # projection and the lm_head (embeddings and norms stay high precision).
     quantization: Optional[str] = None
@@ -63,6 +77,9 @@ class LlamaConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    def extend_vocab(self, new_vocab_size: int) -> "LlamaConfig":
+        return dataclasses.replace(self, vocab_size=new_vocab_size)
 
 
 def llama3_8b() -> LlamaConfig:
@@ -81,7 +98,7 @@ def llama3_8b() -> LlamaConfig:
     )
 
 
-def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
+def llama_tiny(vocab_size: int = 512, lora_r: int = 0) -> LlamaConfig:
     """Small config for CPU tests."""
     return LlamaConfig(
         vocab_size=vocab_size,
@@ -93,6 +110,7 @@ def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
         max_position_embeddings=512,
         rope_theta=10000.0,
         dtype=torch.float32,
+        lora=LoraConfig(r=lora_r),
     )
 
 
@@ -103,13 +121,16 @@ class LoraDense(nn.Module):
     under quantization='int4', ``kernel_q`` int8 [out, in/2] holding two
     signed nibbles a byte (in-rows i and i + in/2) and ``kernel_scale`` fp32
     [out]: y = int4_matmul(x, kernel_q, kernel_scale) in dtype, the scale on
-    the fp32 accumulator. The LoRA branch and the bias of the JAX module are
-    not ported yet."""
+    the fp32 accumulator. With lora_r > 0 it adds (alpha / r) x A B, ``lora_a``
+    [in, r] ~ N(0, 0.02) and ``lora_b`` [r, out] zeros, both fp32 whatever
+    param_dtype is (they train while a bf16 base stays frozen). The bias of
+    the JAX module is not ported yet."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
-                 quantization: Optional[str] = None, device=None):
+                 quantization: Optional[str] = None, device=None,
+                 lora_r: int = 0, lora_alpha: float = 21.0):
         super().__init__()
         if quantization not in (None, "int8", "int4"):
             raise NotImplementedError(f"quantization={quantization!r} is not ported")
@@ -126,13 +147,24 @@ class LoraDense(nn.Module):
         else:
             self.weight = nn.Parameter(torch.zeros(
                 features, in_features, dtype=param_dtype, device=device))
+        self.lora_scale = lora_alpha / lora_r if lora_r > 0 else 0.0
+        if lora_r > 0:
+            self.lora_a = nn.Parameter(0.02 * torch.randn(
+                in_features, lora_r, dtype=torch.float32, device=device))
+            self.lora_b = nn.Parameter(torch.zeros(
+                lora_r, features, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quantization == "int8":
-            return F.linear(x, self.kernel_q.to(self.dtype)) * self.kernel_scale.to(self.dtype)
-        if self.quantization == "int4":
-            return int4_matmul(x, self.kernel_q, self.kernel_scale, out_dtype=self.dtype)
-        return F.linear(x, self.weight.to(self.dtype))
+            y = F.linear(x, self.kernel_q.to(self.dtype)) * self.kernel_scale.to(self.dtype)
+        elif self.quantization == "int4":
+            y = int4_matmul(x, self.kernel_q, self.kernel_scale, out_dtype=self.dtype)
+        else:
+            y = F.linear(x, self.weight.to(self.dtype))
+        if self.lora_scale:
+            y = y + self.lora_scale * ((x @ self.lora_a.to(self.dtype))
+                                       @ self.lora_b.to(self.dtype))
+        return y
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor,
@@ -177,13 +209,15 @@ class LlamaAttention(nn.Module):
         D = cfg.head_dim_
         H, Hq, Hkv = cfg.hidden_size, cfg.num_attention_heads, cfg.num_key_value_heads
 
-        def proj(i, o):
-            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device)
+        def proj(name, i, o):
+            r = cfg.lora.r if name in cfg.lora.targets else 0
+            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device,
+                             lora_r=r, lora_alpha=cfg.lora.alpha)
 
-        self.q_proj = proj(H, Hq * D)
-        self.k_proj = proj(H, Hkv * D)
-        self.v_proj = proj(H, Hkv * D)
-        self.o_proj = proj(Hq * D, H)
+        self.q_proj = proj("q_proj", H, Hq * D)
+        self.k_proj = proj("k_proj", H, Hkv * D)
+        self.v_proj = proj("v_proj", H, Hkv * D)
+        self.o_proj = proj("o_proj", Hq * D, H)
         self.register_buffer("inv_freq", rope_inv_freq(D, cfg.rope_theta, cfg.rope_scaling,
                                                        device=device), persistent=False)
 
@@ -227,12 +261,14 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
 
-        def proj(i, o):
-            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device)
+        def proj(name, i, o):
+            r = cfg.lora.r if name in cfg.lora.targets else 0
+            return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device,
+                             lora_r=r, lora_alpha=cfg.lora.alpha)
 
-        self.gate_proj = proj(cfg.hidden_size, cfg.intermediate_size)
-        self.up_proj = proj(cfg.hidden_size, cfg.intermediate_size)
-        self.down_proj = proj(cfg.intermediate_size, cfg.hidden_size)
+        self.gate_proj = proj("gate_proj", cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = proj("up_proj", cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = proj("down_proj", cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -279,7 +315,13 @@ class LlamaModel(nn.Module):
         outs: List[torch.Tensor] = []
         for i, layer in enumerate(self.layers):
             layer_cache = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
-            x, _ = layer(x, positions, kv_write_index, layer_cache, kv_len, page_table)
+            if self.cfg.remat and kv_cache is None and torch.is_grad_enabled():
+                # Recompute the block in the backward pass; the cache-free
+                # training forward only (a cache is updated in place).
+                x = checkpoint(lambda h, layer=layer: layer(h, positions, kv_write_index)[0],
+                               x, use_reentrant=False)
+            else:
+                x, _ = layer(x, positions, kv_write_index, layer_cache, kv_len, page_table)
             if output_hidden_states:
                 outs.append(x)
         final = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
@@ -325,6 +367,23 @@ class LlamaForCausalLM(nn.Module):
             inputs_embeds, positions, kv_write_index, kv_cache, kv_len,
             output_hidden_states, page_table)
         return self.lm_head(final), hidden_states, kv_cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shifted LM loss and token accuracy. logits [B, T, V]; labels [B, T]
+    with ignore_index outside answer spans. Log-softmax in fp32; both are
+    divided by max(number of live targets, 1)."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:].to(logits.device)
+    mask = targets != ignore_index
+    denom = mask.sum().clamp_min(1)
+    # F.cross_entropy fuses the fp32 log-softmax with the gather: at a 128k
+    # vocabulary the log-probabilities are never a tensor of their own.
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                           ignore_index=ignore_index, reduction="sum") / denom
+    acc = ((logits.argmax(-1) == targets) & mask).sum() / denom
+    return loss, acc
 
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,

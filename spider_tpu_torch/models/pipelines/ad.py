@@ -142,7 +142,7 @@ class AudioLDMPipeline:
         return self._decode_latents(latents)
 
 
-def build_tiny_ad(tokenizer=None, device=None, seed: int = 0) -> AudioLDMPipeline:
+def build_tiny_ad(tokenizer=None, *, device, seed: int = 0) -> AudioLDMPipeline:
     """Random-init tiny pipeline (CPU tests / offline demos)."""
     import dataclasses
 
@@ -154,7 +154,7 @@ def build_tiny_ad(tokenizer=None, device=None, seed: int = 0) -> AudioLDMPipelin
     from spider_tpu_torch.models.vocoder import hifigan_tiny
 
     tokenizer = tokenizer or TinyTokenizer()
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     tcfg = clap_tiny(vocab_size=max(len(tokenizer), 300))
     text = random_init_(ClapTextModel(tcfg, device), gen)
     ucfg = unet_tiny(cross_attention_dim=tcfg.projection_dim, addition_embed_type="class_embed",

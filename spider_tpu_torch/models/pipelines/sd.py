@@ -137,7 +137,7 @@ class StableDiffusionPipeline:
         return self._decode_latents(latents)
 
 
-def build_tiny_sd(tokenizer=None, device=None, seed: int = 0) -> StableDiffusionPipeline:
+def build_tiny_sd(tokenizer=None, *, device, seed: int = 0) -> StableDiffusionPipeline:
     """Random-init tiny pipeline (CPU tests / offline demos)."""
     from spider_tpu_torch.models.clip_text import clip_tiny
     from spider_tpu_torch.models.factory import random_init_
@@ -146,7 +146,7 @@ def build_tiny_sd(tokenizer=None, device=None, seed: int = 0) -> StableDiffusion
     from spider_tpu_torch.models.vae import vae_tiny
 
     tokenizer = tokenizer or TinyTokenizer()
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     tcfg = clip_tiny(vocab_size=max(len(tokenizer), 300))
     text = random_init_(CLIPTextModel(tcfg, device), gen)
     unet = random_init_(UNet2DConditionModel(unet_tiny(cross_attention_dim=tcfg.hidden_size),

@@ -76,7 +76,7 @@ class TextToVideoSDPipeline(StableDiffusionPipeline):
         return self._decode_latents(latents)
 
 
-def build_tiny_vd(tokenizer=None, device=None, seed: int = 0) -> TextToVideoSDPipeline:
+def build_tiny_vd(tokenizer=None, *, device, seed: int = 0) -> TextToVideoSDPipeline:
     """Random-init tiny pipeline (CPU tests / offline demos)."""
     from spider_tpu_torch.models.clip_text import clip_tiny
     from spider_tpu_torch.models.factory import random_init_
@@ -85,7 +85,7 @@ def build_tiny_vd(tokenizer=None, device=None, seed: int = 0) -> TextToVideoSDPi
     from spider_tpu_torch.models.vae import vae_tiny
 
     tokenizer = tokenizer or TinyTokenizer()
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     tcfg = clip_tiny(vocab_size=max(len(tokenizer), 300))
     text = random_init_(CLIPTextModel(tcfg, device), gen)
     unet = random_init_(UNet3DConditionModel(

@@ -1,16 +1,55 @@
-"""Byte-level tokenizer for tests and offline use.
+"""Spider's vocabulary extension and a byte-level tokenizer for tests and
+offline use.
 
-A copy of ``TinyTokenizer`` from spider_tpu/models/tokenizer.py, which is
-pure Python: the port needs it without importing the JAX package. It exposes
-the HF-tokenizer surface (``add_tokens`` / ``__call__`` / ``decode`` /
-``__len__``) that the Spider vocabulary extension relies on.
+Copies of ``extend_tokenizer`` and ``TinyTokenizer`` from
+spider_tpu/models/tokenizer.py, which is pure Python: the port needs them
+without importing the JAX package. ``extend_tokenizer`` adds per-modality tag
+tokens ``<X>``/``</X>``, signal tokens ``[X0]..[Xn]``, the special tokens
+``[INPUT]/[OUTPUT]/[END]/[TASK]...`` and ``<Loc%d>`` bbox bins to any object
+with the HF-tokenizer surface (``add_tokens`` / ``__call__`` / ``__len__``),
+which ``TinyTokenizer`` provides.
 """
 
 from __future__ import annotations
 
 import re
 from types import SimpleNamespace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+DEFAULT_MODALITY_TOKENS = {"IMAGE": 4, "VIDEO": 24, "AUDIO": 8, "MASK": 1, "BOX": 1}
+DEFAULT_SPECIAL_TOKENS = [
+    "[INPUT]", "[OUTPUT]", "[END]", "[IMAGE]", "[VIDEO]", "[AUDIO]", "[BOX]",
+    "[MASK]", "[SMARTMULTIMODAL]", "[SPECIFICMULTIMODAL]",
+]
+
+
+def extend_tokenizer(tokenizer,
+                     new_modality_tokens: Optional[Dict[str, int]] = None,
+                     new_special_tokens: Optional[List[str]] = None,
+                     bbox_bins: int = 1000) -> Dict[str, List[int]]:
+    """Add Spider's token inventory; returns {modality: [signal token ids]}."""
+    if new_modality_tokens is None:
+        new_modality_tokens = dict(DEFAULT_MODALITY_TOKENS)
+    if new_special_tokens is None:
+        new_special_tokens = list(DEFAULT_SPECIAL_TOKENS)
+
+    new_modality_idxs: Dict[str, List[int]] = {}
+    for modality, count in new_modality_tokens.items():
+        tokenizer.add_tokens(f"<{modality}>")
+        tokenizer.add_tokens(f"</{modality}>")
+        idxs = []
+        for i in range(count):
+            token = f"[{modality}{i}]"
+            tokenizer.add_tokens(token)
+            ids = tokenizer(token, add_special_tokens=False).input_ids
+            if len(ids) != 1:
+                raise ValueError(f"{token} did not become one token: {ids}")
+            idxs.append(ids[0])
+        new_modality_idxs[modality] = idxs
+    tokenizer.add_tokens(new_special_tokens)
+    for i in range(bbox_bins):
+        tokenizer.add_tokens(f"<Loc{i}>")
+    return new_modality_idxs
 
 
 class TinyTokenizer:

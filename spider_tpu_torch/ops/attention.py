@@ -1,11 +1,19 @@
-"""Multi-head attention: the plain PyTorch reference and the flash kernel.
+"""Multi-head attention: the plain PyTorch reference and the flash kernels.
 
 Counterpart of spider_tpu/ops/attention.py. ``flash_attention`` and
-``flash_attention_with_lse`` launch the hand-written CUDA kernel
-(csrc/flash_fwd.cu) on CUDA tensors and take the plain ``mha_reference``
-forms on CPU tensors, so the CPU tests check the arithmetic the kernel is
-held to on the card. On a CUDA tensor the wrapper launches the kernel or
-raises; it never falls back.
+``flash_attention_with_lse`` launch the hand-written CUDA kernels on CUDA
+tensors (csrc/flash_fwd.cu forward; csrc/flash_bwd.cu for the gradients of
+q, k and v, through a ``torch.autograd.Function``) and take the plain
+``mha_reference`` forms, under ordinary autograd, on CPU tensors, so the CPU
+tests check the arithmetic the kernels are held to on the card. On a CUDA
+tensor a wrapper launches its kernel or raises; it never falls back.
+
+Rows with no live key: the forward kernel returns the mean of V and a
+finite lse there (``mha_reference_with_lse`` gives -inf). The backward
+kernels and ``flash_backward_reference`` mask P to exactly zero, so such a
+row takes and gives zero gradient, as the TPU kernels do; autograd through
+``mha_reference`` spreads its gradient over V instead. Compare live rows
+only across these paths.
 
 Layouts: q [B, T, Hq, D]; k, v [B, S, Hkv, D]; output [B, T, Hq, D];
 lse [B, Hq, T] fp32. Hq is a multiple of Hkv (grouped-query attention).
@@ -20,6 +28,7 @@ Position conventions for causal masking (as in the JAX package):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple, Union
 
@@ -98,8 +107,46 @@ def mha_reference_with_lse(q, k, v, causal: bool = True,
     return out.reshape(B, T, Hq, D).to(q.dtype), lse.reshape(B, Hq, T)
 
 
+def _delta(g, out, g_lse):
+    """[B, Hq, T] fp32: rowsum(dO * O), less the lse cotangent where given
+    (d lse / d s = p, so it folds into the row term of dS)."""
+    delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def flash_backward_reference(q, k, v, out, lse, g, causal: bool = True,
+                             sm_scale: Optional[float] = None,
+                             kv_len: Optional[torch.Tensor] = None,
+                             q_offset: Optional[IntLike] = None,
+                             g_lse: Optional[torch.Tensor] = None):
+    """The flash backward in plain fp32 torch, step by step as the kernels
+    take it: P recomputed from q, k and the saved lse, masked to zero.
+
+    q, out, g [B,T,Hq,D]; k, v [B,S,Hkv,D]; lse, g_lse [B,Hq,T].
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, T, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, T, Hkv, G, D)
+    gf = g.float().reshape(B, T, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    mask = _mask(B, T, S, causal, kv_len, q_offset, q.device)[:, None, None]
+    s = torch.einsum("bthgd,bshd->bhgts", qf, kf) * scale
+    rows = lambda x: x.float().reshape(B, Hkv, G, T, 1)
+    p = torch.where(mask, torch.exp(s - rows(lse)), torch.zeros((), device=q.device))
+    dp = torch.einsum("bthgd,bshd->bhgts", gf, vf)
+    ds = p * (dp - rows(_delta(g, out, g_lse))) * scale
+    dq = torch.einsum("bhgts,bshd->bthgd", ds, kf).reshape(B, T, Hq, D)
+    dv = torch.einsum("bhgts,bthgd->bshd", p, gf)
+    dk = torch.einsum("bhgts,bthgd->bshd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/flash_fwd.cu)
+# CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
 # ---------------------------------------------------------------------------
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -154,18 +201,162 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset):
     return out, lse
 
 
+_BWD_COMMON = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+
+
+def _bwd_library():
+    from spider_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("flash_bwd")
+    if lib.spider_flash_bwd_dq.argtypes is None:
+        lib.spider_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 9 + _BWD_COMMON
+        lib.spider_flash_bwd_dq.restype = ctypes.c_int
+        lib.spider_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + _BWD_COMMON
+        lib.spider_flash_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+def _check_bwd(q, k, v, g, lse, delta):
+    B, T, Hq, D = q.shape
+    if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
+    if not (0 < D <= MAX_HEAD_DIM):
+        raise ValueError(f"flash kernels take head dims 1..{MAX_HEAD_DIM}, got {D}")
+    if g.shape != q.shape:
+        raise ValueError(f"g {tuple(g.shape)} does not match q {tuple(q.shape)}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash kernels take bf16 or fp32, got {q.dtype}")
+    for name, x, dtype, shape in (("q", q, q.dtype, None), ("k", k, q.dtype, None),
+                                  ("v", v, q.dtype, None), ("g", g, q.dtype, None),
+                                  ("lse", lse, torch.float32, (B, Hq, T)),
+                                  ("delta", delta, torch.float32, (B, Hq, T))):
+        if x.device != q.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}, got "
+                             f"{x.dtype} on {x.device}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+
+
+def _bwd_scalars(q, k, causal, sm_scale):
+    B, T, Hq, D = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    return (B, T, k.shape[1], Hq, k.shape[2], D, float(scale), int(bool(causal)),
+            int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale):
+    """dq [B,T,Hq,D] on the card (csrc/flash_bwd.cu). live, off: [B] int32
+    from ``_live_and_offset``; delta from ``_delta``."""
+    _check_bwd(q, k, v, g, lse, delta)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _bwd_library().spider_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), live.data_ptr(), off.data_ptr(),
+            *_bwd_scalars(q, k, causal, sm_scale))
+    if err != 0:
+        raise RuntimeError(f"spider_flash_bwd_dq launch failed with cudaError_t {err}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, live, off, causal, sm_scale):
+    """(dk, dv) [B,S,Hkv,D] on the card, summed over each GQA group inside
+    the kernel."""
+    _check_bwd(q, k, v, g, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _bwd_library().spider_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), live.data_ptr(), off.data_ptr(),
+            *_bwd_scalars(q, k, causal, sm_scale))
+    if err != 0:
+        raise RuntimeError(f"spider_flash_bwd_dkv launch failed with cudaError_t {err}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+# Backward routing override for A/B checks on the card: "kernel" = the CUDA
+# kernels; "plain" = flash_backward_reference on the same CUDA tensors. A
+# process-wide value, not a ContextVar: autograd runs a CUDA graph's backward
+# on its own thread, which would not see the caller's context.
+_BACKWARD_ROUTE = {"mode": "kernel"}
+
+
+@contextlib.contextmanager
+def flash_backward_config(mode: str):
+    if mode not in ("kernel", "plain"):
+        raise ValueError(mode)
+    previous, _BACKWARD_ROUTE["mode"] = _BACKWARD_ROUTE["mode"], mode
+    try:
+        yield
+    finally:
+        _BACKWARD_ROUTE["mode"] = previous
+
+
+def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
+                   sm_scale: Optional[float] = None,
+                   kv_len: Optional[torch.Tensor] = None,
+                   q_offset: Optional[IntLike] = None,
+                   g_lse: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of flash attention from its saved (out, lse) and the
+    cotangents g of out and, optionally, g_lse of lse. CPU tensors take
+    ``flash_backward_reference``; CUDA tensors launch the two kernels (or,
+    inside ``flash_backward_config("plain")``, take the reference too)."""
+    if q.device.type == "cpu" or _BACKWARD_ROUTE["mode"] == "plain":
+        return flash_backward_reference(q, k, v, out, lse, g, causal, sm_scale, kv_len,
+                                        q_offset, g_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward runs on cpu or cuda tensors, got {q.device}")
+    B, T = q.shape[:2]
+    live, off = _live_and_offset(B, T, k.shape[1], kv_len, q_offset, q.device)
+    args = (q, k, v, g, lse, _delta(g, out, g_lse), live, off, causal, sm_scale)
+    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """(out, lse) on CUDA tensors, differentiable in both: the forward kernel
+    saves q, k, v, out, lse; the backward launches the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, kv_len, q_offset):
+        out, lse = _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, q_offset=q_offset)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None:                      # only lse was used
+            g = torch.zeros_like(out)
+        # g arrives as a view of the output projection's input gradient
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(), g_lse=g_lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, sm_scale: Optional[float] = None,
                              kv_len: Optional[torch.Tensor] = None,
                              q_offset: Optional[IntLike] = None):
-    """(out [B,T,Hq,D], lse [B,Hq,T] fp32). On CUDA the kernel's lse stays
-    finite on rows with no live key, where the CPU reference gives -inf."""
+    """(out [B,T,Hq,D], lse [B,Hq,T] fp32), differentiable in both outputs.
+    On CUDA the kernel's lse stays finite on rows with no live key, where
+    the CPU reference gives -inf."""
     if q.device.type == "cpu":
         return mha_reference_with_lse(q, k, v, causal=causal, sm_scale=sm_scale,
                                       kv_len=kv_len, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
-    return _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset)
+    return _FlashFunction.apply(q, k, v, causal, sm_scale, kv_len, q_offset)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -175,7 +366,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused attention. q [B,T,Hq,D]; k,v [B,S,Hkv,D] -> [B,T,Hq,D].
 
     CPU tensors take mha_reference; CUDA tensors launch the kernel and add
-    one to ``flash_attention.launches``."""
+    one to ``flash_attention.launches`` (its backward adds one each to
+    ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``)."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                              kv_len=kv_len, q_offset=q_offset)

@@ -60,7 +60,7 @@ def pipes():
     """(JAX tiny ad pipeline, port tiny ad pipeline) with the same weights:
     the JAX package's random_params_like init, carried across as numpy."""
     jpipe = jad.build_tiny_ad(tokenizer=JaxTinyTokenizer())
-    tpipe = tad.build_tiny_ad(tokenizer=TinyTokenizer())
+    tpipe = tad.build_tiny_ad(tokenizer=TinyTokenizer(), device="cpu")
     for mod, params in ((tpipe.text_encoder, jpipe.text_params),
                         (tpipe.unet, jpipe.unet_params), (tpipe.vae, jpipe.vae_params),
                         (tpipe.vocoder, jpipe.vocoder_params)):

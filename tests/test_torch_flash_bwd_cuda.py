@@ -1,0 +1,165 @@
+"""The flash-attention backward CUDA kernels (dq; dk/dv) against their plain
+PyTorch version, ``flash_backward_reference``.
+
+These tests need an NVIDIA GPU: the kernels have no CPU mode, so without a
+card they skip. They import torch only, so they also run where JAX is not
+installed: ``python -m pytest --noconftest tests/test_torch_flash_bwd_cuda.py``.
+
+Both versions take the same q, k, v, dO, out and lse (the forward kernel's).
+Tolerances: with bf16 inputs they differ in the kernels rounding P and dS to
+bf16 for the second products, in summation order and in the bf16 rounding of
+the gradients (half a step is 2^-9 relative), so each gradient is held to
+2e-2 + 2^-7 |plain| elementwise. fp32 inputs are rounded to bf16 for the
+tensor cores, which moves the logits by ~2^-8 relative before the exp, so
+there the bound is 3e-2 + 2^-5 |plain|.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spider_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash backward kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(B, T, S, Hq, Hkv, D, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev, dtype)
+    return mk(B, T, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D), mk(B, T, Hq, D)
+
+
+def _close(got, want, atol, rel, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.isfinite(got).all(), name
+    excess = ((got.float() - want.float()).abs() - (atol + rel * want.float().abs())).max().item()
+    assert excess <= 0, (name, excess)
+
+
+def _check(q, k, v, g, atol=2e-2, rel=2.0 ** -7, g_lse=None, **kw):
+    out, lse = A.flash_attention_with_lse(q, k, v, **kw)
+    before = A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches
+    got = A.flash_backward(q, k, v, out, lse, g, g_lse=g_lse, **kw)
+    torch.cuda.synchronize()
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = A.flash_backward_reference(q, k, v, out, lse, g, g_lse=g_lse, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, atol, rel, name)
+    assert want[0].float().abs().max() > 0
+
+
+@pytest.mark.parametrize("D", [16, 40, 64, 128])
+@pytest.mark.parametrize("heads", [(4, 2), (8, 1), (2, 2)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_match_plain_bf16(dev, D, heads, causal):
+    # T and S not multiples of the 64-row tiles: the kernels mask the edges.
+    q, k, v, g = _inputs(2, 100, 100, *heads, D, torch.bfloat16, dev)
+    _check(q, k, v, g, causal=causal)
+
+
+@pytest.mark.parametrize("conv", ["suffix", "kv_len", "q_offset"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_position_conventions(dev, conv, causal):
+    B, T, S = 2, 70, 150
+    q, k, v, g = _inputs(B, T, S, 8, 2, 128, torch.bfloat16, dev, seed=1)
+    kw = dict(causal=causal)
+    if conv in ("kv_len", "q_offset"):
+        kw["kv_len"] = torch.tensor([90, 150], dtype=torch.int32, device=dev)
+    if conv == "q_offset":
+        kw["q_offset"] = torch.tensor([20, 80], dtype=torch.int32, device=dev)
+    _check(q, k, v, g, **kw)
+
+
+def test_kernels_more_queries_than_keys(dev):
+    # kv_len-given causal with T > S rows below every key, and rows with no
+    # live key at all (kv_len 0 for the second sample): zero gradient there.
+    q, k, v, g = _inputs(2, 200, 90, 4, 2, 64, torch.bfloat16, dev, seed=6)
+    kv_len = torch.tensor([90, 0], dtype=torch.int32, device=dev)
+    _check(q, k, v, g, causal=True, kv_len=kv_len)
+    out, lse = A.flash_attention_with_lse(q, k, v, causal=True, kv_len=kv_len)
+    dq, dk, dv = A.flash_backward(q, k, v, out, lse, g, causal=True, kv_len=kv_len)
+    assert not dq[1].any() and not dk[1].any() and not dv[1].any()
+
+
+def test_kernels_with_lse_cotangent(dev):
+    q, k, v, g = _inputs(2, 130, 130, 8, 2, 64, torch.bfloat16, dev, seed=7)
+    g_lse = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 8, 130), dtype=np.float32)).to(dev)
+    _check(q, k, v, g, g_lse=g_lse, causal=True)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 512, 32, 8, 128), (1, 2048, 2048, 32, 8, 128)])
+def test_kernels_full_width_shapes(dev, shape):
+    # The training step of the 8B model (batch 4 x 512) and one long sequence.
+    q, k, v, g = _inputs(*shape, torch.bfloat16, dev, seed=9)
+    _check(q, k, v, g, causal=True)
+
+
+def test_kernels_fp32_inputs(dev):
+    q, k, v, g = _inputs(1, 130, 130, 4, 2, 64, torch.float32, dev, seed=4)
+    _check(q, k, v, g, atol=3e-2, rel=2.0 ** -5, causal=True)
+
+
+@pytest.mark.parametrize("use_lse", [False, True])
+def test_autograd_function_launches_the_kernels(dev, use_lse):
+    q, k, v, w = _inputs(2, 96, 96, 4, 2, 64, torch.bfloat16, dev, seed=10)
+    u = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 4, 96), dtype=np.float32)).to(dev)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (A.flash_attention.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    if use_lse:
+        out, lse = A.flash_attention_with_lse(*leaves, causal=True)
+        loss = (out.float() * w.float()).sum() + (lse * u).sum()
+    else:
+        out = A.flash_attention(*leaves, causal=True)
+        loss = (out.float() * w.float()).sum()
+    # a non-contiguous cotangent, as the output projection hands one back
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (A.flash_attention.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    assert after == tuple(b + 1 for b in before)
+    out0, lse0 = A.flash_attention_with_lse(q, k, v, causal=True)
+    want = A.flash_backward_reference(q, k, v, out0, lse0, w, causal=True,
+                                      g_lse=u if use_lse else None)
+    for name, leaf, b in zip(("dq", "dk", "dv"), leaves, want):
+        _close(leaf.grad, b, 2e-2, 2.0 ** -7, name)
+
+
+def test_autograd_noncontiguous_cotangent_and_checkpoint(dev):
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v, w = _inputs(1, 80, 80, 4, 4, 32, torch.bfloat16, dev, seed=12)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    wt = w.transpose(1, 2).contiguous()
+
+    def block(a, b, c):
+        # the transpose hands the Function a strided cotangent
+        return A.flash_attention(a, b, c, causal=True).transpose(1, 2)
+
+    before = (A.flash_attention.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    (checkpoint(block, *leaves, use_reentrant=False).float() * wt.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = (A.flash_attention.launches, A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches)
+    assert after == (before[0] + 2, before[1] + 1, before[2] + 1)   # forward runs again
+    out0, lse0 = A.flash_attention_with_lse(q, k, v, causal=True)
+    want = A.flash_backward_reference(q, k, v, out0, lse0, w, causal=True)
+    for name, leaf, b in zip(("dq", "dk", "dv"), leaves, want):
+        _close(leaf.grad, b, 2e-2, 2.0 ** -7, name)
+
+
+def test_backward_rejects_what_it_does_not_take(dev):
+    q, k, v, g = _inputs(1, 16, 16, 2, 2, 64, torch.bfloat16, dev)
+    out, lse = A.flash_attention_with_lse(q, k, v)
+    with pytest.raises(ValueError):
+        A.flash_backward(q, k, v, out, lse, g.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        A.flash_backward(q, k, v, out, lse[:, :, :8].contiguous(), g)

@@ -43,13 +43,13 @@ def _params(jm, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _pair(quant=None, vocab=512, seed=0):
+def _pair(quant=None, vocab=512, seed=0, lora_r=0, remat=False):
     """(jax model, jax params, port model) with the same weights."""
-    jm = jL.LlamaForCausalLM(dataclasses.replace(jL.llama_tiny(vocab_size=vocab),
-                                                 quantization=quant))
+    jm = jL.LlamaForCausalLM(dataclasses.replace(
+        jL.llama_tiny(vocab_size=vocab, lora_r=lora_r), quantization=quant))
     params = _params(jm, seed)
-    tm = tL.LlamaForCausalLM(dataclasses.replace(tL.llama_tiny(vocab_size=vocab),
-                                                 quantization=quant))
+    tm = tL.LlamaForCausalLM(dataclasses.replace(
+        tL.llama_tiny(vocab_size=vocab, lora_r=lora_r), quantization=quant, remat=remat))
     load_jax_params(tm, params)
     return jm, params, tm.eval()
 
@@ -145,3 +145,59 @@ def test_load_jax_params_rejects_mismatched_trees():
     wrong = tL.LlamaForCausalLM(tL.llama_tiny(vocab_size=256))
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(wrong, params)
+
+
+def test_lora_logits_match_jax_and_the_branch_is_live():
+    # _params fills lora_b too (flax starts it at zero), so the branch counts.
+    jm, params, tm = _pair(lora_r=4, seed=8)
+    ids = np.random.default_rng(9).integers(3, 512, size=(2, 7)).astype(np.int32)
+    jl, _, _ = jm.apply(params, jnp.asarray(ids))
+    with torch.no_grad():
+        tl, _, _ = tm(input_ids=torch.from_numpy(ids).long())
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+        q_proj = tm.model.layers[0].self_attn.q_proj
+        assert q_proj.lora_scale == 21.0 / 4 and q_proj.lora_a.shape == (64, 4)
+        assert not hasattr(tm.model.layers[0].mlp.gate_proj, "lora_a")   # not a target
+        q_proj.lora_b.zero_()
+        assert (tm(input_ids=torch.from_numpy(ids).long())[0] - tl).abs().max() > 1e-4
+    fresh = tL.LlamaForCausalLM(tL.llama_tiny(lora_r=4))
+    assert not fresh.model.layers[0].self_attn.o_proj.lora_b.any()
+
+
+def test_remat_gives_the_same_loss_and_gradients():
+    _, params, plain = _pair(lora_r=4, seed=10)
+    _, _, remat = _pair(lora_r=4, seed=10, remat=True)
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(rng.integers(3, 512, size=(2, 9))).long()
+    labels = ids.clone()
+    labels[:, :4] = -100
+    grads = []
+    for m in (plain, remat):
+        m.train()
+        loss, _ = tL.cross_entropy_loss(m(input_ids=ids)[0], labels)
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad.clone() for n, p in m.named_parameters()}))
+    assert grads[0][0] == pytest.approx(grads[1][0], abs=1e-6)
+    assert set(grads[0][1]) == set(grads[1][1])
+    for n, g in grads[0][1].items():
+        torch.testing.assert_close(grads[1][1][n], g, rtol=0, atol=1e-6, msg=n)
+
+
+@pytest.mark.parametrize("labels_kind", ["answer_span", "all_ignored", "other_ignore_index"])
+def test_cross_entropy_loss_matches_jax(labels_kind):
+    rng = np.random.default_rng(12)
+    logits = (3 * rng.standard_normal((2, 6, 19))).astype(np.float32)
+    labels = rng.integers(0, 19, size=(2, 6))
+    ignore = -100
+    if labels_kind == "answer_span":
+        labels[:, :3] = -100
+    elif labels_kind == "all_ignored":
+        labels[:] = -100
+    else:
+        ignore = 7
+    jl, ja = jL.cross_entropy_loss(jnp.asarray(logits), jnp.asarray(labels), ignore)
+    tl, ta = tL.cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(labels), ignore)
+    assert float(tl) == pytest.approx(float(jl), abs=1e-5)
+    assert float(ta) == pytest.approx(float(ja), abs=1e-6)
+    if labels_kind == "all_ignored":
+        assert float(tl) == 0.0 and float(ta) == 0.0

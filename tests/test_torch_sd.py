@@ -38,7 +38,7 @@ def pipes():
     """(JAX tiny SD pipeline, port tiny SD pipeline) with the same weights:
     the JAX package's random_params_like init, carried across as numpy."""
     jpipe = jsd.build_tiny_sd(tokenizer=JaxTinyTokenizer())
-    tpipe = tsd.build_tiny_sd(tokenizer=TinyTokenizer())
+    tpipe = tsd.build_tiny_sd(tokenizer=TinyTokenizer(), device="cpu")
     load_jax_params(tpipe.text_encoder, _np_tree(jpipe.text_params))
     load_jax_params(tpipe.unet, _np_tree(jpipe.unet_params))
     load_jax_params(tpipe.vae, _np_tree(jpipe.vae_params))

@@ -118,7 +118,7 @@ def test_spider_free_chat_matches_jax():
     tchat = tsf.make_llama_chat_fn(tm, ttok, max_new_tokens=8)
 
     jpipe = jsd.build_tiny_sd(tokenizer=jtok)
-    tpipe = _load_pipe(tsd.build_tiny_sd(tokenizer=ttok), jpipe)
+    tpipe = _load_pipe(tsd.build_tiny_sd(tokenizer=ttok, device="cpu"), jpipe)
     latents = np.random.default_rng(1).standard_normal((1, 8, 8, 4), dtype=np.float32)
 
     jfree = jsf.SpiderFree(JaxConfig.fromfile(CFG), chat_fn=lambda p: jchat(p) + TAG,
@@ -151,9 +151,9 @@ def test_spider_free_any_to_many_matches_jax():
     tchat = tsf.make_llama_chat_fn(tm, ttok, max_new_tokens=4)
     j_sd, j_ad, j_vd = (b(tokenizer=jtok) for b in (jsd.build_tiny_sd, jad.build_tiny_ad,
                                                     jvd.build_tiny_vd))
-    t_sd = _load_pipe(tsd.build_tiny_sd(tokenizer=ttok), j_sd)
-    t_ad = _load_pipe(tad.build_tiny_ad(tokenizer=ttok), j_ad)
-    t_vd = _load_pipe(tvd.build_tiny_vd(tokenizer=ttok), j_vd)
+    t_sd = _load_pipe(tsd.build_tiny_sd(tokenizer=ttok, device="cpu"), j_sd)
+    t_ad = _load_pipe(tad.build_tiny_ad(tokenizer=ttok, device="cpu"), j_ad)
+    t_vd = _load_pipe(tvd.build_tiny_vd(tokenizer=ttok, device="cpu"), j_vd)
     rng = np.random.default_rng(2)
     img_lat = rng.standard_normal((1, 8, 8, 4), dtype=np.float32)
     aud_lat = rng.standard_normal(t_ad.latent_shape(1, 0.1), dtype=np.float32)
@@ -205,35 +205,39 @@ def test_prompt_and_answer_helpers_match_jax(text):
     assert tsf.extract_answer(text) == jsf.extract_answer(text)
 
 
-SLICE_MODULES = [
-    "spider_tpu_torch", "spider_tpu_torch.common.registry", "spider_tpu_torch.common.config",
-    "spider_tpu_torch.models.tags", "spider_tpu_torch.models.tokenizer",
-    "spider_tpu_torch.models.spider_decoder", "spider_tpu_torch.ops.norms",
-    "spider_tpu_torch.ops.rope", "spider_tpu_torch.ops.sampling",
-    "spider_tpu_torch.ops.attention", "spider_tpu_torch.ops.cuda_build",
-    "spider_tpu_torch.models.llama", "spider_tpu_torch.models.decode",
-    "spider_tpu_torch.serving.spider_free", "spider_tpu_torch.models.schedulers",
-    "spider_tpu_torch.models.clip_text", "spider_tpu_torch.models.vae",
-    "spider_tpu_torch.models.unet2d", "spider_tpu_torch.models.pipelines.sd",
-    "spider_tpu_torch.models.factory", "spider_tpu_torch.models.convert",
-    "spider_tpu_torch.ops.temporal_attention", "spider_tpu_torch.ops.convs",
-    "spider_tpu_torch.models.unet3d", "spider_tpu_torch.models.vocoder",
-    "spider_tpu_torch.models.pipelines.vd", "spider_tpu_torch.models.pipelines.ad",
-    "spider_tpu_torch.ops.paged_attention", "spider_tpu_torch.ops.quant",
-    "spider_tpu_torch.serving.continuous",
-]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "spider_tpu")
 
 
 def test_port_imports_no_jax():
-    # A subprocess: this test process already imported jax (tests/conftest.py).
-    code = ("import importlib, sys\n"
-            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'spider_tpu'))\n"
+    # Every module of the package, spider_tpu_torch.train included, in a
+    # subprocess: this test process already imported jax (tests/conftest.py).
+    code = ("import importlib, pkgutil, sys\n"
+            "import spider_tpu_torch\n"
+            "names = ['spider_tpu_torch'] + [m.name for m in pkgutil.walk_packages("
+            "spider_tpu_torch.__path__, 'spider_tpu_torch.')]\n"
+            "assert 'spider_tpu_torch.train' in names and len(names) > 50, names\n"
+            "for m in names: importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    # Imports made inside functions never reach sys.modules above: read the
+    # sources of the package and of chip_smoke.py.
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")\b", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "spider_tpu_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 50
+    for path in paths:
+        with open(path) as f:
+            found = pattern.findall(f.read())
+        assert not found, (path, found)
 
 
 def _run_smoke(cwd, env_extra=None):

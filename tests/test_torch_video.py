@@ -144,7 +144,7 @@ def pipes():
     """(JAX tiny vd pipeline, port tiny vd pipeline) with the same weights:
     the JAX package's random_params_like init, carried across as numpy."""
     jpipe = jvd.build_tiny_vd(tokenizer=JaxTinyTokenizer())
-    tpipe = tvd.build_tiny_vd(tokenizer=TinyTokenizer())
+    tpipe = tvd.build_tiny_vd(tokenizer=TinyTokenizer(), device="cpu")
     load_jax_params(tpipe.text_encoder, _np_tree(jpipe.text_params))
     load_jax_params(tpipe.unet, _np_tree(jpipe.unet_params))
     load_jax_params(tpipe.vae, _np_tree(jpipe.vae_params))
