@@ -26,15 +26,19 @@ Phases, each printing one JSON line:
                prompts, 48 new tokens each, after 4 warm-up requests, through the
                contiguous batcher (8 slots, int8), the paged batcher (16 slots over
                32 blocks of 128, int8) and the same paged batcher on the int4 model
-  train        build_full_spider at full width (LoRA r 32 on the llama3_8b
-               architecture with the extended vocabulary, bf16 base frozen, remat;
-               ImageBind-huge; the MoE aligner) with the resident SD-1.5, ZeroScope and
-               AudioLDM pipelines as alignment targets: RunnerBase.train_step on
-               batches of 4 from the t2i_cc_sbu, i2t_cc_sbu and t2a_audiocap builders
-               (IMAGE, TEXT with an image input, AUDIO), 8 steps on one repeated batch,
-               one step's loss and LoRA gradients through the backward kernels against
-               the plain backward, make_lm_train_step at [4, 512], a profiled step of
-               each, and a checkpoint round trip
+  train        the train entry's own build_runner (spider_tpu_torch/train.py: task ->
+               datasets -> build_spider_from_config(preset='full') -> runner_base) at
+               full width (LoRA r 32 on the llama3_8b architecture with the extended
+               vocabulary, bf16 base frozen, remat; ImageBind-huge; the MoE aligner)
+               with the resident SD-1.5, ZeroScope and AudioLDM pipelines as alignment
+               targets: one epoch of RunnerBase.train_epoch over the t2i_cc_sbu,
+               i2t_cc_sbu and t2a_audiocap builders at batch 4 (MultiIterLoader,
+               metrics.jsonl), timed train_step calls per task (IMAGE, TEXT with an
+               image input, AUDIO; padded and live tokens), 8 steps on one repeated
+               batch, one step's loss and LoRA gradients through the backward kernels
+               against the plain backward, make_lm_train_step at [4, 512], profiled
+               steps of each (device time and wall time of the same steps), then
+               RunnerBase.train() (epoch loop, checkpoint) and a checkpoint round trip
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
@@ -109,6 +113,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 TRAIN_BATCH = 4
 TRAIN_BUCKET = 64
+TRAIN_EPOCH_ITERS = 6
 TRAIN_IMAGE_SIZE = 224                # imagebind_huge's input
 TRAIN_MEL_BINS, TRAIN_MEL_FRAMES = 128, 204
 TRAIN_LM_SHAPE = (4, 512)
@@ -195,6 +200,29 @@ def live_pairs(B, T, S, causal, kv_len=None, q_offset=None) -> int:
         reach = torch.arange(T)[None, :] + off[:, None].long() + 1
         per_row = torch.minimum(per_row, reach.clamp(min=0))
     return int(per_row.sum())
+
+
+def sdpa_call(q, k, v, kw):
+    """(q, k, v heads first, keyword arguments) of the one
+    F.scaled_dot_product_attention call that computes the case `kw` on
+    q [B,T,Hq,D], k, v [B,S,Hkv,D]: `is_causal` where the live window is a
+    prefix all samples share and the queries start at its first key, else a
+    boolean mask [B,1,T,S]. With a mask the GQA group is spelt out by
+    repeating k and v (returned as the factor to repeat by), since not every
+    SDPA backend takes `enable_gqa` beside a mask."""
+    from spider_tpu_torch.ops.attention import _mask
+
+    B, T, Hq, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    causal, kv_len, q_offset = kw["causal"], kw.get("kv_len"), kw.get("q_offset")
+    n = S
+    if kv_len is not None and len(set(kv_len.tolist())) == 1:
+        n, kv_len = int(kv_len[0]), None                    # a shared prefix: slice it
+    qs, ks, vs = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    if kv_len is None and (not causal or (T == n and q_offset in (None, 0))):
+        return (qs, ks, vs), dict(is_causal=causal, enable_gqa=Hq != Hkv), 1
+    mask = _mask(B, T, S, causal, kw.get("kv_len"), q_offset, q.device)[:, None, :, :n]
+    return (qs, ks, vs), dict(attn_mask=mask), Hq // Hkv
 
 
 def launch_counters():
@@ -292,7 +320,13 @@ def phase_kernel_flash(dev, spider_free_T: int):
     def i32(*x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
+    B_lm, T_lm = TRAIN_LM_SHAPE
     cases = [
+        # the train path's cache-free causal forward: the LM step and a Spider
+        # step of batch 4 padded to two length buckets
+        (f"train_B{B_lm}_T{T_lm}", (B_lm, T_lm, T_lm, 32, 8, 128), dict(causal=True)),
+        (f"train_B{TRAIN_BATCH}_T{2 * TRAIN_BUCKET}",
+         (TRAIN_BATCH, 2 * TRAIN_BUCKET, 2 * TRAIN_BUCKET, 32, 8, 128), dict(causal=True)),
         ("prefill_T128", (1, 128, 128 + NEW_TOKENS, 32, 8, 128),
          dict(causal=True, kv_len=i32(128), q_offset=0)),
         (f"prefill_T{spider_free_T}",
@@ -330,14 +364,21 @@ def phase_kernel_flash(dev, spider_free_T: int):
                    **bound_ms(2 * (2 * B * T * Hq * D + 2 * keys * Hkv * D) + 4 * B * Hq * T,
                               4 * Hq * D * pairs),
                    ok=finite and err <= OUT_ATOL and err_lse <= LSE_ATOL)
-        if name.startswith(("unet_self", "prefill")):
-            # One PyTorch call for the same function: the live window only
-            # (kv_len keys), heads first, as SDPA takes them.
-            n_live = int(kw["kv_len"][0]) if "kv_len" in kw else S
-            qs, ks, vs = (x[:, :n].transpose(1, 2) for x, n in ((q, T), (k, n_live),
-                                                                (v, n_live)))
-            row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=kw["causal"], enable_gqa=Hq != Hkv))
+        # One PyTorch call for the same function, heads first as SDPA takes
+        # them; k and v are repeated over the GQA group beforehand where the
+        # case needs a mask.
+        (qs, ks, vs), sdpa_kw, repeat = sdpa_call(q, k, v, kw)
+        if repeat > 1:
+            ks, vs = ks.repeat_interleave(repeat, 1), vs.repeat_interleave(repeat, 1)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+        row["library_ms"] = cuda_ms(sdpa)
+        # without either wrapper's host time, which a single call of a short
+        # kernel mostly measures
+        row["device_ms"] = device_ms(lambda: A.flash_attention_with_lse(q, k, v, **kw))
+        row["library_device_ms"] = device_ms(sdpa)
+        row["library_call"] = "sdpa " + ("attn_mask" if "attn_mask" in sdpa_kw else "is_causal"
+                                         if sdpa_kw["is_causal"] else "full")
+        del qs, ks, vs, sdpa_kw
         if name.startswith("zeroscope"):
             # The plain path the UNet3D really runs there: unet2d's einsum.
             flat = [x.reshape(B, -1, Hq * D) for x in (q, k, v)]
@@ -355,7 +396,8 @@ def phase_kernel_flash_bwd(dev):
     forward kernel's out and lse: one row per kernel and case. `ms` is that
     kernel alone; `plain_ms` the plain version, which computes dq, dk and dv
     together; `library_ms` the backward of F.scaled_dot_product_attention
-    (all three gradients too), timed where one call computes the case."""
+    (all three gradients too; with a mask where the case has a ragged
+    `kv_len`), null only with a cotangent of lse, which SDPA does not return."""
     import torch
     import torch.nn.functional as F
 
@@ -367,6 +409,9 @@ def phase_kernel_flash_bwd(dev):
     B, T = TRAIN_LM_SHAPE
     cases = [
         (f"train_B{B}_T{T}", (B, T, T, 32, 8, 128), dict(causal=True), False),
+        (f"train_B{TRAIN_BATCH}_T{2 * TRAIN_BUCKET}",
+         (TRAIN_BATCH, 2 * TRAIN_BUCKET, 2 * TRAIN_BUCKET, 32, 8, 128), dict(causal=True),
+         False),
         ("long_B1_T2048", (1, 2048, 2048, 32, 8, 128), dict(causal=True), False),
         ("padded_prefill_kv_len", (2, 333, 512, 32, 8, 128),
          dict(causal=True, kv_len=i32(333, 200)), False),
@@ -398,28 +443,36 @@ def phase_kernel_flash_bwd(dev):
         dkv_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args))
         plain_ms = cuda_ms(lambda: A.flash_backward_reference(q, k, v, out, lse, do,
                                                              g_lse=g_lse, **kw), reps=3)
-        library_ms = None
-        if Tc == S and "kv_len" not in kw and not with_lse:
-            leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
-            o = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"],
-                                               enable_gqa=Hq != Hkv)
+        dq_dev = device_ms(lambda: A.flash_bwd_dq(*args))
+        dkv_dev = device_ms(lambda: A.flash_bwd_dkv(*args))
+        library_ms = library_dev = None
+        if not with_lse:                 # SDPA returns no lse to take a cotangent of
+            (qs, ks, vs), sdpa_kw, repeat = sdpa_call(q, k, v, kw)
+            leaves = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
+            o = F.scaled_dot_product_attention(
+                leaves[0], *(x.repeat_interleave(repeat, 1) if repeat > 1 else x
+                             for x in leaves[1:]), **sdpa_kw)
             go = do.transpose(1, 2)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, go, retain_graph=True))
-            del leaves, o
+            sdpa_bwd = lambda: torch.autograd.grad(o, leaves, go, retain_graph=True)
+            library_ms, library_dev = cuda_ms(sdpa_bwd), device_ms(sdpa_bwd)
+            del leaves, o, qs, ks, vs, sdpa_kw
         pairs = live_pairs(Bc, Tc, S, kw["causal"], kw.get("kv_len"))
         keys = live_pairs(Bc, 1, S, False, kw.get("kv_len"))
         q_bytes, kv_bytes = 2 * Bc * Tc * Hq * D, 2 * keys * Hkv * D
         rows_bytes = 2 * 4 * Bc * Hq * Tc                           # lse and delta, fp32
         common = dict(name=name, B=Bc, T=Tc, S=S, Hq=Hq, Hkv=Hkv, D=D, causal=kw["causal"],
-                      g_lse=with_lse, plain_ms=plain_ms, library_ms=library_ms)
+                      g_lse=with_lse, plain_ms=plain_ms, library_ms=library_ms,
+                      library_device_ms=library_dev)
         # dq: q, dO read and dq written, live k, v read; S, dP and dS K
         rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=errs[0], ms=dq_ms,
+                         device_ms=dq_dev,
                          **bound_ms(3 * q_bytes + 2 * kv_bytes + rows_bytes,
                                     6 * Hq * D * pairs),
                          ok=finite and excess[0] <= 0))
         # dk/dv: q, dO, live k, v read, dk, dv written; S, dP, P^T dO and dS^T Q
         rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=max(errs[1:]),
                          max_abs_err_dk=errs[1], max_abs_err_dv=errs[2], ms=dkv_ms,
+                         device_ms=dkv_dev,
                          **bound_ms(2 * q_bytes + 4 * kv_bytes + rows_bytes,
                                     8 * Hq * D * pairs),
                          ok=finite and max(excess[1:]) <= 0))
@@ -458,14 +511,17 @@ def phase_kernel_tattn(dev):
         ms = cuda_ms(lambda: TA.temporal_attention_kernel(q, k, v, H, layout=layout))
         plain_ms = cuda_ms(lambda: TA.temporal_attention_reference(q, k, v, H, layout=layout))
         moved = 4 * q.numel() * q.element_size()          # q, k, v read; out written
-        library_ms = None
-        if name == "zeroscope_L0_D40":
-            # One PyTorch call for the same function: frames as the sequence,
-            # (batch, pixel, head) as SDPA's batch dimensions.
+        # One PyTorch call for the same function: frames as the sequence,
+        # (batch, pixel, head) as SDPA's batch dimensions.
+        if layout == "bpfc":
+            qs, ks, vs = (x.reshape(B, P, F, H, C // H).permute(0, 1, 3, 2, 4)
+                          for x in (q, k, v))
+        else:
             qs, ks, vs = (x.reshape(B, F, P, H, C // H).permute(0, 2, 3, 1, 4)
                           for x in (q, k, v))
-            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs))
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs))
+        del qs, ks, vs
         rows.append(dict(kernel="tattn_fwd", name=name, B=B, F=F, P=P, C=C, H=H, D=C // H,
                          layout=layout, max_abs_err=err, excess_over_bound=excess,
                          max_abs_plain=want.float().abs().max().item(), ms=ms,
@@ -1061,55 +1117,76 @@ def _checksum(t) -> int:
     return int(t.detach().contiguous().view(view).sum(dtype=torch.int64))
 
 
-def _device_profile(fn, step_s: float, top: int = 8) -> dict:
-    """One torch.profiler pass over fn(): device time by kernel name (device
-    rows only; host-op rows repeat their kernels' time), and the share of an
-    unprofiled step of `step_s` seconds that the device is busy (the
-    profiler stretches the host's part of the window it records)."""
+def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8) -> dict:
+    """One torch.profiler pass over `steps` calls of fn(): device time by
+    kernel name (device rows only), and `device_busy_share_profiled`, the
+    share of those same calls' wall time that the device is busy. Only the
+    device's activity is recorded, yet the tracing still slows the host's
+    launches, so that share is a lower bound for an unprofiled step;
+    `profiled_s_per_step` is what these calls took. Given the unprofiled
+    time of a step, `device_busy_share_unprofiled` divides the profiled
+    steps' device time by it: two different sets of steps, which is sound as
+    far as a step's device time repeats (hold `device_ms_per_step` against
+    other runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    def once(activities):
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+        t0 = time.perf_counter()
+        with profile(activities=activities) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and e.device_time_total > 0]
+        return wall_ms, sorted(rows, key=lambda r: -r[1])
+
+    recorded = "device"
+    wall_ms, rows = once([ProfilerActivity.CUDA])
+    if not rows:                 # this profiler build needs the host's events too
+        recorded = "host+device"
+        wall_ms, rows = once([ProfilerActivity.CPU, ProfilerActivity.CUDA])
     total = sum(r[1] for r in rows)
-    return dict(profiled_wall_ms=wall_ms, step_ms=step_s * 1e3, device_ms=total,
-                device_busy_share=total / (step_s * 1e3) if total else None,
-                device_kernels=sum(r[2] for r in rows),
-                top=[dict(kernel=k[:80], ms=ms, launches=n, share=ms / total)
+    return dict(steps=steps, recorded=recorded, profiled_wall_ms=wall_ms, device_ms=total,
+                profiled_s_per_step=wall_ms / steps / 1e3, device_ms_per_step=total / steps,
+                unprofiled_s_per_step=unprofiled_s,
+                device_busy_share_profiled=total / wall_ms if total else None,
+                device_busy_share_unprofiled=(total / steps / (unprofiled_s * 1e3)
+                                              if total else None),
+                device_kernels_per_step=sum(r[2] for r in rows) / steps,
+                top=[dict(kernel=k[:80], ms=ms / steps, launches=n / steps, share=ms / total)
                      for k, ms, n in rows[:top]])
 
 
 def phase_train(sd, ad, vd, dev, smi: str):
-    """The training path at full width. Returns (rows, launches): the JSON
-    rows and the main path's launch counts (the timed and checked train
-    steps; launches made while profiling or routed to the plain backward
-    are left out)."""
+    """The training path at full width, through the train entry's own
+    build_runner (task -> datasets -> build_spider_from_config(preset='full')
+    -> the registered runner) and RunnerBase.train_epoch / train. Returns
+    (rows, launches): the JSON rows and the main path's launch counts (the
+    epochs and the timed and checked train steps; launches made while
+    profiling or routed to the plain backward are left out)."""
+    import logging
     import shutil
+    import signal
     import tempfile
 
     import torch
 
     from spider_tpu_torch import train as T
     from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.common.registry import registry
     from spider_tpu_torch.datasets.utils.loaders import batched
-    from spider_tpu_torch.models import factory
-    from spider_tpu_torch.ops.attention import flash_backward_config
-    from spider_tpu_torch.runners.runner import RunnerBase, _pad_to_bucket
+    from spider_tpu_torch.ops import attention as A
+    from spider_tpu_torch.runners.runner import _pad_to_bucket
     from spider_tpu_torch.runners.train_step import build_optimizer, make_lm_train_step
-    from spider_tpu_torch.tasks import setup_task
 
-    T.register_all()
-    rows, ok_all = [], True
+    rows = []
     launches = dict.fromkeys(KERNELS, 0)
     out_dir = tempfile.mkdtemp(prefix="spider_train_")
+    sigterm = signal.getsignal(signal.SIGTERM)
 
     def add(counts):
         for name in KERNELS:
@@ -1118,14 +1195,19 @@ def phase_train(sd, ad, vd, dev, smi: str):
     def peak_gb():
         return torch.cuda.max_memory_allocated() / 1e9
 
+    def finite(values):
+        return all(v == v and abs(v) != float("inf") for v in values)
+
     try:
         torch.cuda.reset_peak_memory_stats()
         resident_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
-        spider = factory.build_full_spider(
-            device=dev, seed=3, diffusion_pipes={"IMAGE": sd, "VIDEO": vd, "AUDIO": ad})
-        torch.cuda.synchronize()
+        # What `python -m spider_tpu_torch.train <config>` reads from a recipe
+        # file: the full preset of train_configs/spider_demo_train_full.py on
+        # the three synthetic dataset twins at batch 4. The rate stays at
+        # init_lr (decay 1.0), so the later steps still move the weights.
         cfg = Config.fromdict(dict(
+            model=dict(type="spider", preset="full", lora_r=32),
             datasets=dict(
                 t2i_cc_sbu=dict(batch_size=TRAIN_BATCH,
                                 build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=1)),
@@ -1134,15 +1216,24 @@ def phase_train(sd, ad, vd, dev, smi: str):
                 t2a_audiocap=dict(batch_size=TRAIN_BATCH,
                                   build_info=dict(num_mels=TRAIN_MEL_BINS,
                                                   target_length=TRAIN_MEL_FRAMES, seed=3))),
-            run=dict(task="image_text_pretrain", lr_sched="warmup_decay_lr", init_lr=3e-4,
-                     warmup_steps=0, max_epoch=1, iters_per_epoch=1000, weight_decay=0.01,
-                     max_grad_norm=1.0, accum_grad_iters=1, num_frozen_embed_rows=FROZEN_ROWS,
+            run=dict(task="image_text_pretrain", runner="runner_base",
+                     lr_sched="linear_warmup_step_lr", init_lr=3e-4, lr_decay_rate=1.0,
+                     warmup_steps=0, max_epoch=1, iters_per_epoch=TRAIN_EPOCH_ITERS,
+                     log_freq=TRAIN_EPOCH_ITERS, seed=42, weight_decay=0.01, max_grad_norm=1.0,
+                     accum_grad_iters=1, num_frozen_embed_rows=FROZEN_ROWS,
                      length_bucket=TRAIN_BUCKET, output_dir=out_dir)))
-        task = setup_task(cfg)
-        datasets = task.build_datasets(cfg)["train"]
+        runner = T.build_runner(cfg, dev, "chip_smoke")
+        # the entry logs to the standard output, which here carries the JSON lines
+        for handler in logging.getLogger().handlers:
+            if getattr(handler, "stream", None) is sys.stdout:
+                handler.setStream(sys.stderr)
+        torch.cuda.synchronize()
+        spider, task, datasets = runner.model, runner.task, runner.datasets
+        # the decoders' text conditioning is the alignment target: the resident
+        # pipelines, not second copies built by with_pipes
+        spider.diffusion_pipes.update(IMAGE=sd, VIDEO=vd, AUDIO=ad)
         loaders = {name: batched(iter(entry["dataset"]), entry["batch_size"])
-                   for name, entry in datasets.items()}
-        runner = RunnerBase(cfg, task, spider, {}, "chip_smoke")
+                   for name, entry in datasets["train"].items()}
         llm_cfg = spider.llm.config
         L = llm_cfg.num_hidden_layers
         want = dict.fromkeys(KERNELS, 0)
@@ -1153,12 +1244,16 @@ def phase_train(sd, ad, vd, dev, smi: str):
         n_frozen = sum(p.numel() for p in frozen.values())
         rows.append(dict(
             phase="train", part="build", seconds=time.perf_counter() - t0,
+            entry="spider_tpu_torch.train.build_runner: setup_task -> build_datasets -> "
+                  "build_model -> build_spider_from_config(preset='full') -> runner_base",
             model="build_full_spider: llama3_8b architecture, LoRA r 32, vocab "
                   f"{llm_cfg.vocab_size}, bf16 base frozen, remat; imagebind_huge; "
                   "moe_transformer aligner (hidden 512, 3 experts x 4+4 layers)",
             trainable_params=n_trainable, frozen_params=n_frozen,
             resident_before_gb=resident_gb, allocated_gb=torch.cuda.memory_allocated() / 1e9,
-            ok=L == 32 and llm_cfg.hidden_size == 4096 and llm_cfg.lora.r == 32))
+            ok=type(runner) is registry.get_runner_class("runner_base") and L == 32
+            and llm_cfg.hidden_size == 4096 and llm_cfg.lora.r == 32 and llm_cfg.remat
+            and spider.encoder is not None and spider.moe_aligner is not None))
 
         # fingerprints of everything that must not move
         sums = {n: _checksum(p) for n, p in frozen.items()}
@@ -1166,6 +1261,18 @@ def phase_train(sd, ad, vd, dev, smi: str):
                  if n.endswith(("embed_tokens.weight", "lm_head.weight"))}
         row_sums = {n: (_checksum(p[:FROZEN_ROWS]), _checksum(p[FROZEN_ROWS:]))
                     for n, p in vocab.items()}
+
+        def token_counts(samples):
+            """(padded, live, supervised) tokens of a batch as the step sees it:
+            padded to the length bucket; up to each sample's last token; with a
+            target."""
+            pad = spider.tokenizer.pad_token_id
+            batch = _pad_to_bucket(spider.prepare_batch(samples), TRAIN_BUCKET, pad)
+            slots = sum(batch.slot_mask.values()) > 0 if batch.slot_mask else False
+            real = (batch.input_ids != pad) | slots
+            last = real.shape[1] - real[:, ::-1].argmax(axis=1)
+            return (int(batch.input_ids.size), int(last[real.any(axis=1)].sum()),
+                    int((batch.targets != -100).sum()))
 
         def timed_step(samples):
             reset_launches()
@@ -1176,40 +1283,58 @@ def phase_train(sd, ad, vd, dev, smi: str):
             seconds = time.perf_counter() - t0
             counts = read_launches()
             add(counts)
-            pad = spider.tokenizer.pad_token_id
-            tokens = _pad_to_bucket(spider.prepare_batch(samples), TRAIN_BUCKET,
-                                    pad).input_ids.size
-            return out, seconds, counts, tokens
+            return out, seconds, counts
 
-        # ---- warm-up, then steps cycling IMAGE / TEXT-with-image-input / AUDIO
+        # ---- one epoch through RunnerBase.train_epoch: MultiIterLoader over the
+        # three datasets, the metrics stream. Its first steps warm the card up.
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = runner.train_epoch(0)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = read_launches()
+        add(counts)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            stream = [json.loads(line) for line in f]
+        rows.append(dict(
+            phase="train", part="train_epoch", iters=TRAIN_EPOCH_ITERS, seconds=epoch_s,
+            includes="warm-up of the first steps", global_step=runner.global_step,
+            metrics_lines=len(stream), losses=[m["loss"] for m in stream],
+            lr=[m["lr"] for m in stream], epoch_stats=stats, launches=counts,
+            peak_gb=peak_gb(),
+            ok=runner.global_step == TRAIN_EPOCH_ITERS and len(stream) == TRAIN_EPOCH_ITERS
+            and [m["step"] for m in stream] == list(range(1, TRAIN_EPOCH_ITERS + 1))
+            and finite(m["loss"] for m in stream)
+            and counts == {k: n * TRAIN_EPOCH_ITERS for k, n in want.items()}))
+
+        # ---- steps cycling IMAGE / TEXT-with-image-input / AUDIO, one task each
         names = ("t2i_cc_sbu", "i2t_cc_sbu", "t2a_audiocap")
-        for name in names:
-            timed_step(next(loaders[name]))
         torch.cuda.reset_peak_memory_stats()
         per_task = {name: [] for name in names}
         for i in range(6):
             name = names[i % 3]
-            out, seconds, counts, tokens = timed_step(next(loaders[name]))
-            per_task[name].append((seconds, tokens, out, counts))
+            samples = next(loaders[name])
+            per_task[name].append(timed_step(samples) + (token_counts(samples),))
         for name, steps in per_task.items():
-            secs = [s for s, _, _, _ in steps]
-            finite = all(all(v == v and abs(v) != float("inf") for v in o.values())
-                         for _, _, o, _ in steps)
-            counts_ok = all(c == want for _, _, _, c in steps)
+            secs = statistics.median(s for _, s, _, _ in steps)
+            padded, live, supervised = steps[-1][3]
             rows.append(dict(
                 phase="train", part="spider_step", dataset=name, batch=TRAIN_BATCH,
-                tokens_per_step=steps[-1][1], steps=len(steps),
-                s_per_step=statistics.median(secs), s_per_step_all=secs,
-                tokens_per_s=steps[-1][1] / statistics.median(secs),
-                losses=[o["loss"] for _, _, o, _ in steps], loss_keys=sorted(steps[-1][2]),
-                launches_per_step=steps[-1][3], launches_expected=want,
-                peak_gb=peak_gb(), ok=finite and counts_ok))
+                steps=len(steps), s_per_step=secs, s_per_step_all=[s for _, s, _, _ in steps],
+                padded_tokens_per_step=padded, live_tokens_per_step=live,
+                supervised_tokens_per_step=supervised,
+                padded_tokens_per_s=padded / secs, live_tokens_per_s=live / secs,
+                losses=[o["loss"] for o, _, _, _ in steps], loss_keys=sorted(steps[-1][0]),
+                launches_per_step=steps[-1][2], launches_expected=want, peak_gb=peak_gb(),
+                ok=all(finite(o.values()) for o, _, _, _ in steps)
+                and all(c == want for _, _, c, _ in steps) and 0 < live <= padded))
 
         # ---- one repeated batch: the loss falls
         samples = next(loaders["t2i_cc_sbu"])
         losses = []
         for _ in range(8):
-            out, _, counts, _ = timed_step(samples)
+            out, _, counts = timed_step(samples)
             losses.append(out["loss"])
         rows.append(dict(phase="train", part="repeated_batch", steps=8, losses=losses,
                          ok=all(x == x for x in losses) and losses[-1] < losses[0]
@@ -1229,10 +1354,17 @@ def phase_train(sd, ad, vd, dev, smi: str):
         loss_k, g_k = lora_grads()
         counts = read_launches()
         add(counts)
-        with flash_backward_config("plain"):
+        # the same step with the autograd function's backward sent to the plain
+        # version, for this one comparison: the package has no such switch
+        kernel_backward = A.flash_backward
+        A.flash_backward = (lambda q, k, v, out, lse, g, **kw:
+                            A.flash_backward_reference(q, k, v, out, lse, g, **kw))
+        try:
             reset_launches()
             loss_p, g_p = lora_grads()
             plain_counts = read_launches()
+        finally:
+            A.flash_backward = kernel_backward
         rel = ((g_k - g_p).norm() / g_p.norm()).item()
         cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
         rows.append(dict(
@@ -1240,7 +1372,8 @@ def phase_train(sd, ad, vd, dev, smi: str):
             lora_grad_rel_diff=rel, lora_grad_cosine=cos, lora_grad_norm=g_p.norm().item(),
             lora_grad_elements=g_p.numel(), launches=counts, launches_plain_route=plain_counts,
             bounds=dict(rel=GRAD_REL, cosine=GRAD_COS),
-            ok=abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= GRAD_REL and cos >= GRAD_COS and counts == want
+            ok=abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= GRAD_REL
+            and cos >= GRAD_COS and counts == want
             and plain_counts["flash_bwd_dq"] == 0 and plain_counts["flash_bwd_dkv"] == 0
             and bool(torch.isfinite(g_k).all()) and g_p.norm().item() > 0))
         del g_k, g_p
@@ -1258,8 +1391,9 @@ def phase_train(sd, ad, vd, dev, smi: str):
         # ---- where a Spider step's time goes
         rows.append(dict(phase="train", part="spider_step_profile", dataset="t2i_cc_sbu",
                          **_device_profile(lambda: runner.train_step(samples),
-                                           statistics.median(per_task["t2i_cc_sbu"][i][0]
-                                                             for i in range(2))), ok=True))
+                                           statistics.median(
+                                               s for _, s, _, _ in per_task["t2i_cc_sbu"])),
+                         ok=True))
         del runner
         torch.cuda.empty_cache()
 
@@ -1294,12 +1428,11 @@ def phase_train(sd, ad, vd, dev, smi: str):
             add(counts)
             counts_ok &= counts == want
             metrics.append({k: float(v) for k, v in m.items()})
-        finite = all(v == v and abs(v) != float("inf") for m in metrics for v in m.values())
         rows.append(dict(phase="train", part="lm_step", batch=B, seq_len=T_len, steps=3,
                          s_per_step=statistics.median(secs), s_per_step_all=secs,
                          tokens_per_s=B * T_len / statistics.median(secs), metrics=metrics,
-                         launches_per_step=counts, launches_expected=want,
-                         peak_gb=peak_gb(), ok=finite and counts_ok))
+                         launches_per_step=counts, launches_expected=want, peak_gb=peak_gb(),
+                         ok=finite(v for m in metrics for v in m.values()) and counts_ok))
         batch = lm_batch()
         rows.append(dict(phase="train", part="lm_step_profile", batch=B, seq_len=T_len,
                          **_device_profile(lambda: step(batch), statistics.median(secs)),
@@ -1307,15 +1440,24 @@ def phase_train(sd, ad, vd, dev, smi: str):
         del opt, step
         torch.cuda.empty_cache()
 
-        # ---- checkpoint round trip, on a runner that trains everything but
-        # the two vocabulary matrices (their fp32 Adam state alone is 8 GB)
+        # ---- RunnerBase.train() and a checkpoint round trip, on a runner that
+        # trains everything but the two vocabulary matrices (their fp32
+        # parameters and Adam state alone would make a 12 GB file)
         cfg.run.trainable_patterns = ("lora_", "llama_proj", "moe_aligner", "logit_scale")
-        small = RunnerBase(cfg, task, spider, {}, "chip_smoke_ckpt")
+        cfg.run.iters_per_epoch = 2
+        os.remove(os.path.join(out_dir, "metrics.jsonl"))
+        small = registry.get_runner_class(cfg.run.runner)(
+            cfg=cfg, task=task, model=spider, datasets=datasets, job_id="chip_smoke_ckpt")
         runner = small
-        timed_step(samples)
+        reset_launches()
         t0 = time.perf_counter()
-        path = small.save_checkpoint(epoch=0)
-        save_s = time.perf_counter() - t0
+        small.train()          # the epoch loop: train_epoch, save_checkpoint, eval_epoch
+        train_s = time.perf_counter() - t0
+        counts = read_launches()
+        add(counts)
+        path = os.path.join(out_dir, "checkpoint_0.pt")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            stream = [json.loads(line) for line in f]
         saved = {n: _checksum(p) for n, p in small.optimizer.params.items()}
         saved_mu = {n: _checksum(t) for n, t in small.optimizer.mu.items()}
         timed_step(samples)                               # move on past the checkpoint
@@ -1324,15 +1466,20 @@ def phase_train(sd, ad, vd, dev, smi: str):
         restored = (all(_checksum(p) == saved[n] for n, p in small.optimizer.params.items())
                     and all(_checksum(t) == saved_mu[n]
                             for n, t in small.optimizer.mu.items()))
-        out_after, _, _, _ = timed_step(samples)
+        out_after, _, _ = timed_step(samples)
         rows.append(dict(
-            phase="train", part="checkpoint", file_gb=os.path.getsize(path) / 1e9,
-            save_s=save_s, tensors=len(saved), tensors_moved_after_save=moved_on,
-            restored_bit_identical=restored, step_restored=small.global_step - 1,
-            start_epoch=small.start_epoch, loss_after_resume=out_after["loss"],
-            ok=restored and moved_on > 0 and small.start_epoch == 1
-            and small.optimizer.count == 2 and out_after["loss"] == out_after["loss"]))
+            phase="train", part="train_and_checkpoint", train_seconds=train_s,
+            iters=2, metrics_lines=len(stream), losses=[m["loss"] for m in stream],
+            launches=counts, file_gb=os.path.getsize(path) / 1e9, tensors=len(saved),
+            tensors_moved_after_save=moved_on, restored_bit_identical=restored,
+            step_restored=small.global_step - 1, start_epoch=small.start_epoch,
+            loss_after_resume=out_after["loss"],
+            ok=restored and moved_on > 0 and small.start_epoch == 1 and len(stream) == 2
+            and finite(m["loss"] for m in stream) and small.optimizer.count == 3
+            and small.global_step == 3 and counts == {k: 2 * n for k, n in want.items()}
+            and finite([out_after["loss"]])))
     finally:
+        signal.signal(signal.SIGTERM, sigterm)            # train() installed its own
         shutil.rmtree(out_dir, ignore_errors=True)
     for row in rows:
         row["nvidia_smi"] = smi
@@ -1451,7 +1598,7 @@ def main() -> int:
         return 1
     # The run uses one device, cuda:0, whatever else the machine shows.
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -28,7 +28,6 @@ Position conventions for causal masking (as in the JAX package):
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional, Tuple, Union
 
@@ -284,24 +283,6 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
-# Backward routing override for A/B checks on the card: "kernel" = the CUDA
-# kernels; "plain" = flash_backward_reference on the same CUDA tensors. A
-# process-wide value, not a ContextVar: autograd runs a CUDA graph's backward
-# on its own thread, which would not see the caller's context.
-_BACKWARD_ROUTE = {"mode": "kernel"}
-
-
-@contextlib.contextmanager
-def flash_backward_config(mode: str):
-    if mode not in ("kernel", "plain"):
-        raise ValueError(mode)
-    previous, _BACKWARD_ROUTE["mode"] = _BACKWARD_ROUTE["mode"], mode
-    try:
-        yield
-    finally:
-        _BACKWARD_ROUTE["mode"] = previous
-
-
 def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
                    sm_scale: Optional[float] = None,
                    kv_len: Optional[torch.Tensor] = None,
@@ -309,9 +290,8 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
                    g_lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of flash attention from its saved (out, lse) and the
     cotangents g of out and, optionally, g_lse of lse. CPU tensors take
-    ``flash_backward_reference``; CUDA tensors launch the two kernels (or,
-    inside ``flash_backward_config("plain")``, take the reference too)."""
-    if q.device.type == "cpu" or _BACKWARD_ROUTE["mode"] == "plain":
+    ``flash_backward_reference``; CUDA tensors launch the two kernels."""
+    if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, g, causal, sm_scale, kv_len,
                                         q_offset, g_lse)
     if q.device.type != "cuda":

@@ -45,20 +45,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def main(argv=None):
-    """Build task, datasets, model and runner from the config and train;
-    returns the runner."""
+def build_runner(cfg, device, job_id: str):
+    """Output directory, logger, seeds, task, datasets, model and runner from
+    a loaded config: everything ``main`` does before ``runner.train()``."""
     from spider_tpu_torch import tasks
 
     register_all()
-    job_id = now()
-    args = parse_args(argv)
-    cfg = apply_overrides(Config.fromfile(args.cfg_path), args.options)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("spider_tpu_torch.train: no CUDA device; pass --device cpu to train "
-                         "on the CPU")
-    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
-
     output_dir = cfg.run.get("output_dir", f"output/{job_id}")
     registry.register_path("output_dir", output_dir)
     setup_logger(output_dir)
@@ -69,7 +61,20 @@ def main(argv=None):
     model = task.build_model(cfg, device=device)
 
     runner_cls = registry.get_runner_class(cfg.run.get("runner", "runner_base"))
-    runner = runner_cls(cfg=cfg, task=task, model=model, datasets=datasets, job_id=job_id)
+    return runner_cls(cfg=cfg, task=task, model=model, datasets=datasets, job_id=job_id)
+
+
+def main(argv=None):
+    """Build task, datasets, model and runner from the config and train;
+    returns the runner."""
+    job_id = now()
+    args = parse_args(argv)
+    cfg = apply_overrides(Config.fromfile(args.cfg_path), args.options)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("spider_tpu_torch.train: no CUDA device; pass --device cpu to train "
+                         "on the CPU")
+    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
+    runner = build_runner(cfg, device, job_id)
     runner.train()
     return runner
 

@@ -173,12 +173,11 @@ def test_flash_backward_on_cpu_is_the_reference_and_counts_no_launch():
     assert (tA.flash_bwd_dq.launches, tA.flash_bwd_dkv.launches) == before
 
 
-def test_backward_route_switch_restores_itself_and_rejects_other_modes():
-    assert tA._BACKWARD_ROUTE["mode"] == "kernel"
-    with tA.flash_backward_config("plain"):
-        assert tA._BACKWARD_ROUTE["mode"] == "plain"
-        with pytest.raises(ValueError):
-            with tA.flash_backward_config("fast"):
-                pass
-        assert tA._BACKWARD_ROUTE["mode"] == "plain"
-    assert tA._BACKWARD_ROUTE["mode"] == "kernel"
+def test_flash_backward_takes_cpu_or_cuda_tensors_only_and_holds_no_route_state():
+    # The wrapper launches or raises: no switch in the module sends a tensor
+    # off the CPU to the plain version.
+    q, k, v, g = (torch.from_numpy(x).to("meta") for x in _inputs(1, 5, 5, 2, 1, 16, seed=9))
+    out, lse = torch.empty_like(q), torch.empty((1, 2, 5), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tA.flash_backward(q, k, v, out, lse, g)
+    assert not hasattr(tA, "flash_backward_config") and not hasattr(tA, "_BACKWARD_ROUTE")

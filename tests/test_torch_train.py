@@ -281,16 +281,11 @@ def test_runner_trains_checkpoints_and_resumes_to_the_same_losses(tmp_path):
     # ... and resumed from the epoch-0 checkpoint. The data stream is not part
     # of a checkpoint (nor is it in the reference): skip the two batches the
     # first epoch drew.
-    from spider_tpu_torch import tasks
-
-    ttrain.register_all()
     cfg = Config.fromfile(DEMO_CFG)
     cfg.run.update(output_dir=str(tmp_path / "resumed"), iters_per_epoch=2, max_epoch=2,
                    weight_decay=0.01, resume_ckpt_path=ckpt)
-    ttrain.setup_seeds(cfg)
-    task = tasks.setup_task(cfg)
-    model = task.build_model(cfg, device=torch.device("cpu"))
-    runner = RunnerBase(cfg, task, model, task.build_datasets(cfg), "resumed")
+    runner = ttrain.build_runner(cfg, torch.device("cpu"), "resumed")
+    assert type(runner) is RunnerBase and runner.global_step == 0
     for _ in range(2):
         next(runner.dataloaders["train"])
     runner.train()
