@@ -4,11 +4,20 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  build        compile the five kernel sources (spider_tpu_torch/csrc) with nvcc, in
-               parallel
+  build        compile the kernel sources (spider_tpu_torch/csrc) with nvcc, in
+               parallel; spills and ptxas's wgmma warnings from the kept logs
+  wgmma_probe  single wgmma products (csrc/wgmma_probe.cu) against torch.matmul
   kernel       each kernel against its plain PyTorch version at the path's shapes,
                with its bound on this card and, where one PyTorch call computes the
-               same function, that call's time (timed here, used nowhere in the port)
+               same function, that call's time (timed here, used nowhere in the port).
+               The flash forward and dk/dv rows run both routes of
+               ops/attention.py::flash_route on the same inputs: `ms`/`device_ms` are
+               the route the rule names, `previous_ms`/`previous_device_ms` the
+               general mma.sync route
+  unet_routing every self- and cross-attention shape of SD-1.5 512px, AudioLDM 5 s and
+               ZeroScope 576x320x16 (CFG batch) through the flash kernel and through
+               unet2d's plain einsum: the rows unet2d.spatial_flash_predicate is set
+               from, and a check that it agrees with them
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
   paged_check  one decode chunk of the 8B int8 model over a paged pool, through the
@@ -45,7 +54,12 @@ as the last line {"ok": true, "device": {...}}.
 Each main-path phase (chat, request, any_to_many, each serving configuration,
 the train steps) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
-plain version are not counted.
+plain version are not counted. The flash forward and dk/dv counts are also
+read per route, and the run fails if a main-path launch took the general
+route: every bf16 shape of the main paths belongs to the wgmma route.
+
+`python3 chip_smoke.py kernels` stops after the kernel and routing rows (no
+models are built); it prints no final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -76,6 +90,13 @@ REQUESTS = 2
 ANY_TO_MANY_REQUESTS = 2
 VIDEO_HW_FRAMES = (320, 576, 16)
 AUDIO_SECONDS = 5.0
+AUDIO_LATENT_HW = (256, 32)           # AudioLDM's latent for 5 s; main() holds it to the pipe's
+# unet2d.spatial_flash_predicate may send a shape to the side that is slower
+# on the device by at most this factor (timing noise near a crossover).
+ROUTING_SLACK = 1.25
+# "No slower" on launch-bound shapes, where two ~10-40 us device times are
+# compared: the new route may read up to this factor of the old one's time.
+NO_SLOWER = 1.10
 # Kernel vs plain: bf16 output rounding plus another summation order.
 OUT_ATOL = 2e-2
 LSE_ATOL = 1e-3
@@ -100,7 +121,8 @@ INT4_REL = 2.0 ** -7
 SERVING_REQUESTS = 24
 SERVING_NEW_TOKENS = 48
 SERVING_WARMUP = 4
-SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd")
+SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd", "wgmma_probe")
+ROUTED = ("flash_fwd", "flash_bwd_dkv")            # kernels with two routes
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn_fwd", "paged_decode",
            "int4_matmul")
 # Flash backward kernels vs plain: the kernels round P and dS to bf16 for the
@@ -237,12 +259,24 @@ def launch_counters():
 
 
 def reset_launches() -> None:
-    for fn in launch_counters().values():
+    for name, fn in launch_counters().items():
         fn.launches = 0
+        if name in ROUTED:
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def read_route_launches() -> dict:
+    counters = launch_counters()
+    return {name: dict(counters[name].route_launches) for name in ROUTED}
+
+
+def on_wgmma_route(routes: dict) -> bool:
+    """No main-path launch took the general route."""
+    return all(r["mma"] == 0 for r in routes.values())
 
 
 def spider_free_prompt_len(tokenizer) -> int:
@@ -260,28 +294,36 @@ def spider_free_prompt_len(tokenizer) -> int:
 # Launch counts the main path must show, from the model configurations
 # ---------------------------------------------------------------------------
 
-def flash_launches_per_unet2d_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
-                                   batch: int) -> int:
-    """Flash launches in one UNet2D call: each transformer block's self- and
-    cross-attention where unet2d.spatial_flash_predicate holds."""
+def unet_attention_shapes(cfg, lat_h: int, lat_w: int):
+    """(level name, transformer blocks, T, heads, D) of every level of a UNet2D
+    or UNet3D configuration that holds transformer blocks; each block runs one
+    self-attention (S = T) and one cross-attention (S = the context length)."""
+    n = len(cfg.block_out_channels)
+    depth = getattr(cfg, "transformer_layers_per_block", (1,) * n)
+
+    def level(lvl: int):
+        H = cfg.num_attention_heads[lvl]
+        return (lat_h >> lvl) * (lat_w >> lvl), H, cfg.block_out_channels[lvl] // H
+
+    shapes = []
+    for lvl in range(n):
+        if cfg.cross_attn_blocks[lvl] and depth[lvl] > 0:
+            shapes.append((f"L{lvl}", (2 * cfg.layers_per_block + 1) * depth[lvl], *level(lvl)))
+    if cfg.cross_attn_blocks[-1] or not hasattr(cfg, "transformer_layers_per_block"):
+        shapes.append(("mid", max(depth[-1], 1), *level(n - 1)))     # the UNet3D always has one
+    return shapes
+
+
+def flash_launches_per_unet_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
+                                 batch: int) -> int:
+    """Flash launches in one UNet2D or UNet3D call (batch = samples x frames):
+    each transformer block's self- and cross-attention where
+    unet2d.spatial_flash_predicate holds."""
     from spider_tpu_torch.models.unet2d import spatial_flash_predicate
 
-    def block(level: int) -> int:
-        T = (lat_h >> level) * (lat_w >> level)
-        H = cfg.num_attention_heads[level]
-        D = cfg.block_out_channels[level] // H
-        return (spatial_flash_predicate(batch, T, T, H, D)
-                + spatial_flash_predicate(batch, T, ctx_len, H, D))
-
-    n = len(cfg.block_out_channels)
-    total = 0
-    for lvl in range(n):
-        if cfg.cross_attn_blocks[lvl] and cfg.transformer_layers_per_block[lvl] > 0:
-            blocks = (2 * cfg.layers_per_block + 1) * cfg.transformer_layers_per_block[lvl]
-            total += blocks * block(lvl)
-    if cfg.cross_attn_blocks[-1]:
-        total += max(cfg.transformer_layers_per_block[-1], 1) * block(n - 1)
-    return total
+    return sum(blocks * (spatial_flash_predicate(batch, T, T, H, D)
+                         + spatial_flash_predicate(batch, T, ctx_len, H, D))
+               for _, blocks, T, H, D in unet_attention_shapes(cfg, lat_h, lat_w))
 
 
 def tattn_launches_per_unet3d_call(cfg, lat_h: int, lat_w: int, frames: int) -> int:
@@ -309,7 +351,6 @@ def tattn_launches_per_unet3d_call(cfg, lat_h: int, lat_w: int, frames: int) -> 
 def phase_kernel_flash(dev, spider_free_T: int):
     import torch
 
-    from spider_tpu_torch.models.unet2d import _attention, spatial_flash_config
     from spider_tpu_torch.ops import attention as A
 
     def inputs(B, T, S, Hq, Hkv, D, seed):
@@ -336,8 +377,6 @@ def phase_kernel_flash(dev, spider_free_T: int):
         ("unet_cross_T4096_S77_D40", (2, 4096, 77, 8, 8, 40), dict(causal=False)),
         ("ragged_kv_len", (2, 333, 1000, 32, 8, 128),
          dict(causal=False, kv_len=i32(777, 1000))),
-        # ZeroScope spatial level 0: routed to the plain einsum by the
-        # reference's predicate; measured here only.
         ("zeroscope_self_T2880_D40", (32, 2880, 2880, 8, 8, 40), dict(causal=False)),
         ("audioldm_self_T8192_D16", (2, 8192, 8192, 8, 8, 16), dict(causal=False)),
         ("audioldm_cross_T8192_S1_D16", (2, 8192, 1, 8, 8, 16), dict(causal=False)),
@@ -345,25 +384,44 @@ def phase_kernel_flash(dev, spider_free_T: int):
     rows = []
     for i, (name, shape, kw) in enumerate(cases):
         q, k, v = inputs(*shape, seed=100 + i)
-        out, lse = A.flash_attention_with_lse(q, k, v, **kw)
+        route = A.flash_route(q.dtype, q.shape[-1])
         want, want_lse = A.mha_reference_with_lse(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        err_lse = (lse - want_lse).abs().max().item()
-        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
-        del out, lse, want, want_lse
-        ms = cuda_ms(lambda: A.flash_attention_with_lse(q, k, v, **kw))
+        # both routes on the same inputs: the one the rule names, and the
+        # general one it replaced here
+        by_route = {}
+        for r in dict.fromkeys((route, "mma")):
+            out, lse = A.flash_attention_with_lse(q, k, v, route=r, **kw)
+            torch.cuda.synchronize()
+            by_route[r] = dict(
+                err=(out.float() - want.float()).abs().max().item(),
+                err_lse=(lse - want_lse).abs().max().item(),
+                finite=bool(torch.isfinite(out).all() and torch.isfinite(lse).all()))
+            del out, lse
+        del want, want_lse
+        for r, got in by_route.items():
+            call = lambda: A.flash_attention_with_lse(q, k, v, route=r, **kw)
+            got["ms"], got["device_ms"] = cuda_ms(call), device_ms(call)
+        err, err_lse = by_route[route]["err"], by_route[route]["err_lse"]
+        finite = all(g["finite"] for g in by_route.values())
+        in_bound = all(g["err"] <= OUT_ATOL and g["err_lse"] <= LSE_ATOL
+                       for g in by_route.values())
+        ms = by_route[route]["ms"]
         plain_ms = cuda_ms(lambda: A.mha_reference_with_lse(q, k, v, **kw))
         B, T, S, Hq, Hkv, D = shape
         pairs = live_pairs(B, T, S, kw["causal"], kw.get("kv_len"), kw.get("q_offset"))
         keys = live_pairs(B, 1, S, False, kw.get("kv_len"))       # keys below kv_len
         # q, out [B,T,Hq,D] and the live rows of k, v in bf16, lse fp32; QK^T and PV
         row = dict(kernel="flash_fwd", name=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=D,
-                   causal=kw["causal"], max_abs_err=err, max_abs_err_lse=err_lse, ms=ms,
+                   causal=kw["causal"], route=route, max_abs_err=err,
+                   max_abs_err_lse=err_lse, ms=ms, device_ms=by_route[route]["device_ms"],
+                   previous_route="mma", previous_ms=by_route["mma"]["ms"],
+                   previous_device_ms=by_route["mma"]["device_ms"],
+                   max_abs_err_previous=by_route["mma"]["err"],
+                   max_abs_err_lse_previous=by_route["mma"]["err_lse"],
                    plain_ms=plain_ms, library_ms=None,
                    **bound_ms(2 * (2 * B * T * Hq * D + 2 * keys * Hkv * D) + 4 * B * Hq * T,
                               4 * Hq * D * pairs),
-                   ok=finite and err <= OUT_ATOL and err_lse <= LSE_ATOL)
+                   ok=finite and in_bound and route == "wgmma")
         # One PyTorch call for the same function, heads first as SDPA takes
         # them; k and v are repeated over the GQA group beforehand where the
         # case needs a mask.
@@ -374,17 +432,11 @@ def phase_kernel_flash(dev, spider_free_T: int):
         row["library_ms"] = cuda_ms(sdpa)
         # without either wrapper's host time, which a single call of a short
         # kernel mostly measures
-        row["device_ms"] = device_ms(lambda: A.flash_attention_with_lse(q, k, v, **kw))
         row["library_device_ms"] = device_ms(sdpa)
+        row["speedup_device"] = row["previous_device_ms"] / row["device_ms"]
         row["library_call"] = "sdpa " + ("attn_mask" if "attn_mask" in sdpa_kw else "is_causal"
                                          if sdpa_kw["is_causal"] else "full")
         del qs, ks, vs, sdpa_kw
-        if name.startswith("zeroscope"):
-            # The plain path the UNet3D really runs there: unet2d's einsum.
-            flat = [x.reshape(B, -1, Hq * D) for x in (q, k, v)]
-            with spatial_flash_config("einsum"):
-                row["unet_einsum_ms"] = cuda_ms(lambda: _attention(*flat, Hq))
-            del flat
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -425,26 +477,41 @@ def phase_kernel_flash_bwd(dev):
         mk = lambda *s: torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
         q, k, v, do = mk(Bc, Tc, Hq, D), mk(Bc, S, Hkv, D), mk(Bc, S, Hkv, D), mk(Bc, Tc, Hq, D)
         g_lse = (torch.randn((Bc, Hq, Tc), generator=g, device=dev) if with_lse else None)
+        route = A.flash_route(q.dtype, D)
         out, lse = A.flash_attention_with_lse(q, k, v, **kw)
-        got = A.flash_backward(q, k, v, out, lse, do, g_lse=g_lse, **kw)
         want = A.flash_backward_reference(q, k, v, out, lse, do, g_lse=g_lse, **kw)
+
+        def against_plain(got):
+            """(max abs error, excess over the bound, finite) per gradient."""
+            res = []
+            for a, b in zip(got, want):
+                diff = (a.float() - b.float()).abs()
+                res.append((diff.max().item(),
+                            (diff - (BWD_ATOL + BWD_REL * b.float().abs())).max().item(),
+                            bool(torch.isfinite(a).all())))
+            return res
+
+        # dq has one kernel; dk/dv runs through both routes on the same inputs
+        by_route = {r: against_plain(A.flash_backward(q, k, v, out, lse, do, g_lse=g_lse,
+                                                      route=r, **kw))
+                    for r in dict.fromkeys((route, "mma"))}
         torch.cuda.synchronize()
-        errs, excess, finite = [], [], True
-        for a, b in zip(got, want):
-            diff = (a.float() - b.float()).abs()
-            errs.append(diff.max().item())
-            excess.append((diff - (BWD_ATOL + BWD_REL * b.float().abs())).max().item())
-            finite &= bool(torch.isfinite(a).all())
-        del got, want
+        del want
+        errs = [x[0] for x in by_route[route]]
+        excess = [x[1] for x in by_route[route]]
+        finite = all(x[2] for res in by_route.values() for x in res)
+        excess_previous = max(x[1] for x in by_route["mma"][1:])
         live, off = A._live_and_offset(Bc, Tc, S, kw.get("kv_len"), None, dev)
         delta = A._delta(do, out, g_lse)
         args = (q, k, v, do, lse, delta, live, off, kw["causal"], None)
         dq_ms = cuda_ms(lambda: A.flash_bwd_dq(*args))
-        dkv_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args))
+        dkv_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args, route=route))
+        dkv_prev_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args, route="mma"))
         plain_ms = cuda_ms(lambda: A.flash_backward_reference(q, k, v, out, lse, do,
                                                              g_lse=g_lse, **kw), reps=3)
         dq_dev = device_ms(lambda: A.flash_bwd_dq(*args))
-        dkv_dev = device_ms(lambda: A.flash_bwd_dkv(*args))
+        dkv_dev = device_ms(lambda: A.flash_bwd_dkv(*args, route=route))
+        dkv_prev_dev = device_ms(lambda: A.flash_bwd_dkv(*args, route="mma"))
         library_ms = library_dev = None
         if not with_lse:                 # SDPA returns no lse to take a cotangent of
             (qs, ks, vs), sdpa_kw, repeat = sdpa_call(q, k, v, kw)
@@ -470,14 +537,104 @@ def phase_kernel_flash_bwd(dev):
                                     6 * Hq * D * pairs),
                          ok=finite and excess[0] <= 0))
         # dk/dv: q, dO, live k, v read, dk, dv written; S, dP, P^T dO and dS^T Q
-        rows.append(dict(kernel="flash_bwd_dkv", **common, max_abs_err=max(errs[1:]),
+        rows.append(dict(kernel="flash_bwd_dkv", **common, route=route,
+                         max_abs_err=max(errs[1:]),
                          max_abs_err_dk=errs[1], max_abs_err_dv=errs[2], ms=dkv_ms,
-                         device_ms=dkv_dev,
+                         device_ms=dkv_dev, previous_route="mma", previous_ms=dkv_prev_ms,
+                         previous_device_ms=dkv_prev_dev,
+                         max_abs_err_previous=max(x[0] for x in by_route["mma"][1:]),
+                         speedup_device=dkv_prev_dev / dkv_dev,
+                         pair_device_ms=dq_dev + dkv_dev,
                          **bound_ms(2 * q_bytes + 4 * kv_bytes + rows_bytes,
                                     8 * Hq * D * pairs),
-                         ok=finite and max(excess[1:]) <= 0))
+                         ok=finite and max(excess[1:]) <= 0 and excess_previous <= 0
+                         and route == "wgmma"))
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wgmma_probe(dev):
+    """Single wgmma products through csrc/hopper.cuh (TMA load, swizzled
+    descriptors, the wgmma wrappers) against torch.matmul in fp32: fp32
+    accumulation of bf16 products differs by summation order only."""
+    import ctypes
+
+    import torch
+
+    from spider_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("wgmma_probe")
+    lib.spider_wgmma_probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.spider_wgmma_probe.restype = ctypes.c_int
+    g = torch.Generator(device=dev).manual_seed(600)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev, dtype=torch.bfloat16)
+    errs = {}
+    for mode, name, a, b in ((0, "ss_k_major_64x128x128", mk(64, 128), mk(128, 128)),
+                             (1, "rs_mn_major_64x128x64", mk(64, 64), mk(64, 128))):
+        d = torch.full((64, 128), float("nan"), device=dev)
+        rc = lib.spider_wgmma_probe(mode, a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        want = a.float() @ (b.float().T if mode == 0 else b.float())
+        errs[name] = float("inf") if rc else (d - want).abs().max().item()
+    return dict(phase="wgmma_probe", max_abs_err=errs, atol=1e-3,
+                ok=all(e <= 1e-3 for e in errs.values()))
+
+
+def phase_unet_routing(dev):
+    """Every self- and cross-attention shape of the three UNets at the sizes
+    the main path runs them (CFG batch 2; ZeroScope's 16 frames fold into the
+    batch), through the flash kernel and through unet2d's plain einsum, both
+    timed on the device (calls queued behind a sleeping kernel) and as single
+    calls. unet2d.spatial_flash_predicate is set from these rows; the row
+    fails if the rule sends a shape to the slower side by more than
+    ROUTING_SLACK, or to a kernel that does not take it."""
+    import torch
+
+    from spider_tpu_torch.models.unet2d import (_attention, spatial_flash_config,
+                                                spatial_flash_predicate, unet_audioldm,
+                                                unet_sd15)
+    from spider_tpu_torch.models.unet3d import UNet3DConfig
+    from spider_tpu_torch.ops import attention as A
+
+    h, w, frames = VIDEO_HW_FRAMES
+    models = [("sd15_512px", unet_sd15(), 64, 64, 77, 2),
+              ("audioldm_5s", unet_audioldm(), *AUDIO_LATENT_HW, 1, 2),
+              ("zeroscope_576x320x16", UNet3DConfig(), h // 8, w // 8, 77, 2 * frames)]
+    rows = []
+    for model, cfg, lat_h, lat_w, ctx_len, B in models:
+        for level, blocks, T, H, D in unet_attention_shapes(cfg, lat_h, lat_w):
+            for kind, S in (("self", T), ("cross", ctx_len)):
+                g = torch.Generator(device=dev).manual_seed(700 + len(rows))
+                mk = lambda L: torch.randn((B, L, H * D), generator=g, device=dev,
+                                           dtype=torch.bfloat16)
+                q, k, v = mk(T), mk(S), mk(S)
+                with spatial_flash_config("einsum"):
+                    plain = lambda: _attention(q, k, v, H)
+                    want = plain()
+                    einsum_ms, einsum_dev = cuda_ms(plain), device_ms(plain)
+                flash_ms = flash_dev = err = None
+                if D <= A.MAX_HEAD_DIM:
+                    flash = lambda: A.flash_attention(
+                        q.reshape(B, T, H, D), k.reshape(B, S, H, D), v.reshape(B, S, H, D),
+                        causal=False).reshape(B, T, H * D)
+                    err = (flash().float() - want.float()).abs().max().item()
+                    flash_ms, flash_dev = cuda_ms(flash), device_ms(flash)
+                routed = bool(spatial_flash_predicate(B, T, S, H, D))
+                if flash_dev is None:
+                    ok = not routed
+                elif routed:
+                    ok = err <= OUT_ATOL and flash_dev <= ROUTING_SLACK * einsum_dev
+                else:
+                    ok = einsum_dev <= ROUTING_SLACK * flash_dev
+                rows.append(dict(phase="unet_routing", model=model, level=level, kind=kind,
+                                 blocks_per_unet_call=blocks, B=B, T=T, S=S, heads=H, D=D,
+                                 flash_device_ms=flash_dev, einsum_device_ms=einsum_dev,
+                                 flash_ms=flash_ms, einsum_ms=einsum_ms, max_abs_err=err,
+                                 predicate_routes_to_flash=routed, ok=ok))
+                del q, k, v, want
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -740,7 +897,8 @@ def _rel_errors(routed, plain, ref):
 
 def phase_unet_check(pipe, dev):
     """One full-size CFG UNet call in bf16 routed as the main path routes it
-    (the kernel at level 0), and the same call with plain bf16 attention
+    (the kernel where unet2d.spatial_flash_predicate holds), and the same call
+    with plain bf16 attention
     everywhere, each against an fp32 copy of the UNet with plain attention:
     the kernel inside the real model at its real shapes must be no less
     accurate than the plain path it replaces."""
@@ -772,13 +930,17 @@ def phase_unet_check(pipe, dev):
 
 def phase_unet3d_check(pipe, dev):
     """The same check for the ZeroScope UNet3D at full size (CFG batch 2,
-    16 frames, 576x320): temporal attention through the kernel at all four
-    levels, then plain, each against an fp32 copy with plain attention."""
+    16 frames, 576x320): temporal attention through its kernel at all four
+    levels and spatial attention through the flash kernel where
+    unet2d.spatial_flash_predicate holds, then both plain, each against an
+    fp32 copy with plain attention."""
     import dataclasses
 
     import torch
 
+    from spider_tpu_torch.models.unet2d import spatial_flash_config
     from spider_tpu_torch.models.unet3d import UNet3DConditionModel
+    from spider_tpu_torch.ops.attention import flash_attention
     from spider_tpu_torch.ops.temporal_attention import (temporal_attention,
                                                          temporal_attention_config)
 
@@ -791,20 +953,25 @@ def phase_unet3d_check(pipe, dev):
         dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
     ref_unet.load_state_dict(pipe.unet.state_dict())
     with torch.inference_mode():
-        before = temporal_attention.launches
+        before = temporal_attention.launches, flash_attention.launches
         routed = pipe.unet(lat, t, ctx).float()
-        launches = temporal_attention.launches - before
-        with temporal_attention_config("plain"):
+        launches = temporal_attention.launches - before[0]
+        flash_launches = flash_attention.launches - before[1]
+        with temporal_attention_config("plain"), spatial_flash_config("einsum"):
             plain = pipe.unet(lat, t, ctx).float()
             ref = ref_unet(lat, t, ctx.float())
     del ref_unet
     torch.cuda.empty_cache()
     err_kernel, err_plain = _rel_errors(routed, plain, ref)
     want = tattn_launches_per_unet3d_call(pipe.unet.config, h // 8, w // 8, frames)
+    want_flash = flash_launches_per_unet_call(pipe.unet.config, h // 8, w // 8, ctx.shape[1],
+                                              2 * frames)
     return dict(phase="unet3d_check", rel_err_kernel_vs_fp32=err_kernel,
                 rel_err_plain_vs_fp32=err_plain, tattn_launches=launches,
-                tattn_launches_expected=want,
+                tattn_launches_expected=want, flash_launches=flash_launches,
+                flash_launches_expected=want_flash,
                 ok=bool(torch.isfinite(routed).all()) and launches == want
+                and flash_launches == want_flash and flash_launches > 0
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 
@@ -835,7 +1002,7 @@ def phase_chat(model, tokenizer, spider_free_T: int):
     prefill_s = min(timed_chat(first, prompt)[1] for _ in range(3))
     prefill_long_s = min(timed_chat(first, long_prompt)[1] for _ in range(3))
     text, total_s = timed_chat(full, prompt)
-    launches = read_launches()
+    launches, routes = read_launches(), read_route_launches()
     decode_s = total_s - prefill_s
     return dict(phase="chat", model="llama3_8b int8 weight-only (random weights)",
                 prompt_tokens=PROMPT_TOKENS, new_tokens=NEW_TOKENS,
@@ -843,8 +1010,9 @@ def phase_chat(model, tokenizer, spider_free_T: int):
                 prefill_ms_T_spider_free=prefill_long_s * 1e3,
                 spider_free_prompt_tokens=spider_free_T,
                 generate_s=total_s, decode_tok_s=(NEW_TOKENS - 1) / decode_s,
-                launches=launches, text_chars=len(text),
-                ok=launches["flash_fwd"] > 0 and isinstance(text, str))
+                launches=launches, route_launches=routes, text_chars=len(text),
+                ok=launches["flash_fwd"] > 0 and isinstance(text, str)
+                and on_wgmma_route(routes))
 
 
 def _timed_decoder(pipe, key: str, timing: dict, seed: int):
@@ -889,7 +1057,7 @@ def phase_request(model, tokenizer, pipe):
     cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
     sf = SpiderFree(cfg, chat_fn=chat_fn,
                     decoders={"IMAGE": _timed_decoder(pipe, "image", timing, seed=1)})
-    want_image = STEPS * flash_launches_per_unet2d_call(pipe.unet.config, 64, 64, 77, 2)
+    want_image = STEPS * flash_launches_per_unet_call(pipe.unet.config, 64, 64, 77, 2)
     rows = []
     for r in range(REQUESTS):
         timing.clear()
@@ -898,10 +1066,10 @@ def phase_request(model, tokenizer, pipe):
         t0 = time.perf_counter()
         events = sf.chat(f"Show me {SD_CAPTION}.", task_prompt="IMAGE")[0]
         total = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_route_launches()
         kinds = [k for k, _ in events]
         images = [p["media"] for k, p in events if k == "image"]
-        ok = (kinds == ["text", "image"] and len(images) == 1
+        ok = (kinds == ["text", "image"] and len(images) == 1 and on_wgmma_route(routes)
               and timing.get("image_shape") == [1, 512, 512, 3]
               and images[0].shape == (512, 512, 3) and timing.get("image_finite")
               and timing["image_range"][0] >= 0.0 and timing["image_range"][1] <= 1.0
@@ -913,7 +1081,8 @@ def phase_request(model, tokenizer, pipe):
                          image_launches=timing.get("image_launches"),
                          image_launches_expected=want_image,
                          image_shape=timing.get("image_shape"),
-                         image_range=timing.get("image_range"), launches=launches, ok=ok))
+                         image_range=timing.get("image_range"), launches=launches,
+                         route_launches=routes, ok=ok))
     return rows
 
 
@@ -945,11 +1114,13 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
     lat = ad.latent_shape(1, AUDIO_SECONDS)
     mel_frames = lat[1] * 2 ** (len(ad.vae.config.block_out_channels) - 1)
     want = dict(
-        image_flash=STEPS * flash_launches_per_unet2d_call(sd.unet.config, 64, 64, 77, 2),
-        audio_flash=STEPS * flash_launches_per_unet2d_call(ad.unet.config, lat[1], lat[2],
+        image_flash=STEPS * flash_launches_per_unet_call(sd.unet.config, 64, 64, 77, 2),
+        audio_flash=STEPS * flash_launches_per_unet_call(ad.unet.config, lat[1], lat[2],
                                                            1, 2),
         video_tattn=STEPS * tattn_launches_per_unet3d_call(vd.unet.config, h // 8, w // 8,
                                                            frames),
+        video_flash=STEPS * flash_launches_per_unet_call(vd.unet.config, h // 8, w // 8, 77,
+                                                         2 * frames),
         audio_shape=[1, output_length(ad.vocoder.config, mel_frames)],
         video_shape=[1, frames, h, w, 3])
     rows = []
@@ -961,10 +1132,11 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
         events = sf.chat(f"Show me {SD_CAPTION}, let me hear it and film it.",
                          task_prompt="SMARTMULTIMODAL")[0]
         total = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_route_launches()
         kinds = [k for k, _ in events]
         media = {k: p["media"] for k, p in events if k != "text"}
         ok = (
+            on_wgmma_route(routes) and
             # the controller dispatches in its key order: IMAGE, VIDEO, AUDIO
             kinds == ["text", "image", "video", "audio"]
             and timing.get("image_shape") == [1, 512, 512, 3]
@@ -980,6 +1152,7 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
             and timing.get("video_shape") == want["video_shape"]
             and timing["video_dtype"] == "uint8"
             and timing["video_launches"]["tattn_fwd"] == want["video_tattn"]
+            and timing["video_launches"]["flash_fwd"] == want["video_flash"]
             and timing.get("video_kw") == dict(guidance_scale=GUIDANCE,
                                                num_inference_steps=STEPS, height=h, width=w,
                                                num_frames=frames))
@@ -992,7 +1165,7 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
             video_launches=timing.get("video_launches"), expected=want,
             audio_shape=timing.get("audio_shape"), audio_range=timing.get("audio_range"),
             video_shape=timing.get("video_shape"), video_dtype=timing.get("video_dtype"),
-            launches=launches, ok=ok))
+            launches=launches, route_launches=routes, ok=ok))
     return rows
 
 
@@ -1067,7 +1240,7 @@ def phase_serving(model8, model4, tokenizer):
         futs = [cb.submit(p) for p in prompts]
         outs = [f.result(timeout=600) for f in futs]
         seconds = time.perf_counter() - t0
-        launches = read_launches()
+        launches, routes = read_launches(), read_route_launches()
         steps, prefills = cb.n_decode_steps - steps0, cb.n_prefills - prefills0
         cb.close()
         alive = cb._thread.is_alive()
@@ -1090,7 +1263,7 @@ def phase_serving(model8, model4, tokenizer):
                 n += 1
             leading.append(n)
         ok = (all(isinstance(o, str) for o in warm + outs) and drained and not alive
-              and launches == want)
+              and launches == want and on_wgmma_route(routes))
         rows.append(dict(
             phase="serving", config=name, model=f"llama3_8b {cfg.quantization}",
             requests=SERVING_REQUESTS, new_tokens=n_new, seconds=seconds,
@@ -1098,7 +1271,7 @@ def phase_serving(model8, model4, tokenizer):
             emitted_tokens=sum(len(emitted[id(f)]) for f in futs),
             decode_steps=steps, prefills=prefills,
             n_preempts=getattr(cb, "n_preempts", None), pool_drained=drained,
-            launches=launches, launches_expected=want,
+            launches=launches, launches_expected=want, route_launches=routes,
             leading_tokens_equal_generate=leading, ok=ok))
         del cb
         torch.cuda.empty_cache()
@@ -1185,12 +1358,18 @@ def phase_train(sd, ad, vd, dev, smi: str):
 
     rows = []
     launches = dict.fromkeys(KERNELS, 0)
+    routes = {name: dict.fromkeys(A.ROUTES, 0) for name in ROUTED}
     out_dir = tempfile.mkdtemp(prefix="spider_train_")
     sigterm = signal.getsignal(signal.SIGTERM)
 
     def add(counts):
+        """Add the counts just read, and the same launches by route, to the
+        main path's totals."""
         for name in KERNELS:
             launches[name] += counts[name]
+        for name, by_route in read_route_launches().items():
+            for route, n in by_route.items():
+                routes[name][route] += n
 
     def peak_gb():
         return torch.cuda.max_memory_allocated() / 1e9
@@ -1357,7 +1536,7 @@ def phase_train(sd, ad, vd, dev, smi: str):
         # the same step with the autograd function's backward sent to the plain
         # version, for this one comparison: the package has no such switch
         kernel_backward = A.flash_backward
-        A.flash_backward = (lambda q, k, v, out, lse, g, **kw:
+        A.flash_backward = (lambda q, k, v, out, lse, g, route=None, **kw:
                             A.flash_backward_reference(q, k, v, out, lse, g, **kw))
         try:
             reset_launches()
@@ -1478,6 +1657,11 @@ def phase_train(sd, ad, vd, dev, smi: str):
             and finite(m["loss"] for m in stream) and small.optimizer.count == 3
             and small.global_step == 3 and counts == {k: 2 * n for k, n in want.items()}
             and finite([out_after["loss"]])))
+        # every main-path launch of the train phase, by route
+        rows.append(dict(phase="train", part="routes", launches=launches,
+                         route_launches=routes,
+                         ok=on_wgmma_route(routes)
+                         and all(sum(routes[n].values()) == launches[n] for n in ROUTED)))
     finally:
         signal.signal(signal.SIGTERM, sigterm)            # train() installed its own
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -1486,7 +1670,52 @@ def phase_train(sd, ad, vd, dev, smi: str):
     return rows, launches
 
 
+def build_report(cuda_build) -> dict:
+    """What ptxas said of each library built or found by this process, from
+    the log kept beside it: spilled bytes over all kernels, and whether it
+    serialised a wgmma (warning C7510: the kernel runs, but slowly)."""
+    report = {}
+    for name in SOURCES:
+        path = cuda_build.build(name)[:-3] + ".log"        # built already: returns its path
+        with open(path) as f:
+            log = f.read()
+        spills = [int(line.split(" bytes spill stores")[0].rsplit(" ", 1)[-1])
+                  for line in log.splitlines() if " bytes spill stores" in line]
+        report[name] = dict(kernels=len(spills), spill_store_bytes=sum(spills),
+                            wgmma_serialized="C7510" in log)
+    return report
+
+
+def phase_floors(rows, spider_free_T: int) -> dict:
+    """The wgmma routes against the mma.sync routes they replaced on the main
+    paths, on device time from the `kernel` rows of this run: the forward at
+    least 2x faster at SD level 0, the long prefill and the train shape, and
+    no slower (within NO_SLOWER of timing noise) on the three launch-bound
+    shapes; dk/dv at least 1.5x faster at the train shape and 2x at B 1,
+    T 2048."""
+    B, T = TRAIN_LM_SHAPE
+    fwd = {r["name"]: r for r in rows if r["kernel"] == "flash_fwd"}
+    dkv = {r["name"]: r for r in rows if r["kernel"] == "flash_bwd_dkv"}
+    wanted = [(fwd, "unet_self_T4096_D40", 2.0), (fwd, f"prefill_T{spider_free_T}", 2.0),
+              (fwd, f"train_B{B}_T{T}", 2.0),
+              (fwd, f"train_B{TRAIN_BATCH}_T{2 * TRAIN_BUCKET}", 1.0 / NO_SLOWER),
+              (fwd, "unet_cross_T4096_S77_D40", 1.0 / NO_SLOWER),
+              (fwd, "audioldm_cross_T8192_S1_D16", 1.0 / NO_SLOWER),
+              (dkv, f"train_B{B}_T{T}", 1.5), (dkv, "long_B1_T2048", 2.0)]
+    checks = [dict(kernel=table[name]["kernel"], shape=name, floor=floor,
+                   speedup_device=table[name]["speedup_device"],
+                   device_ms=table[name]["device_ms"],
+                   previous_device_ms=table[name]["previous_device_ms"],
+                   ok=table[name]["speedup_device"] >= floor)
+              for table, name, floor in wanted]
+    return dict(phase="floors", checks=checks, ok=all(c["ok"] for c in checks))
+
+
 def main() -> int:
+    kernels_only = sys.argv[1:] == ["kernels"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: chip_smoke.py [kernels]", file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     try:
         from spider_tpu_torch.ops import cuda_build
@@ -1515,20 +1744,35 @@ def main() -> int:
     cuda_build.load_all(SOURCES)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k, 0.0) for k in SOURCES},
+              ptxas=build_report(cuda_build),
               nvidia_smi=smi, tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
               tf32_cudnn=torch.backends.cudnn.allow_tf32))
+    check = phase_wgmma_probe(dev)
+    emit(check)
+    ok &= check["ok"]
 
     from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models.tokenizer import TinyTokenizer
 
-    model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
-    spider_free_T = spider_free_prompt_len(tokenizer)
+    spider_free_T = spider_free_prompt_len(TinyTokenizer())
 
     # ---- kernel vs plain (these launches are not the main path's)
     rows = (phase_kernel_flash(dev, spider_free_T) + phase_kernel_flash_bwd(dev)
             + phase_kernel_tattn(dev) + phase_kernel_paged(dev) + phase_kernel_int4(dev))
     for row in rows:
-        emit(dict(phase="kernel", **row))
+        emit(dict(phase="kernel", nvidia_smi=smi, **row))
         ok &= row["ok"]
+    for check in [phase_floors(rows, spider_free_T)] + phase_unet_routing(dev):
+        emit(dict(nvidia_smi=smi, **check))
+        ok &= check["ok"]
+    if kernels_only:
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a kernel row failed (see the JSON lines above)", file=sys.stderr)
+        return 0 if ok else 1
+
+    model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
+    assert spider_free_prompt_len(tokenizer) == spider_free_T
 
     model4, _ = factory.from_pretrained("llama", device=dev, seed=0, quantization="int4")
     for check in (phase_paged_check(model, dev), phase_int4_check(model4, dev)):
@@ -1544,6 +1788,7 @@ def main() -> int:
     emit(check)
     ok &= check["ok"]
     ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
+    assert tuple(ad.latent_shape(1, AUDIO_SECONDS)[1:3]) == AUDIO_LATENT_HW
 
     # ---- the main paths: chat, text+image requests, any-to-many requests,
     # continuous-batching serving, then training; each phase zeroes the
@@ -1585,12 +1830,18 @@ def main() -> int:
     for kernel, shape_row, source, replaces in summary:
         mine = [r for r in rows if r["kernel"] == kernel]
         row = next(r for r in mine if r["name"] == shape_row)
-        kernels.append(dict(
+        entry = dict(
             name=kernel, route="cuda", source=f"spider_tpu_torch/csrc/{source}.cu",
             replaces=f"spider_tpu/ops/{replaces}", launches=main_launches[kernel],
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=shape_row))
+            library_ms=row["library_ms"], shape=shape_row, device_ms=row.get("device_ms"))
+        if kernel in ROUTED:       # which of the source's two kernels, and the other's time
+            entry.update(kernel_route=row["route"], previous_ms=row["previous_ms"],
+                         previous_device_ms=row["previous_device_ms"],
+                         max_abs_err=max(max(r["max_abs_err"], r["max_abs_err_previous"])
+                                         for r in mine))
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     if not ok:

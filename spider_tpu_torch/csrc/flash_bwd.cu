@@ -29,31 +29,54 @@
 // cores. (The two kernels each recompute S and dP, so they execute 14
 // products' worth where the function needs 10.)
 //
-// Design (a first, simple form on mma.sync; wgmma/TMA are later work):
+// Design. dq is a first, simple form on mma.sync. dk/dv has two forms;
+// ops/attention.py::flash_route names the one a call takes, by dtype and head
+// dim alone: "wgmma" for bf16 with D a multiple of 8, "mma" for the rest
+// (fp32 inputs, other head dims).
 //  * dq: one block of 4 warps per (64 query rows, q head, batch); a loop
 //    inside the block walks the 64-key tiles up to the causal diagonal and
 //    kv_len (the TPU's sequential grid axis). Each warp owns 16 query rows,
 //    computes S and dP on mma.sync.m16n8k16 (bf16 in, fp32 out), forms dS in
 //    registers (the accumulator layout of S is the A-operand layout of the
 //    next product) and adds dS K into its fp32 dq accumulator.
-//  * dk/dv: one block per (64 keys, KV head, batch). It loops over the q
-//    heads of the GQA group and over the q tiles from the causal diagonal
-//    down, so dk and dv are summed in registers and written once: no atomics,
-//    no [B, Hq, S, D] intermediate, the same sum order every run. Each warp
-//    owns 16 keys and works on the transposed problem: S^T = K Q^T and
-//    dP^T = V dO^T, so P^T and dS^T come out in the A-operand layout for
-//    dv += P^T dO and dk += dS^T Q. A q tile is taken in two halves of 32
-//    rows to keep the four accumulators within the register file.
-//  * Tiles are staged in shared memory as bf16, zero-filled past the ragged
-//    T/S edges and from D up to DP (the next multiple of 16). fp32 inputs are
-//    rounded to bf16 there, and P and dS are rounded to bf16 for the second
-//    products, as the forward rounds P: the tensor cores take bf16 operands.
-//    Accumulation, exp and the dS arithmetic stay fp32.
+//  * dk/dv, both forms: one block owns a tile of keys of one (KV head,
+//    batch). It loops over the q heads of the GQA group and over the q tiles
+//    from the causal diagonal down, so dk and dv are summed in registers and
+//    written once: no atomics, no [B, Hq, S, D] intermediate, the same sum
+//    order and so the same bits every run. It works on the transposed
+//    problem: S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out in the
+//    A-operand layout for dv += P^T dO and dk += dS^T Q.
+//  * dk/dv "wgmma" (spider_flash_bwd_dkv_wgmma): 128 keys a block, 64 per
+//    consumer warpgroup, plus a producer warpgroup that hands its registers
+//    over (setmaxnreg). K and V land once by TMA and stay; Q and dO tiles of
+//    64 rows stream through a ring of 3 (D > 64) or 4 stages of TMA boxes
+//    (hopper.cuh: 64 columns under the 128-byte swizzle, zero fill past T, S
+//    and D) with a full and an empty mbarrier each, so no __syncthreads is
+//    left in the loop; the producer warp also brings each tile's lse (in log2
+//    units) and delta rows. S^T and dP^T are wgmma m64n64k16 from shared
+//    memory; P^T and dS^T go from the accumulators, rounded to bf16, straight
+//    into the second products as register A operands, with dO and Q read as
+//    they lie in the instruction's transposed-B form. A whole q tile is taken
+//    at once: a warpgroup's registers hold both 64 x D accumulators beside
+//    S^T and dP^T. sm_scale multiplies dk once at the end. The grid is
+//    (KV head, batch, key tile), key tiles last and ascending: under a causal
+//    mask the heavy tiles start first. Masks run only on tiles that cross T,
+//    kv_len or the diagonal.
+//  * dk/dv "mma" (spider_flash_bwd_dkv): 64 keys a block, 16 a warp, on
+//    mma.sync. A q tile is taken in two halves of 32 rows to keep the four
+//    accumulators within the register file.
+//  * The mma.sync kernels stage tiles in shared memory as bf16, zero-filled
+//    past the ragged T/S edges and from D up to DP (the next multiple of 16);
+//    fp32 inputs are rounded to bf16 there. All forms round P and dS to bf16
+//    for the second products, as the forward rounds P: the tensor cores take
+//    bf16 operands. Accumulation, exp and the dS arithmetic stay fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -513,6 +536,280 @@ int run(const Args& a, int is_fp32, bool dkv) {
   return (int)(is_fp32 ? dispatch_dim<float>(a, dkv) : dispatch_dim<__nv_bfloat16>(a, dkv));
 }
 
+// ---------------------------------------------------------------------------
+// dk, dv: the wgmma form
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BKV = 128;                        // keys a block: 64 a consumer warpgroup
+constexpr int BQ = 64;                          // query rows a tile
+constexpr int NTHREADS = 384;                   // two consumer warpgroups and the producer's
+constexpr int CONSUMER_WARPS = 8;
+constexpr int KV_TILE_BYTES = BKV * ROW_BYTES;  // one box of K or V
+constexpr int Q_TILE_BYTES = BQ * ROW_BYTES;    // one box of Q or dO
+
+template <int DP>
+struct Cfg {
+  static constexpr int NBOX = (DP + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int STAGES = NBOX == 1 ? 4 : 3;
+  static constexpr int KV_BYTES = 2 * NBOX * KV_TILE_BYTES;    // K boxes, then V boxes
+  static constexpr int STAGE_BYTES = 2 * NBOX * Q_TILE_BYTES;  // Q boxes, then dO boxes
+  static constexpr int ROWS_BYTES = 2 * BQ * 4;                // lse (log2 units), delta
+  // + 1024 to align the tiles, + 128 for the barriers
+  static constexpr int SMEM = KV_BYTES + STAGES * (STAGE_BYTES + ROWS_BYTES) + 1024 + 128;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           const int* __restrict__ kv_len, const int* __restrict__ q_offset,
+                           int T_len, int S, int Hq, int Hkv, int D, float sm_scale,
+                           int causal) {
+  using C = Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + C::NBOX * KV_TILE_BYTES;
+  const uint32_t sQ = sK + C::KV_BYTES;  // the ring: stage i at sQ + i * STAGE_BYTES
+  const uint32_t rows_off = (sQ - raw) + C::STAGES * C::STAGE_BYTES;
+  float* rows = reinterpret_cast<float*>(smem_raw + rows_off);  // [STAGES][2][BQ]
+  const uint32_t bar_kv = raw + rows_off + C::STAGES * C::ROWS_BYTES;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * C::STAGES;
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;  // low key tiles, the heavy ones under a causal mask, first
+  const int group = Hq / Hkv;
+
+  const int live = max(0, min(kv_len[b], S));
+  const int qoff = q_offset[b];
+  const int n_q_tiles = (T_len + BQ - 1) / BQ;
+  // First q tile with a row on or below the diagonal of this key tile; none
+  // when every key of the tile is past kv_len.
+  int qt_lo = 0;
+  if (causal) qt_lo = max(0, k0 - qoff) / BQ;
+  if (k0 >= live) qt_lo = n_q_tiles;
+  const int nq = max(0, n_q_tiles - qt_lo);
+  const int n_iter = group * nq;  // (q head of the group, q tile) pairs, heads outermost
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgid = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wgid == 2) {
+    // ---- producer: one warp. Its lanes bring each tile's lse and delta rows,
+    // its first lane issues the TMA loads.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 == 8) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_kv, C::KV_BYTES);
+        for (int box = 0; box < C::NBOX; ++box) {
+          tma_load_4d(sK + box * KV_TILE_BYTES, &map_k, bar_kv, box * BOX_COLS, hk, k0, b);
+          tma_load_4d(sV + box * KV_TILE_BYTES, &map_v, bar_kv, box * BOX_COLS, hk, k0, b);
+        }
+      }
+      for (int idx = 0; idx < n_iter; ++idx) {
+        const int h = hk * group + idx / nq;
+        const int q0 = (qt_lo + idx % nq) * BQ;
+        const int stage = idx % C::STAGES;
+        const int round = idx / C::STAGES;
+        if (round > 0) mbar_wait(bar_empty + 8 * stage, (round - 1) & 1);
+        const float* lse_b = lse + ((int64_t)b * Hq + h) * T_len;
+        const float* delta_b = delta + ((int64_t)b * Hq + h) * T_len;
+        float* sl = rows + stage * 2 * BQ;
+#pragma unroll
+        for (int r = lane; r < BQ; r += 32) {
+          const int row = q0 + r;
+          sl[r] = row < T_len ? lse_b[row] * LOG2E : 0.f;
+          sl[BQ + r] = row < T_len ? delta_b[row] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          const uint32_t full = bar_full + 8 * stage;
+          const uint32_t dst = sQ + stage * C::STAGE_BYTES;
+          mbar_arrive_expect_tx(full, C::STAGE_BYTES);
+          for (int box = 0; box < C::NBOX; ++box) {
+            tma_load_4d(dst + box * Q_TILE_BYTES, &map_q, full, box * BOX_COLS, h, q0, b);
+            tma_load_4d(dst + (C::NBOX + box) * Q_TILE_BYTES, &map_do, full, box * BOX_COLS, h,
+                        q0, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys a warpgroup, 16 a warp, two a thread, on the
+    // transposed problem.
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int kpos0 = k0 + wgid * 64 + warp * 16 + g;  // this thread's keys
+    const int kpos1 = kpos0 + 8;
+    const int wg_kpos_max = k0 + wgid * 64 + 63;
+    const uint32_t sKw = sK + wgid * 64 * ROW_BYTES;
+    const uint32_t sVw = sV + wgid * 64 * ROW_BYTES;
+    const float scale2 = sm_scale * LOG2E;
+
+    float acc_k[DP / 2], acc_v[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      acc_k[i] = 0.f;
+      acc_v[i] = 0.f;
+    }
+
+    mbar_wait(bar_kv, 0);
+    for (int idx = 0; idx < n_iter; ++idx) {
+      const int q0 = (qt_lo + idx % nq) * BQ;
+      const int stage = idx % C::STAGES;
+      const uint32_t sQs = sQ + stage * C::STAGE_BYTES;
+      const uint32_t sDO = sQs + C::NBOX * Q_TILE_BYTES;
+      mbar_wait(bar_full + 8 * stage, (idx / C::STAGES) & 1);
+
+      // ---- S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 query rows.
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off_kv = (kk / 4) * KV_TILE_BYTES + (kk % 4) * 32;
+        const uint32_t off_q = (kk / 4) * Q_TILE_BYTES + (kk % 4) * 32;
+        wgmma_ss<BQ>(st, smem_desc(sKw + off_kv, 16, GROUP_BYTES),
+                     smem_desc(sQs + off_q, 16, GROUP_BYTES), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off_kv = (kk / 4) * KV_TILE_BYTES + (kk % 4) * 32;
+        const uint32_t off_q = (kk / 4) * Q_TILE_BYTES + (kk % 4) * 32;
+        wgmma_ss<BQ>(dpt, smem_desc(sVw + off_kv, 16, GROUP_BYTES),
+                     smem_desc(sDO + off_q, 16, GROUP_BYTES), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // ---- P^T into st, dS^T / sm_scale into dpt. P is selected to zero on
+      // dead pairs, never multiplied: exp2 may overflow there.
+      const float* sl = rows + stage * 2 * BQ;
+      const bool edge = q0 + BQ > T_len || k0 + BKV > live || (causal && q0 + qoff < wg_kpos_max);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int col = (i / 4) * 8 + 2 * t + (i & 1);
+        float p = fast_exp2(st[i] * scale2 - sl[col]);
+        if (edge) {
+          const int qrow = q0 + col;
+          const int kpos = (i & 2) ? kpos1 : kpos0;
+          const bool on = qrow < T_len && kpos < live && (!causal || qrow + qoff >= kpos);
+          p = on ? p : 0.f;
+        }
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - sl[BQ + col]);
+      }
+      uint32_t ap[BQ / 16][4], ads[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        acc_to_a(ap[kk], st, kk);
+        acc_to_a(ads[kk], dpt, kk);
+      }
+
+      // ---- dv += P^T dO, dk += dS^T Q; dO and Q as they lie, [rows][D], in
+      // the transposed-B form.
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wgmma_rs<DP>(acc_v, ap[kk],
+                     smem_desc(sDO + kk * 16 * ROW_BYTES, Q_TILE_BYTES, GROUP_BYTES), 1);
+        wgmma_rs<DP>(acc_k, ads[kk],
+                     smem_desc(sQs + kk * 16 * ROW_BYTES, Q_TILE_BYTES, GROUP_BYTES), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          asm volatile("" ::"r"(ap[kk][e]), "r"(ads[kk][e]));  // live until here
+        }
+      }
+      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+    }
+
+    // ---- this block owns its dk and dv rows: written once, summed over the
+    // group in a fixed order.
+    const int64_t kv_stride = (int64_t)Hkv * D;
+    __nv_bfloat16* dkb = dk + ((int64_t)b * S * Hkv + hk) * D;
+    __nv_bfloat16* dvb = dv + ((int64_t)b * S * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col < D) {  // D is a multiple of 8: col + 1 < D too
+        if (kpos0 < S) {
+          *reinterpret_cast<__nv_bfloat162*>(dkb + kpos0 * kv_stride + col) =
+              __floats2bfloat162_rn(acc_k[4 * j] * sm_scale, acc_k[4 * j + 1] * sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + kpos0 * kv_stride + col) =
+              __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
+        }
+        if (kpos1 < S) {
+          *reinterpret_cast<__nv_bfloat162*>(dkb + kpos1 * kv_stride + col) =
+              __floats2bfloat162_rn(acc_k[4 * j + 2] * sm_scale, acc_k[4 * j + 3] * sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + kpos1 * kv_stride + col) =
+              __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_dkv(const Args& a) {
+  using C = Cfg<DP>;
+  CUtensorMap map_q, map_do, map_k, map_v;
+  CUresult r = make_map_4d(&map_q, a.q, a.B, a.T_len, a.Hq, a.D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_do, a.dout, a.B, a.T_len, a.Hq, a.D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_k, a.k, a.B, a.S, a.Hkv, a.D, BKV);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_v, a.v, a.B, a.S, a.Hkv, a.D, BKV);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  auto kernel = flash_bwd_dkv_wgmma_kernel<DP>;
+  static bool allowed = false;  // once per instance
+  if (!allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const int n_key_tiles = (a.S + BKV - 1) / BKV;
+  if (a.B > 65535 || n_key_tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(a.Hkv, a.B, n_key_tiles);
+  kernel<<<grid, NTHREADS, C::SMEM, a.stream>>>(
+      map_q, map_do, map_k, map_v, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), static_cast<const int*>(a.kv_len),
+      static_cast<const int*>(a.q_offset), a.T_len, a.S, a.Hq, a.Hkv, a.D, a.sm_scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Each returns the cudaError_t of the launch (0 on success), launches on
@@ -536,4 +833,36 @@ extern "C" int spider_flash_bwd_dkv(const void* q, const void* k, const void* v,
   Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, kv_len, q_offset, B, T_len, S,
          Hq, Hkv, D, sm_scale, causal, static_cast<cudaStream_t>(stream)};
   return run(a, is_fp32, true);
+}
+
+// dk, dv in the wgmma form: bf16 only, D a multiple of 8 up to 128, q, k, v
+// and dout 16-byte aligned. Returns 0, the cudaError_t of the launch, or
+// -(1000 + CUresult) when a tensor map cannot be encoded.
+extern "C" int spider_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dk, void* dv, const void* kv_len,
+                                          const void* q_offset, int B, int T_len, int S, int Hq,
+                                          int Hkv, int D, float sm_scale, int causal,
+                                          void* stream) {
+  if (B <= 0 || T_len <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 128 ||
+      D % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, kv_len, q_offset, B, T_len, S,
+         Hq, Hkv, D, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+#define SPIDER_FLASH_CASE(DP_) \
+  case DP_ / 16:               \
+    return wg::launch_dkv<DP_>(a);
+  switch ((D + 15) / 16) {
+    SPIDER_FLASH_CASE(16)
+    SPIDER_FLASH_CASE(32)
+    SPIDER_FLASH_CASE(48)
+    SPIDER_FLASH_CASE(64)
+    SPIDER_FLASH_CASE(80)
+    SPIDER_FLASH_CASE(96)
+    SPIDER_FLASH_CASE(112)
+    SPIDER_FLASH_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SPIDER_FLASH_CASE
 }

@@ -13,8 +13,9 @@ spider_tpu/models/aligners.py).
 Submodule and parameter names follow the flax tree (``enc0_ln1``,
 ``expert_fc_0``, ``router_IMAGE`` ...) so ``convert.load_jax_params`` fills
 them. GELU is the tanh form and LayerNorm's eps is 1e-6, as flax's defaults
-are. Attention is ``unet2d._attention``: at these lengths (T <= 257) its
-predicate keeps the plain path, so no kernel launches here.
+are. Attention is ``unet2d.plain_attention``, the einsum with an fp32
+softmax: fp32 at T <= 257 is not the flash kernels' work, so no kernel
+launches here.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.models.unet2d import _attention
+from spider_tpu_torch.models.unet2d import plain_attention
 
 LN_EPS = 1e-6
 
@@ -50,7 +51,7 @@ class _SelfAttn(nn.Module):
 
     def forward(self, x, context=None):
         ctx = x if context is None else context
-        return self.out(_attention(self.q(x), self.k(ctx), self.v(ctx), self.heads))
+        return self.out(plain_attention(self.q(x), self.k(ctx), self.v(ctx), self.heads))
 
 
 class EncDecTransformer(nn.Module):

@@ -11,8 +11,8 @@ module transposes to channels-last for its convolutions, ``nn.Conv3d`` and
 ``nn.Conv2d`` take them as they are. The flax convolutions pad 'SAME'
 (flax's default): the audio patch grid is ceil(M/10) x ceil(T/10), padded
 here explicitly. Names follow the flax tree; GELU is the tanh form and
-LayerNorm's eps 1e-6, flax's defaults. Attention is ``unet2d._attention``:
-257 vision tokens stay on its plain path.
+LayerNorm's eps 1e-6, flax's defaults. Attention is
+``unet2d.plain_attention``: 257 vision tokens stay on the einsum.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.models.unet2d import _attention
+from spider_tpu_torch.models.unet2d import plain_attention
 
 LN_EPS = 1e-6
 
@@ -86,7 +86,7 @@ class ViTBlock(nn.Module):
 
     def forward(self, x):
         h = self.ln1(x)
-        x = x + self.proj(_attention(self.q(h), self.k(h), self.v(h), self.heads))
+        x = x + self.proj(plain_attention(self.q(h), self.k(h), self.v(h), self.heads))
         return x + self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
 
 

@@ -71,7 +71,7 @@ def unet_tiny(cross_attention_dim: int = 32, addition_embed_type: Optional[str] 
 
 
 # Spatial-attention routing override for A/B checks: "auto" = the
-# reference's predicate below; "einsum" = plain attention everywhere.
+# predicate below; "einsum" = plain attention everywhere.
 _SPATIAL_FLASH = ContextVar("spatial_flash", default="auto")
 
 
@@ -87,23 +87,62 @@ def spatial_flash_config(mode: str):
 
 
 def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
-    """Where the reference routes spatial attention to its TPU flash kernel
-    (unet2d.py:163-165, minus "the backend is a TPU"): D <= 128 and either
-    T >= 4096 or, for D >= 64, fp32 logits over 512 MiB."""
-    logits_bytes = 4 * B * heads * T * S
-    return D <= 128 and (T >= 4096 or (D >= 64 and logits_bytes > 512 * 1024 * 1024))
+    """Where spatial attention goes to the flash kernel on the card: every
+    head dim the kernel takes, D <= 128, whatever B, T, S and the head count.
+
+    The reference's rule for its TPU kernel (unet2d.py:163-165: T >= 4096 or,
+    for D >= 64, fp32 logits over 512 MiB) kept the plain einsum at every
+    level but the first of SD-1.5 and AudioLDM and at all of ZeroScope. On an
+    H100 the rows of ``chip_smoke.py``'s phase ``unet_routing`` (flash against
+    this module's einsum, device time in ms, bf16, CFG batch 2, ZeroScope's 16
+    frames in the batch; NVIDIA H100 80GB HBM3, 700 W) put the kernel ahead at
+    every shape it takes, self- and cross-attention alike, down to T = 128:
+
+      SD-1.5 512px     L0 T 4096 D 40: self 0.178 / 3.41, cross (S 77) 0.018 / 0.115
+                       L1 T 1024 D 80: self 0.020 / 0.261, cross 0.010 / 0.057
+      AudioLDM 5 s     L0 T 8192 D 16: self 0.596 / 14.3, cross (S 1) 0.015 / 0.041
+                       L1 T 2048 D 32: self 0.045 / 0.857, cross 0.007 / 0.031
+                       L2 T 512 D 48: self 0.010 / 0.072, cross 0.005 / 0.025
+                       L3, mid T 128 D 80: self 0.007 / 0.034, cross 0.006 / 0.024
+      ZeroScope 576x320x16  L0 T 2880 D 40 (B 32): self 1.39 / 27.7, cross 0.156 / 1.13
+                       L1 T 720 D 80: self 0.165 / 1.88, cross 0.059 / 0.389
+
+    As single calls with the host's time in them, the large shapes rank the
+    same way and the small ones are host-bound on either side (0.07-0.2 ms
+    for the one-launch wrapper, 0.15-0.47 ms for the einsum's eight launches).
+    SD-1.5's and ZeroScope's levels 2 and mid have D = 160, which no flash
+    kernel here takes: they stay on the einsum (T <= 256, 0.04-0.29 ms)."""
+    return D <= 128
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """Softmax attention on [B, T, C] projections: the reference's einsum
+    with an fp32 softmax. The aligners and ImageBind call it directly: their
+    attention (T <= 257, fp32 in the aligners) is no UNet's and stays off the
+    flash kernel."""
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    q = q.reshape(B, T, heads, D).transpose(1, 2)
+    k = k.reshape(B, S, heads, D).transpose(1, 2)
+    v = v.reshape(B, S, heads, D).transpose(1, 2)
+    logits = torch.einsum("bhtd,bhsd->bhts", q, k).float() / (D ** 0.5)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, v)
+    return out.transpose(1, 2).reshape(B, T, C)
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
-    """Softmax attention on [B, T, C] projections.
+    """The UNets' spatial attention on [B, T, C] projections.
 
     Routed to the flash kernel on CUDA tensors where
-    ``spatial_flash_predicate`` holds. At SD-1.5 512px that is level 0
-    (T = 4096, D = 40), at AudioLDM 5 s level 0 (T = 8192, D = 16; S = 1 in
-    cross-attention), self- and cross-attention; at ZeroScope no level. The
-    kernel masks the ragged edges and takes D = 16 or 40 itself, so none of
-    the reference's padding is needed. Elsewhere: the plain einsum + fp32
-    softmax of the reference.
+    ``spatial_flash_predicate`` holds: at SD-1.5 512px and ZeroScope levels 0
+    and 1 (D = 40, 80), at AudioLDM every level (D = 16 to 80; S = 1 in
+    cross-attention), self- and cross-attention. The kernel masks the ragged
+    edges and takes those head dims itself, so none of the reference's
+    padding is needed. Elsewhere (D = 160, CPU tensors, the "einsum"
+    override): ``plain_attention``.
     """
     B, T, C = q.shape
     S = k.shape[1]
@@ -115,13 +154,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) ->
                               v.reshape(B, S, heads, D), causal=False,
                               sm_scale=1.0 / (D ** 0.5))
         return out.reshape(B, T, C)
-    q = q.reshape(B, T, heads, D).transpose(1, 2)
-    k = k.reshape(B, S, heads, D).transpose(1, 2)
-    v = v.reshape(B, S, heads, D).transpose(1, 2)
-    logits = torch.einsum("bhtd,bhsd->bhts", q, k).float() / (D ** 0.5)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhts,bhsd->bhtd", probs, v)
-    return out.transpose(1, 2).reshape(B, T, C)
+    return plain_attention(q, k, v, heads)
 
 
 class ResnetBlock2D(nn.Module):

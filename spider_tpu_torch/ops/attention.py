@@ -8,6 +8,12 @@ q, k and v, through a ``torch.autograd.Function``) and take the plain
 tests check the arithmetic the kernels are held to on the card. On a CUDA
 tensor a wrapper launches its kernel or raises; it never falls back.
 
+The forward and the dk/dv backward each have two kernels, and ``flash_route``
+names the one a call takes from its dtype and head dim alone: "wgmma" (TMA
+staging and warpgroup products, csrc/hopper.cuh) for bf16 with D a multiple
+of 8, "mma" (the general mma.sync form) for fp32 inputs and other head dims.
+Each route counts its launches in ``route_launches`` beside ``launches``.
+
 Rows with no live key: the forward kernel returns the mean of V and a
 finite lse there (``mha_reference_with_lse`` gives -inf). The backward
 kernels and ``flash_backward_reference`` mask P to exactly zero, so such a
@@ -29,6 +35,7 @@ Position conventions for causal masking (as in the JAX package):
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -38,16 +45,28 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 IntLike = Union[int, torch.Tensor]
 
 
+@functools.lru_cache(maxsize=256)
+def _default_live_and_offset(B: int, T: int, S: int, device):
+    """The two vectors of a call that gives neither kv_len nor q_offset
+    (every UNet call): read-only, so one pair serves every such call of a
+    shape and the wrapper launches no fill kernels for them."""
+    return (torch.full((B,), S, dtype=torch.int32, device=device),
+            torch.full((B,), S - T, dtype=torch.int32, device=device))
+
+
 def _live_and_offset(B: int, T: int, S: int, kv_len: Optional[torch.Tensor],
                      q_offset: Optional[IntLike], device) -> Tuple[torch.Tensor, torch.Tensor]:
     """([B] live kv lengths, [B] global position of q row 0), int32."""
+    if kv_len is None and q_offset is None:
+        return _default_live_and_offset(B, T, S, torch.device(device))
     if kv_len is None:
         live = torch.full((B,), S, dtype=torch.int32, device=device)
     else:
         live = torch.as_tensor(kv_len, device=device).to(torch.int32).reshape(-1).expand(B)
-    if q_offset is None:
-        off = torch.full((B,), S - T if kv_len is None else 0, dtype=torch.int32,
-                         device=device)
+    if q_offset is None or isinstance(q_offset, int):
+        # filled on the device: a Python int through as_tensor is a host copy
+        start = q_offset if q_offset is not None else (S - T if kv_len is None else 0)
+        off = torch.full((B,), start, dtype=torch.int32, device=device)
     else:
         off = torch.as_tensor(q_offset, device=device).to(torch.int32).reshape(-1).expand(B)
     return live.contiguous(), off.contiguous()
@@ -150,21 +169,57 @@ def flash_backward_reference(q, k, v, out, lse, g, causal: bool = True,
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 128
+ROUTES = ("wgmma", "mma")
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a flash forward or dk/dv backward call takes on the card.
+
+    "wgmma": bf16 q/k/v with a head dim that is a multiple of 8 (a TMA
+    tensor map needs 16-byte row strides) up to 128: every shape of the main
+    paths (the 8B model at D 128, SD-1.5 and ZeroScope at D 40 and 80,
+    AudioLDM at D 16). "mma": what the other does not take, fp32 inputs
+    (rounded to bf16 in shared memory) and any other head dim up to 128. What
+    neither takes (fp16, D > 128) raises in the wrapper."""
+    if dtype == torch.bfloat16 and 0 < head_dim <= MAX_HEAD_DIM and head_dim % 8 == 0:
+        return "wgmma"
+    return "mma"
+
+
+def _resolve_route(route: Optional[str], tensors) -> str:
+    """The rule's route, or the caller's own choice of it (tests and timing
+    name one): "mma" takes everything, "wgmma" only what the rule sends it,
+    from 16-byte aligned storage."""
+    q = tensors[0]
+    ruled = flash_route(q.dtype, q.shape[-1])
+    if route is None:
+        route = ruled
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "wgmma":
+        if ruled != "wgmma":
+            raise ValueError(f"the wgmma route takes bf16 with a head dim that is a multiple "
+                             f"of 8, got {q.dtype} with D={q.shape[-1]}")
+        if any(x.data_ptr() % 16 for x in tensors):
+            raise ValueError("the wgmma route reads through TMA: q, k, v (and dO) must be "
+                             "16-byte aligned")
+    return route
 
 
 def _library():
     from spider_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("flash_fwd")
-    fn = lib.spider_flash_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.spider_flash_fwd.argtypes is None:
+        head = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+        lib.spider_flash_fwd.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
+        lib.spider_flash_fwd.restype = ctypes.c_int
+        lib.spider_flash_fwd_wgmma.argtypes = head + [ctypes.c_void_p]
+        lib.spider_flash_fwd_wgmma.restype = ctypes.c_int
+    return lib
 
 
-def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset):
+def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset, route=None):
     B, T, Hq, D = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -184,19 +239,24 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    route = _resolve_route(route, (q, k, v))
     live, off = _live_and_offset(B, T, S, kv_len, q_offset, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            live.data_ptr(), off.data_ptr(), B, T, S, Hq, Hkv, D, float(scale),
+            int(bool(causal)))
     with torch.cuda.device(q.device):   # the launch goes to the current device
-        err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         lse.data_ptr(), live.data_ptr(), off.data_ptr(),
-                         B, T, S, Hq, Hkv, D, float(scale), int(bool(causal)),
-                         int(q.dtype == torch.float32),
-                         torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "wgmma":
+            err = _library().spider_flash_fwd_wgmma(*args, stream)
+        else:
+            err = _library().spider_flash_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
-        raise RuntimeError(f"spider_flash_fwd launch failed with cudaError_t {err}")
+        raise RuntimeError(f"flash forward ({route}) launch failed with error {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out, lse
 
 
@@ -213,6 +273,10 @@ def _bwd_library():
         lib.spider_flash_bwd_dq.restype = ctypes.c_int
         lib.spider_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 10 + _BWD_COMMON
         lib.spider_flash_bwd_dkv.restype = ctypes.c_int
+        # no is_fp32: the wgmma form takes bf16 only
+        lib.spider_flash_bwd_dkv_wgmma.argtypes = ([ctypes.c_void_p] * 10 + _BWD_COMMON[:-2]
+                                                   + [ctypes.c_void_p])
+        lib.spider_flash_bwd_dkv_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -263,34 +327,44 @@ def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, g, lse, delta, live, off, causal, sm_scale):
+def flash_bwd_dkv(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=None):
     """(dk, dv) [B,S,Hkv,D] on the card, summed over each GQA group inside
-    the kernel."""
+    the kernel; through the kernel ``flash_route`` names, or the one the
+    caller does."""
     _check_bwd(q, k, v, g, lse, delta)
+    route = _resolve_route(route, (q, k, v, g))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), live.data_ptr(),
+                off.data_ptr())
+    scalars = _bwd_scalars(q, k, causal, sm_scale)
     with torch.cuda.device(q.device):
-        err = _bwd_library().spider_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), live.data_ptr(), off.data_ptr(),
-            *_bwd_scalars(q, k, causal, sm_scale))
+        if route == "wgmma":
+            err = _bwd_library().spider_flash_bwd_dkv_wgmma(*pointers, *scalars[:-2],
+                                                            scalars[-1])
+        else:
+            err = _bwd_library().spider_flash_bwd_dkv(*pointers, *scalars)
     if err != 0:
-        raise RuntimeError(f"spider_flash_bwd_dkv launch failed with cudaError_t {err}")
+        raise RuntimeError(f"flash backward dk/dv ({route}) launch failed with error {err}")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.route_launches[route] += 1
     return dk, dv
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
                    sm_scale: Optional[float] = None,
                    kv_len: Optional[torch.Tensor] = None,
                    q_offset: Optional[IntLike] = None,
-                   g_lse: Optional[torch.Tensor] = None):
+                   g_lse: Optional[torch.Tensor] = None, route: Optional[str] = None):
     """(dq, dk, dv) of flash attention from its saved (out, lse) and the
     cotangents g of out and, optionally, g_lse of lse. CPU tensors take
-    ``flash_backward_reference``; CUDA tensors launch the two kernels."""
+    ``flash_backward_reference``; CUDA tensors launch the two kernels, dk/dv
+    by ``flash_route`` unless `route` names its kernel."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, g, causal, sm_scale, kv_len,
                                         q_offset, g_lse)
@@ -299,7 +373,7 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
     B, T = q.shape[:2]
     live, off = _live_and_offset(B, T, k.shape[1], kv_len, q_offset, q.device)
     args = (q, k, v, g, lse, _delta(g, out, g_lse), live, off, causal, sm_scale)
-    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args, route=route)
 
 
 class _FlashFunction(torch.autograd.Function):
@@ -307,10 +381,11 @@ class _FlashFunction(torch.autograd.Function):
     saves q, k, v, out, lse; the backward launches the dq and dk/dv kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, kv_len, q_offset):
-        out, lse = _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset)
+    def forward(ctx, q, k, v, causal, sm_scale, kv_len, q_offset, route):
+        out, lse = _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset, route)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, q_offset=q_offset)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len, q_offset=q_offset,
+                      route=route)
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -321,38 +396,44 @@ class _FlashFunction(torch.autograd.Function):
             g = torch.zeros_like(out)
         # g arrives as a view of the output projection's input gradient
         dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(), g_lse=g_lse, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, sm_scale: Optional[float] = None,
                              kv_len: Optional[torch.Tensor] = None,
-                             q_offset: Optional[IntLike] = None):
+                             q_offset: Optional[IntLike] = None,
+                             route: Optional[str] = None):
     """(out [B,T,Hq,D], lse [B,Hq,T] fp32), differentiable in both outputs.
     On CUDA the kernel's lse stays finite on rows with no live key, where
-    the CPU reference gives -inf."""
+    the CPU reference gives -inf. `route` names the kernel ("wgmma" or
+    "mma") where a test or a timing wants one; by default ``flash_route``
+    does."""
     if q.device.type == "cpu":
         return mha_reference_with_lse(q, k, v, causal=causal, sm_scale=sm_scale,
                                       kv_len=kv_len, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
-    return _FlashFunction.apply(q, k, v, causal, sm_scale, kv_len, q_offset)
+    return _FlashFunction.apply(q, k, v, causal, sm_scale, kv_len, q_offset, route)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     kv_len: Optional[torch.Tensor] = None,
-                    q_offset: Optional[IntLike] = None) -> torch.Tensor:
+                    q_offset: Optional[IntLike] = None,
+                    route: Optional[str] = None) -> torch.Tensor:
     """Fused attention. q [B,T,Hq,D]; k,v [B,S,Hkv,D] -> [B,T,Hq,D].
 
     CPU tensors take mha_reference; CUDA tensors launch the kernel and add
-    one to ``flash_attention.launches`` (its backward adds one each to
+    one to ``flash_attention.launches`` and to its route's entry of
+    ``flash_attention.route_launches`` (its backward adds one each to
     ``flash_bwd_dq.launches`` and ``flash_bwd_dkv.launches``)."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                              kv_len=kv_len, q_offset=q_offset)
     return flash_attention_with_lse(q, k, v, causal=causal, sm_scale=sm_scale,
-                                    kv_len=kv_len, q_offset=q_offset)[0]
+                                    kv_len=kv_len, q_offset=q_offset, route=route)[0]
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -2,8 +2,9 @@
 
 Each kernel lives in ``spider_tpu_torch/csrc/<name>.cu`` behind a plain C
 entry point. At first use it is compiled for ``sm_90a`` into
-``spider_tpu_torch/build/lib<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source never loads a stale library. The
+``spider_tpu_torch/build/lib<name>-<hash>.so``, where the hash
+(``source_digest``) covers the source, every header ``csrc/*.cuh`` and the
+flags, so an edited source or header never loads a stale library. The
 build runs only when a kernel is launched on a CUDA tensor (or ``load_all``
 is called), never on import.
 nvcc's output, with ptxas's registers, shared memory and spills per kernel,
@@ -13,6 +14,7 @@ is kept beside the library as ``lib<name>-<hash>.log``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,6 +26,9 @@ from typing import Dict
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
+# The sources include the headers beside them ("hopper.cuh") and nothing
+# outside the CUDA toolkit, so no include path is given; one added here
+# enters the digest with the other flags.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,13 +49,25 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_digest(name: str, csrc_dir: str = CSRC_DIR, flags=NVCC_FLAGS) -> str:
+    """16 hex digits over csrc/<name>.cu, every csrc/*.cuh (by name and
+    content, in sorted order) and the compiler flags, include paths among
+    them. Needs no nvcc."""
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+    for path in [os.path.join(csrc_dir, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            data = f.read()
+        digest.update(f"{os.path.basename(path)}:{len(data)}:".encode())
+        digest.update(data)
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless its library exists; return its path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

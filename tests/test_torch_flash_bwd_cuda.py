@@ -5,6 +5,10 @@ These tests need an NVIDIA GPU: the kernels have no CPU mode, so without a
 card they skip. They import torch only, so they also run where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_flash_bwd_cuda.py``.
 
+Every bf16 case runs the dk/dv kernel of both routes, "wgmma" and the general
+"mma" (``ops/attention.py::flash_route``), each named by the call; dq has one
+kernel.
+
 Both versions take the same q, k, v, dO, out and lse (the forward kernel's).
 Tolerances: with bf16 inputs they differ in the kernels rounding P and dS to
 bf16 for the second products, in summation order and in the bf16 rounding of
@@ -21,6 +25,7 @@ import torch
 from spider_tpu_torch.ops import attention as A
 
 pytestmark = pytest.mark.cuda
+ROUTES = pytest.mark.parametrize("route", ["wgmma", "mma"])
 
 
 @pytest.fixture
@@ -45,12 +50,15 @@ def _close(got, want, atol, rel, name):
     assert excess <= 0, (name, excess)
 
 
-def _check(q, k, v, g, atol=2e-2, rel=2.0 ** -7, g_lse=None, **kw):
-    out, lse = A.flash_attention_with_lse(q, k, v, **kw)
+def _check(q, k, v, g, atol=2e-2, rel=2.0 ** -7, g_lse=None, route=None, **kw):
+    out, lse = A.flash_attention_with_lse(q, k, v, route=route, **kw)
     before = A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches
-    got = A.flash_backward(q, k, v, out, lse, g, g_lse=g_lse, **kw)
+    routed = dict(A.flash_bwd_dkv.route_launches)
+    got = A.flash_backward(q, k, v, out, lse, g, g_lse=g_lse, route=route, **kw)
     torch.cuda.synchronize()
     assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    took = route or A.flash_route(q.dtype, q.shape[-1])
+    assert A.flash_bwd_dkv.route_launches == {r: n + (r == took) for r, n in routed.items()}
     want = A.flash_backward_reference(q, k, v, out, lse, g, g_lse=g_lse, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(a, b, atol, rel, name)
@@ -60,15 +68,17 @@ def _check(q, k, v, g, atol=2e-2, rel=2.0 ** -7, g_lse=None, **kw):
 @pytest.mark.parametrize("D", [16, 40, 64, 128])
 @pytest.mark.parametrize("heads", [(4, 2), (8, 1), (2, 2)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernels_match_plain_bf16(dev, D, heads, causal):
+@ROUTES
+def test_kernels_match_plain_bf16(dev, D, heads, causal, route):
     # T and S not multiples of the 64-row tiles: the kernels mask the edges.
     q, k, v, g = _inputs(2, 100, 100, *heads, D, torch.bfloat16, dev)
-    _check(q, k, v, g, causal=causal)
+    _check(q, k, v, g, causal=causal, route=route)
 
 
 @pytest.mark.parametrize("conv", ["suffix", "kv_len", "q_offset"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernels_position_conventions(dev, conv, causal):
+@ROUTES
+def test_kernels_position_conventions(dev, conv, causal, route):
     B, T, S = 2, 70, 150
     q, k, v, g = _inputs(B, T, S, 8, 2, 128, torch.bfloat16, dev, seed=1)
     kw = dict(causal=causal)
@@ -76,37 +86,119 @@ def test_kernels_position_conventions(dev, conv, causal):
         kw["kv_len"] = torch.tensor([90, 150], dtype=torch.int32, device=dev)
     if conv == "q_offset":
         kw["q_offset"] = torch.tensor([20, 80], dtype=torch.int32, device=dev)
-    _check(q, k, v, g, **kw)
+    _check(q, k, v, g, route=route, **kw)
 
 
-def test_kernels_more_queries_than_keys(dev):
+@ROUTES
+def test_kernels_more_queries_than_keys(dev, route):
     # kv_len-given causal with T > S rows below every key, and rows with no
     # live key at all (kv_len 0 for the second sample): zero gradient there.
     q, k, v, g = _inputs(2, 200, 90, 4, 2, 64, torch.bfloat16, dev, seed=6)
     kv_len = torch.tensor([90, 0], dtype=torch.int32, device=dev)
-    _check(q, k, v, g, causal=True, kv_len=kv_len)
-    out, lse = A.flash_attention_with_lse(q, k, v, causal=True, kv_len=kv_len)
-    dq, dk, dv = A.flash_backward(q, k, v, out, lse, g, causal=True, kv_len=kv_len)
+    _check(q, k, v, g, causal=True, kv_len=kv_len, route=route)
+    out, lse = A.flash_attention_with_lse(q, k, v, causal=True, kv_len=kv_len, route=route)
+    dq, dk, dv = A.flash_backward(q, k, v, out, lse, g, causal=True, kv_len=kv_len,
+                                  route=route)
     assert not dq[1].any() and not dk[1].any() and not dv[1].any()
 
 
-def test_kernels_with_lse_cotangent(dev):
+@ROUTES
+def test_kernels_with_lse_cotangent(dev, route):
     q, k, v, g = _inputs(2, 130, 130, 8, 2, 64, torch.bfloat16, dev, seed=7)
     g_lse = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, 8, 130), dtype=np.float32)).to(dev)
-    _check(q, k, v, g, g_lse=g_lse, causal=True)
+    _check(q, k, v, g, g_lse=g_lse, causal=True, route=route)
 
 
 @pytest.mark.parametrize("shape", [(4, 512, 512, 32, 8, 128), (1, 2048, 2048, 32, 8, 128)])
-def test_kernels_full_width_shapes(dev, shape):
+@ROUTES
+def test_kernels_full_width_shapes(dev, shape, route):
     # The training step of the 8B model (batch 4 x 512) and one long sequence.
     q, k, v, g = _inputs(*shape, torch.bfloat16, dev, seed=9)
+    _check(q, k, v, g, causal=True, route=route)
+
+
+@pytest.mark.parametrize("route", [None, "mma"])
+def test_kernels_fp32_inputs(dev, route):
+    # fp32 is the general route's alone, by the rule and by name.
+    q, k, v, g = _inputs(1, 130, 130, 4, 2, 64, torch.float32, dev, seed=4)
+    _check(q, k, v, g, atol=3e-2, rel=2.0 ** -5, causal=True, route=route)
+
+
+def test_kernels_head_dim_off_the_tma_grid(dev):
+    q, k, v, g = _inputs(2, 100, 100, 4, 2, 36, torch.bfloat16, dev, seed=5)
+    assert A.flash_route(q.dtype, 36) == "mma"
     _check(q, k, v, g, causal=True)
 
 
-def test_kernels_fp32_inputs(dev):
-    q, k, v, g = _inputs(1, 130, 130, 4, 2, 64, torch.float32, dev, seed=4)
-    _check(q, k, v, g, atol=3e-2, rel=2.0 ** -5, causal=True)
+# The wgmma dk/dv kernel's tiles: 128 keys a block (64 a warpgroup), 64 query
+# rows a tile. One below, at and one above 128 and 256.
+EDGES = [127, 128, 129, 255, 256, 257]
+
+
+@pytest.mark.parametrize("S", EDGES)
+@pytest.mark.parametrize("causal", [False, True])
+@ROUTES
+def test_kernels_key_tile_edges(dev, S, causal, route):
+    q, k, v, g = _inputs(2, 70, S, 8, 2, 128, torch.bfloat16, dev, seed=21)
+    _check(q, k, v, g, causal=causal, route=route)
+
+
+@pytest.mark.parametrize("T", EDGES)
+@pytest.mark.parametrize("causal", [False, True])
+@ROUTES
+def test_kernels_query_tile_edges(dev, T, causal, route):
+    q, k, v, g = _inputs(1, T, 200, 4, 2, 64, torch.bfloat16, dev, seed=20)
+    kw = dict(kv_len=torch.tensor([200], dtype=torch.int32, device=dev)) if causal else {}
+    _check(q, k, v, g, causal=causal, route=route, **kw)
+
+
+@pytest.mark.parametrize("T", EDGES)
+@ROUTES
+def test_kernels_square_causal_edges(dev, T, route):
+    q, k, v, g = _inputs(2, T, T, 4, 4, 40, torch.bfloat16, dev, seed=22)
+    _check(q, k, v, g, causal=True, route=route)
+
+
+@pytest.mark.parametrize("kv_len", [(40, 70), (100, 128), (129, 300), (385, 400), (60, 399)])
+@pytest.mark.parametrize("causal", [False, True])
+@ROUTES
+def test_kernels_kv_len_inside_first_and_last_tile(dev, kv_len, causal, route):
+    # Tens of live keys at least: with a handful, P is of order 1 and its bf16
+    # rounding alone (2^-9 relative, 600 summands) passes the 2e-2 of the bound.
+    q, k, v, g = _inputs(2, 150, 400, 8, 2, 64, torch.bfloat16, dev, seed=23)
+    kw = dict(kv_len=torch.tensor(kv_len, dtype=torch.int32, device=dev))
+    if causal:
+        kw["q_offset"] = torch.tensor([0, 250], dtype=torch.int32, device=dev)
+    _check(q, k, v, g, causal=causal, route=route, **kw)
+
+
+@pytest.mark.parametrize("conv", ["suffix", "kv_len", "q_offset", "q_offset_scalar"])
+@pytest.mark.parametrize("D", [16, 40, 64, 128])
+@pytest.mark.parametrize("heads", [(32, 8), (8, 8)])
+@ROUTES
+def test_kernels_conventions_head_dims_and_groups(dev, conv, D, heads, route):
+    q, k, v, g = _inputs(2, 140, 300, *heads, D, torch.bfloat16, dev, seed=24)
+    kw = dict(causal=True)
+    if conv != "suffix":
+        kw["kv_len"] = torch.tensor([200, 300], dtype=torch.int32, device=dev)
+    if conv == "q_offset":
+        kw["q_offset"] = torch.tensor([60, 129], dtype=torch.int32, device=dev)
+    if conv == "q_offset_scalar":
+        kw["q_offset"] = 57
+    _check(q, k, v, g, route=route, **kw)
+
+
+def test_wgmma_dkv_gives_the_same_bits_twice(dev):
+    # One block owns its dk/dv rows and sums the group's heads and the q tiles
+    # in a fixed order: no atomics, so two runs agree to the bit.
+    q, k, v, g = _inputs(2, 300, 300, 8, 2, 128, torch.bfloat16, dev, seed=26)
+    out, lse = A.flash_attention_with_lse(q, k, v, causal=True)
+    runs = [A.flash_backward(q, k, v, out, lse, g, causal=True, route="wgmma")
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("use_lse", [False, True])
@@ -163,3 +255,7 @@ def test_backward_rejects_what_it_does_not_take(dev):
         A.flash_backward(q, k, v, out, lse, g.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError):
         A.flash_backward(q, k, v, out, lse[:, :, :8].contiguous(), g)
+    # the wgmma route named for what the rule does not send it: no fallback
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    with pytest.raises(ValueError):
+        A.flash_backward(qf, kf, vf, out.float(), lse, gf, route="wgmma")
