@@ -10,16 +10,19 @@ Phases, each printing one JSON line:
   kernel       each kernel against its plain PyTorch version at the path's shapes,
                with its bound on this card and, where one PyTorch call computes the
                same function, that call's time (timed here, used nowhere in the port).
-               The flash forward and dk/dv rows run both routes of
+               The flash forward, dq and dk/dv rows run both routes of
                ops/attention.py::flash_route on the same inputs: `ms`/`device_ms` are
                the route the rule names, `previous_ms`/`previous_device_ms` the
-               general mma.sync route
+               general mma.sync route; the temporal rows likewise for
+               ops/temporal_attention.py::tattn_route ("ring", and "simple" before it)
+  floors       the redesigned routes against the ones they replaced, on device time
   unet_routing every self- and cross-attention shape of SD-1.5 512px, AudioLDM 5 s and
                ZeroScope 576x320x16 (CFG batch) through the flash kernel and through
                unet2d's plain einsum: the rows unet2d.spatial_flash_predicate is set
                from, and a check that it agrees with them
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
+  video_step_profile  device time by kernel of that UNet3D call (one denoise step)
   paged_check  one decode chunk of the 8B int8 model over a paged pool, through the
                paged decode kernel and through its plain version
   int4_check   one forward of the 8B int4 model (a 128-token prefill and a 16-slot
@@ -54,9 +57,10 @@ as the last line {"ok": true, "device": {...}}.
 Each main-path phase (chat, request, any_to_many, each serving configuration,
 the train steps) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
-plain version are not counted. The flash forward and dk/dv counts are also
-read per route, and the run fails if a main-path launch took the general
-route: every bf16 shape of the main paths belongs to the wgmma route.
+plain version are not counted. The flash and temporal kernels' counts are also
+read per route, and the run fails if a main-path launch took a general
+route: every bf16 shape of the main paths belongs to the wgmma routes and
+the temporal ring form.
 
 `python3 chip_smoke.py kernels` stops after the kernel and routing rows (no
 models are built); it prints no final line.
@@ -97,6 +101,9 @@ ROUTING_SLACK = 1.25
 # "No slower" on launch-bound shapes, where two ~10-40 us device times are
 # compared: the new route may read up to this factor of the old one's time.
 NO_SLOWER = 1.10
+# The temporal kernel's device time at ZeroScope level 0 may be at most this:
+# two thirds of the synchronous form's 0.325 ms.
+TATTN_L0_MS = 0.217
 # Kernel vs plain: bf16 output rounding plus another summation order.
 OUT_ATOL = 2e-2
 LSE_ATOL = 1e-3
@@ -122,7 +129,11 @@ SERVING_REQUESTS = 24
 SERVING_NEW_TOKENS = 48
 SERVING_WARMUP = 4
 SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd", "wgmma_probe")
-ROUTED = ("flash_fwd", "flash_bwd_dkv")            # kernels with two routes
+# Kernels with two routes, each with its general one, which no bf16 main-path
+# launch may take: the flash kernels' mma.sync forms, the temporal kernel's
+# first, synchronous form.
+ROUTED = {"flash_fwd": "mma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma",
+          "tattn_fwd": "simple"}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn_fwd", "paged_decode",
            "int4_matmul")
 # Flash backward kernels vs plain: the kernels round P and dS to bf16 for the
@@ -274,9 +285,9 @@ def read_route_launches() -> dict:
     return {name: dict(counters[name].route_launches) for name in ROUTED}
 
 
-def on_wgmma_route(routes: dict) -> bool:
-    """No main-path launch took the general route."""
-    return all(r["mma"] == 0 for r in routes.values())
+def on_ruled_route(routes: dict) -> bool:
+    """No main-path launch took a general route."""
+    return all(r[ROUTED[name]] == 0 for name, r in routes.items())
 
 
 def spider_free_prompt_len(tokenizer) -> int:
@@ -445,11 +456,13 @@ def phase_kernel_flash(dev, spider_free_T: int):
 
 def phase_kernel_flash_bwd(dev):
     """The two backward kernels against flash_backward_reference on the
-    forward kernel's out and lse: one row per kernel and case. `ms` is that
-    kernel alone; `plain_ms` the plain version, which computes dq, dk and dv
-    together; `library_ms` the backward of F.scaled_dot_product_attention
-    (all three gradients too; with a mask where the case has a ragged
-    `kv_len`), null only with a cotangent of lse, which SDPA does not return."""
+    forward kernel's out and lse: one row per kernel and case, each kernel on
+    both routes on the same inputs. `ms` is that kernel alone; `plain_ms` the
+    plain version, which computes dq, dk and dv together; `library_ms` the
+    backward of F.scaled_dot_product_attention (all three gradients too; with
+    a mask where the case has a ragged `kv_len`), null only with a cotangent
+    of lse, which SDPA does not return. The dq rows also run the kernel twice
+    for the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -491,7 +504,7 @@ def phase_kernel_flash_bwd(dev):
                             bool(torch.isfinite(a).all())))
             return res
 
-        # dq has one kernel; dk/dv runs through both routes on the same inputs
+        # both kernels through both routes on the same inputs
         by_route = {r: against_plain(A.flash_backward(q, k, v, out, lse, do, g_lse=g_lse,
                                                       route=r, **kw))
                     for r in dict.fromkeys((route, "mma"))}
@@ -500,16 +513,21 @@ def phase_kernel_flash_bwd(dev):
         errs = [x[0] for x in by_route[route]]
         excess = [x[1] for x in by_route[route]]
         finite = all(x[2] for res in by_route.values() for x in res)
-        excess_previous = max(x[1] for x in by_route["mma"][1:])
+        excess_previous = [x[1] for x in by_route["mma"]]
         live, off = A._live_and_offset(Bc, Tc, S, kw.get("kv_len"), None, dev)
         delta = A._delta(do, out, g_lse)
         args = (q, k, v, do, lse, delta, live, off, kw["causal"], None)
-        dq_ms = cuda_ms(lambda: A.flash_bwd_dq(*args))
+        dq_ms = cuda_ms(lambda: A.flash_bwd_dq(*args, route=route))
+        dq_prev_ms = cuda_ms(lambda: A.flash_bwd_dq(*args, route="mma"))
         dkv_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args, route=route))
         dkv_prev_ms = cuda_ms(lambda: A.flash_bwd_dkv(*args, route="mma"))
         plain_ms = cuda_ms(lambda: A.flash_backward_reference(q, k, v, out, lse, do,
                                                              g_lse=g_lse, **kw), reps=3)
-        dq_dev = device_ms(lambda: A.flash_bwd_dq(*args))
+        dq_dev = device_ms(lambda: A.flash_bwd_dq(*args, route=route))
+        dq_prev_dev = device_ms(lambda: A.flash_bwd_dq(*args, route="mma"))
+        # twice for its bits: one block owns its dq rows
+        same_bits = bool(torch.equal(A.flash_bwd_dq(*args, route=route),
+                                     A.flash_bwd_dq(*args, route=route)))
         dkv_dev = device_ms(lambda: A.flash_bwd_dkv(*args, route=route))
         dkv_prev_dev = device_ms(lambda: A.flash_bwd_dkv(*args, route="mma"))
         library_ms = library_dev = None
@@ -531,11 +549,15 @@ def phase_kernel_flash_bwd(dev):
                       g_lse=with_lse, plain_ms=plain_ms, library_ms=library_ms,
                       library_device_ms=library_dev)
         # dq: q, dO read and dq written, live k, v read; S, dP and dS K
-        rows.append(dict(kernel="flash_bwd_dq", **common, max_abs_err=errs[0], ms=dq_ms,
-                         device_ms=dq_dev,
+        rows.append(dict(kernel="flash_bwd_dq", **common, route=route, max_abs_err=errs[0],
+                         ms=dq_ms, device_ms=dq_dev, previous_route="mma",
+                         previous_ms=dq_prev_ms, previous_device_ms=dq_prev_dev,
+                         max_abs_err_previous=by_route["mma"][0][0],
+                         speedup_device=dq_prev_dev / dq_dev, same_bits_twice=same_bits,
                          **bound_ms(3 * q_bytes + 2 * kv_bytes + rows_bytes,
                                     6 * Hq * D * pairs),
-                         ok=finite and excess[0] <= 0))
+                         ok=finite and excess[0] <= 0 and excess_previous[0] <= 0
+                         and same_bits and route == "wgmma"))
         # dk/dv: q, dO, live k, v read, dk, dv written; S, dP, P^T dO and dS^T Q
         rows.append(dict(kernel="flash_bwd_dkv", **common, route=route,
                          max_abs_err=max(errs[1:]),
@@ -545,9 +567,11 @@ def phase_kernel_flash_bwd(dev):
                          max_abs_err_previous=max(x[0] for x in by_route["mma"][1:]),
                          speedup_device=dkv_prev_dev / dkv_dev,
                          pair_device_ms=dq_dev + dkv_dev,
+                         pair_over_library_device=((dq_dev + dkv_dev) / library_dev
+                                                   if library_dev else None),
                          **bound_ms(2 * q_bytes + 4 * kv_bytes + rows_bytes,
                                     8 * Hq * D * pairs),
-                         ok=finite and max(excess[1:]) <= 0 and excess_previous <= 0
+                         ok=finite and max(excess[1:]) <= 0 and max(excess_previous[1:]) <= 0
                          and route == "wgmma"))
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
@@ -578,6 +602,18 @@ def phase_wgmma_probe(dev):
         torch.cuda.synchronize()
         want = a.float() @ (b.float().T if mode == 0 else b.float())
         errs[name] = float("inf") if rc else (d - want).abs().max().item()
+    # the dq kernel's second product: dS from registers times a K tile of 128
+    # keys read as it lies, at n = D rounded up to 16
+    lib.spider_wgmma_probe_dsk.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    lib.spider_wgmma_probe_dsk.restype = ctypes.c_int
+    for D in (16, 40, 80, 128):
+        a, b = mk(64, 128), mk(128, D)
+        d = torch.full((64, D), float("nan"), device=dev)
+        rc = lib.spider_wgmma_probe_dsk(a.data_ptr(), b.data_ptr(), d.data_ptr(), D,
+                                        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        errs[f"rs_ds_k_64x{D}x128"] = (float("inf") if rc
+                                       else (d - a.float() @ b.float()).abs().max().item())
     return dict(phase="wgmma_probe", max_abs_err=errs, atol=1e-3,
                 ok=all(e <= 1e-3 for e in errs.values()))
 
@@ -639,6 +675,10 @@ def phase_unet_routing(dev):
 
 
 def phase_kernel_tattn(dev):
+    """The temporal kernel against its plain version, both routes of
+    ops/temporal_attention.py::tattn_route on the same inputs: `ms` /
+    `device_ms` are the route the rule names ("ring"), `previous_*` the first,
+    synchronous form ("simple")."""
     import torch
 
     from spider_tpu_torch.ops import temporal_attention as TA
@@ -658,14 +698,21 @@ def phase_kernel_tattn(dev):
         shape = (B, P, F, C) if layout == "bpfc" else (B, F, P, C)
         q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
-        out = TA.temporal_attention_kernel(q, k, v, H, layout=layout)
+        route = TA.tattn_route(q.dtype)
         want = TA.temporal_attention_reference(q, k, v, H, layout=layout)
-        torch.cuda.synchronize()
-        diff = (out.float() - want.float()).abs()
-        err = diff.max().item()
-        excess = (diff - (OUT_ATOL + BF16_EPS * want.float().abs())).max().item()
-        finite = bool(torch.isfinite(out).all())
-        ms = cuda_ms(lambda: TA.temporal_attention_kernel(q, k, v, H, layout=layout))
+        by_route = {}
+        for r in dict.fromkeys((route, "simple")):
+            call = lambda: TA.temporal_attention_kernel(q, k, v, H, layout=layout, route=r)
+            out = call()
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            by_route[r] = dict(
+                err=diff.max().item(),
+                excess=(diff - (OUT_ATOL + BF16_EPS * want.float().abs())).max().item(),
+                finite=bool(torch.isfinite(out).all()), ms=cuda_ms(call),
+                device_ms=device_ms(call))
+            del out, diff
+        mine, previous = by_route[route], by_route["simple"]
         plain_ms = cuda_ms(lambda: TA.temporal_attention_reference(q, k, v, H, layout=layout))
         moved = 4 * q.numel() * q.element_size()          # q, k, v read; out written
         # One PyTorch call for the same function: frames as the sequence,
@@ -676,18 +723,26 @@ def phase_kernel_tattn(dev):
         else:
             qs, ks, vs = (x.reshape(B, F, P, H, C // H).permute(0, 2, 3, 1, 4)
                           for x in (q, k, v))
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+        library_ms, library_dev = cuda_ms(sdpa), device_ms(sdpa)
         del qs, ks, vs
+        bound = bound_ms(moved, 4 * B * P * H * F * F * (C // H))
         rows.append(dict(kernel="tattn_fwd", name=name, B=B, F=F, P=P, C=C, H=H, D=C // H,
-                         layout=layout, max_abs_err=err, excess_over_bound=excess,
-                         max_abs_plain=want.float().abs().max().item(), ms=ms,
+                         layout=layout, route=route, max_abs_err=mine["err"],
+                         excess_over_bound=mine["excess"],
+                         max_abs_plain=want.float().abs().max().item(), ms=mine["ms"],
+                         device_ms=mine["device_ms"], previous_route="simple",
+                         previous_ms=previous["ms"], previous_device_ms=previous["device_ms"],
+                         max_abs_err_previous=previous["err"],
+                         speedup_device=previous["device_ms"] / mine["device_ms"],
                          plain_ms=plain_ms, library_ms=library_ms,
-                         **bound_ms(moved, 4 * B * P * H * F * F * (C // H)),
-                         gb_per_s=moved / (ms * 1e-3) / 1e9,
+                         library_device_ms=library_dev, **bound,
+                         share_of_bound=bound["bound_ms"] / mine["device_ms"],
+                         gb_per_s=moved / (mine["device_ms"] * 1e-3) / 1e9,
                          plain_gb_per_s=moved / (plain_ms * 1e-3) / 1e9,
-                         ok=finite and excess <= 0))
-        del q, k, v, out, want, diff
+                         ok=all(g["finite"] and g["excess"] <= 0 for g in by_route.values())
+                         and route == "ring"))
+        del q, k, v, want
     return rows
 
 
@@ -975,6 +1030,33 @@ def phase_unet3d_check(pipe, dev):
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 
+def phase_video_profile(pipe, dev):
+    """Where a ZeroScope denoise step's device time goes: one torch.profiler
+    pass over three full-size CFG UNet3D calls (batch 2, 16 frames, 576x320)
+    routed as the main path routes them; a denoise step is one such call."""
+    import torch
+
+    h, w, frames = VIDEO_HW_FRAMES
+    g = torch.Generator(device=dev).manual_seed(8)
+    lat = torch.randn((2, frames, h // 8, w // 8, 4), generator=g, device=dev)
+    ctx = torch.cat([pipe.encode_prompt([""]), pipe.encode_prompt([VIDEO_CAPTION])])
+    t = torch.full((2,), 981, dtype=torch.int32, device=dev)
+
+    def call():
+        with torch.inference_mode():
+            pipe.unet(lat, t, ctx)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / 3
+    return dict(phase="video_step_profile", model="zeroscope UNet3D 576x320x16, CFG batch 2",
+                **_device_profile(call, seconds, top=12), ok=True)
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -1012,7 +1094,7 @@ def phase_chat(model, tokenizer, spider_free_T: int):
                 generate_s=total_s, decode_tok_s=(NEW_TOKENS - 1) / decode_s,
                 launches=launches, route_launches=routes, text_chars=len(text),
                 ok=launches["flash_fwd"] > 0 and isinstance(text, str)
-                and on_wgmma_route(routes))
+                and on_ruled_route(routes))
 
 
 def _timed_decoder(pipe, key: str, timing: dict, seed: int):
@@ -1069,7 +1151,7 @@ def phase_request(model, tokenizer, pipe):
         launches, routes = read_launches(), read_route_launches()
         kinds = [k for k, _ in events]
         images = [p["media"] for k, p in events if k == "image"]
-        ok = (kinds == ["text", "image"] and len(images) == 1 and on_wgmma_route(routes)
+        ok = (kinds == ["text", "image"] and len(images) == 1 and on_ruled_route(routes)
               and timing.get("image_shape") == [1, 512, 512, 3]
               and images[0].shape == (512, 512, 3) and timing.get("image_finite")
               and timing["image_range"][0] >= 0.0 and timing["image_range"][1] <= 1.0
@@ -1136,7 +1218,7 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
         kinds = [k for k, _ in events]
         media = {k: p["media"] for k, p in events if k != "text"}
         ok = (
-            on_wgmma_route(routes) and
+            on_ruled_route(routes) and
             # the controller dispatches in its key order: IMAGE, VIDEO, AUDIO
             kinds == ["text", "image", "video", "audio"]
             and timing.get("image_shape") == [1, 512, 512, 3]
@@ -1263,7 +1345,7 @@ def phase_serving(model8, model4, tokenizer):
                 n += 1
             leading.append(n)
         ok = (all(isinstance(o, str) for o in warm + outs) and drained and not alive
-              and launches == want and on_wgmma_route(routes))
+              and launches == want and on_ruled_route(routes))
         rows.append(dict(
             phase="serving", config=name, model=f"llama3_8b {cfg.quantization}",
             requests=SERVING_REQUESTS, new_tokens=n_new, seconds=seconds,
@@ -1290,7 +1372,8 @@ def _checksum(t) -> int:
     return int(t.detach().contiguous().view(view).sum(dtype=torch.int64))
 
 
-def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8) -> dict:
+def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8,
+                    watch=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn")) -> dict:
     """One torch.profiler pass over `steps` calls of fn(): device time by
     kernel name (device rows only), and `device_busy_share_profiled`, the
     share of those same calls' wall time that the device is busy. Only the
@@ -1300,7 +1383,8 @@ def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8) -> di
     time of a step, `device_busy_share_unprofiled` divides the profiled
     steps' device time by it: two different sets of steps, which is sound as
     far as a step's device time repeats (hold `device_ms_per_step` against
-    other runs)."""
+    other runs). `watched` sums the rows whose kernel name holds each string
+    of `watch`: the port's own kernels, wherever they rank."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1330,6 +1414,9 @@ def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8) -> di
                 device_busy_share_unprofiled=(total / steps / (unprofiled_s * 1e3)
                                               if total else None),
                 device_kernels_per_step=sum(r[2] for r in rows) / steps,
+                watched={w: dict(ms=sum(r[1] for r in rows if w in r[0]) / steps,
+                                 launches=sum(r[2] for r in rows if w in r[0]) / steps)
+                         for w in watch},
                 top=[dict(kernel=k[:80], ms=ms / steps, launches=n / steps, share=ms / total)
                      for k, ms, n in rows[:top]])
 
@@ -1358,7 +1445,8 @@ def phase_train(sd, ad, vd, dev, smi: str):
 
     rows = []
     launches = dict.fromkeys(KERNELS, 0)
-    routes = {name: dict.fromkeys(A.ROUTES, 0) for name in ROUTED}
+    routes = {name: dict.fromkeys(by_route, 0)
+              for name, by_route in read_route_launches().items()}
     out_dir = tempfile.mkdtemp(prefix="spider_train_")
     sigterm = signal.getsignal(signal.SIGTERM)
 
@@ -1557,6 +1645,26 @@ def phase_train(sd, ad, vd, dev, smi: str):
             and bool(torch.isfinite(g_k).all()) and g_p.norm().item() > 0))
         del g_k, g_p
 
+        # ---- the same step once more, every backward made twice on its own
+        # inputs: the same bits (one block owns its rows, no atomics). These
+        # launches are not the main path's.
+        repeats = []
+
+        def backward_twice(*args, **kw):
+            first = kernel_backward(*args, **kw)
+            again = kernel_backward(*args, **kw)
+            repeats.append([bool(torch.equal(a, b)) for a, b in zip(first, again)])
+            return first
+
+        A.flash_backward = backward_twice
+        try:
+            lora_grads()
+        finally:
+            A.flash_backward = kernel_backward
+        rows.append(dict(phase="train", part="backward_same_bits", backwards_repeated=len(repeats),
+                         same_bits=dict(zip(("dq", "dk", "dv"), map(sum, zip(*repeats)))),
+                         ok=len(repeats) == L and all(map(all, repeats))))
+
         # ---- nothing frozen moved; the new vocabulary rows did
         moved = [n for n, p in frozen.items() if _checksum(p) != sums[n]]
         rows_ok = all(_checksum(p[:FROZEN_ROWS]) == row_sums[n][0]
@@ -1660,7 +1768,7 @@ def phase_train(sd, ad, vd, dev, smi: str):
         # every main-path launch of the train phase, by route
         rows.append(dict(phase="train", part="routes", launches=launches,
                          route_launches=routes,
-                         ok=on_wgmma_route(routes)
+                         ok=on_ruled_route(routes)
                          and all(sum(routes[n].values()) == launches[n] for n in ROUTED)))
     finally:
         signal.signal(signal.SIGTERM, sigterm)            # train() installed its own
@@ -1687,27 +1795,39 @@ def build_report(cuda_build) -> dict:
 
 
 def phase_floors(rows, spider_free_T: int) -> dict:
-    """The wgmma routes against the mma.sync routes they replaced on the main
-    paths, on device time from the `kernel` rows of this run: the forward at
-    least 2x faster at SD level 0, the long prefill and the train shape, and
-    no slower (within NO_SLOWER of timing noise) on the three launch-bound
-    shapes; dk/dv at least 1.5x faster at the train shape and 2x at B 1,
-    T 2048."""
+    """The redesigned routes against the routes they replaced on the main
+    paths, on device time from the `kernel` rows of this run. wgmma over
+    mma.sync: the forward at least 2x faster at SD level 0, the long prefill
+    and the train shape, and no slower (within NO_SLOWER of timing noise) on
+    the three launch-bound shapes; dk/dv at least 1.5x faster at the train
+    shape and 2x at B 1, T 2048; dq at least 2x at both, no slower at
+    [4, 128], the padded `kv_len` row and the `g_lse` row. The temporal ring
+    form over the synchronous one: at least 1.5x at ZeroScope level 0 and at
+    most TATTN_L0_MS there, no slower on its other rows."""
     B, T = TRAIN_LM_SHAPE
-    fwd = {r["name"]: r for r in rows if r["kernel"] == "flash_fwd"}
-    dkv = {r["name"]: r for r in rows if r["kernel"] == "flash_bwd_dkv"}
+    table = {kernel: {r["name"]: r for r in rows if r["kernel"] == kernel}
+             for kernel in ROUTED}
+    fwd, dq, dkv, tattn = (table[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                              "tattn_fwd"))
+    small = f"train_B{TRAIN_BATCH}_T{2 * TRAIN_BUCKET}"
     wanted = [(fwd, "unet_self_T4096_D40", 2.0), (fwd, f"prefill_T{spider_free_T}", 2.0),
-              (fwd, f"train_B{B}_T{T}", 2.0),
-              (fwd, f"train_B{TRAIN_BATCH}_T{2 * TRAIN_BUCKET}", 1.0 / NO_SLOWER),
+              (fwd, f"train_B{B}_T{T}", 2.0), (fwd, small, 1.0 / NO_SLOWER),
               (fwd, "unet_cross_T4096_S77_D40", 1.0 / NO_SLOWER),
               (fwd, "audioldm_cross_T8192_S1_D16", 1.0 / NO_SLOWER),
-              (dkv, f"train_B{B}_T{T}", 1.5), (dkv, "long_B1_T2048", 2.0)]
-    checks = [dict(kernel=table[name]["kernel"], shape=name, floor=floor,
-                   speedup_device=table[name]["speedup_device"],
-                   device_ms=table[name]["device_ms"],
-                   previous_device_ms=table[name]["previous_device_ms"],
-                   ok=table[name]["speedup_device"] >= floor)
-              for table, name, floor in wanted]
+              (dkv, f"train_B{B}_T{T}", 1.5), (dkv, "long_B1_T2048", 2.0),
+              (dq, f"train_B{B}_T{T}", 2.0), (dq, "long_B1_T2048", 2.0),
+              (dq, small, 1.0 / NO_SLOWER), (dq, "padded_prefill_kv_len", 1.0 / NO_SLOWER),
+              (dq, "with_g_lse", 1.0 / NO_SLOWER), (tattn, "zeroscope_L0_D40", 1.5)]
+    wanted += [(tattn, name, 1.0 / NO_SLOWER) for name in tattn if name != "zeroscope_L0_D40"]
+    checks = [dict(kernel=rows_of[name]["kernel"], shape=name, floor=floor,
+                   speedup_device=rows_of[name]["speedup_device"],
+                   device_ms=rows_of[name]["device_ms"],
+                   previous_device_ms=rows_of[name]["previous_device_ms"],
+                   ok=rows_of[name]["speedup_device"] >= floor)
+              for rows_of, name, floor in wanted]
+    level0 = tattn["zeroscope_L0_D40"]["device_ms"]
+    checks.append(dict(kernel="tattn_fwd", shape="zeroscope_L0_D40", ceiling_ms=TATTN_L0_MS,
+                       device_ms=level0, ok=level0 <= TATTN_L0_MS))
     return dict(phase="floors", checks=checks, ok=all(c["ok"] for c in checks))
 
 
@@ -1784,9 +1904,9 @@ def main() -> int:
     emit(check)
     ok &= check["ok"]
     vd = factory.from_pretrained("zeroscope", device=dev, dtype=torch.bfloat16, seed=1)
-    check = phase_unet3d_check(vd, dev)
-    emit(check)
-    ok &= check["ok"]
+    for check in (phase_unet3d_check(vd, dev), phase_video_profile(vd, dev)):
+        emit(check)
+        ok &= check["ok"]
     ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
     assert tuple(ad.latent_shape(1, AUDIO_SECONDS)[1:3]) == AUDIO_LATENT_HW
 

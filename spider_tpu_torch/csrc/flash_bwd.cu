@@ -29,13 +29,36 @@
 // cores. (The two kernels each recompute S and dP, so they execute 14
 // products' worth where the function needs 10.)
 //
-// Design. dq is a first, simple form on mma.sync. dk/dv has two forms;
-// ops/attention.py::flash_route names the one a call takes, by dtype and head
-// dim alone: "wgmma" for bf16 with D a multiple of 8, "mma" for the rest
-// (fp32 inputs, other head dims).
-//  * dq: one block of 4 warps per (64 query rows, q head, batch); a loop
-//    inside the block walks the 64-key tiles up to the causal diagonal and
-//    kv_len (the TPU's sequential grid axis). Each warp owns 16 query rows,
+// Design. Each kernel has two forms; ops/attention.py::flash_route names the
+// one a call takes, by dtype and head dim alone: "wgmma" for bf16 with D a
+// multiple of 8, "mma" for the rest (fp32 inputs, other head dims).
+//  * dq "wgmma" (spider_flash_bwd_dq_wgmma), the forward's structure with the
+//    roles of dk/dv swapped. A work item is (128 query rows, q head, batch):
+//    two consumer warpgroups of 64 rows each and a producer warpgroup that
+//    hands most of its registers over (setmaxnreg) and whose first thread
+//    starts every load. Q and dO of the item land once by TMA and stay; each
+//    thread keeps its two rows' lse (log2 units) and delta in registers. K
+//    and V tiles of 64 keys (the card's times chose 64 over 128) stream
+//    through a ring of TMA boxes with a full and an empty mbarrier per
+//    stage, so no __syncthreads is left in the loop;
+//    only tiles below kv_len and the item's causal diagonal are walked, and
+//    the low warpgroup skips a tile wholly above its own rows. S = Q K^T and
+//    dP = dO V^T are wgmma from shared memory (K-major, 64-column boxes under
+//    the 128-byte swizzle), committed as two groups so that P = exp2(..) is
+//    formed while dP is still in flight. dS goes from the accumulators,
+//    rounded to bf16, straight into dq += dS K as a register A operand; K is
+//    read a second time from the same tile as it lies, [keys][D], in the
+//    transposed-B form. Masks run only on tiles that cross kv_len or the
+//    diagonal; D < 128 takes padded k-steps (zeros from the TMA fill);
+//    sm_scale multiplies dq once at the end. One persistent block an SM walks
+//    the items to and fro, heavy causal items first (hopper.cuh), and asks for
+//    an item's first K/V tiles before its Q and dO, so they arrive while the
+//    item before finishes. One block owns its dq rows: no atomics, the same
+//    bits every run.
+//  * dq "mma" (spider_flash_bwd_dq): one block of 4 warps per (64 query rows,
+//    q head, batch); a loop inside the block walks the 64-key tiles up to the
+//    causal diagonal and kv_len (the TPU's sequential grid axis). Each warp
+//    owns 16 query rows,
 //    computes S and dP on mma.sync.m16n8k16 (bf16 in, fp32 out), forms dS in
 //    registers (the accumulator layout of S is the A-operand layout of the
 //    next product) and adds dS K into its fp32 dq accumulator.
@@ -810,6 +833,297 @@ int launch_dkv(const Args& a) {
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// dq: the wgmma form
+// ---------------------------------------------------------------------------
+
+namespace wgq {
+
+using namespace hopper;
+
+constexpr int BQ = 128;                       // query rows an item: 64 a consumer warpgroup
+constexpr int BK = 64;                        // keys a K/V tile
+constexpr int NTHREADS = 384;                 // two consumer warpgroups and the producer's
+constexpr int CONSUMER_WARPS = 8;
+constexpr int Q_TILE_BYTES = BQ * ROW_BYTES;  // one box of Q or dO
+
+// Q and dO of an item land once and stay; two such pairs fit beside two K/V
+// stages at every head dim, so the producer runs a whole item ahead.
+template <int DP>
+struct Cfg {
+  static constexpr int NBOX = (DP + BOX_COLS - 1) / BOX_COLS;
+  static constexpr int QDO_BYTES = 2 * NBOX * Q_TILE_BYTES;     // Q boxes, then dO boxes
+  static constexpr int KV_TILE_BYTES = BK * ROW_BYTES;          // one box of K or V
+  static constexpr int STAGE_BYTES = 2 * NBOX * KV_TILE_BYTES;  // K boxes, then V boxes
+  static constexpr int BUDGET = 220 * 1024;
+  static constexpr int QSTAGES = 2;
+  static_assert(QSTAGES * QDO_BYTES + 2 * STAGE_BYTES <= BUDGET, "the rings must fit");
+  static constexpr int FIT = (BUDGET - QSTAGES * QDO_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;  // K/V ring
+  // + 1024 to align the tiles, + 128 for the barriers
+  static constexpr int SMEM = QSTAGES * QDO_BYTES + STAGES * STAGE_BYTES + 1024 + 128;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, const int* __restrict__ kv_len,
+                          const int* __restrict__ q_offset, int B, int T_len, int S, int Hq,
+                          int Hkv, int D, float sm_scale, int causal, int n_q_tiles) {
+  using C = Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q ring: Q boxes, dO boxes
+  const uint32_t sKV = sQ + C::QSTAGES * C::QDO_BYTES;        // K/V ring: K boxes, V boxes
+  const uint32_t bar_q_full = sKV + C::STAGES * C::STAGE_BYTES;
+  const uint32_t bar_q_empty = bar_q_full + 8 * C::QSTAGES;
+  const uint32_t bar_full = bar_q_empty + 8 * C::QSTAGES;
+  const uint32_t bar_empty = bar_full + 8 * C::STAGES;
+  const int n_items = n_q_tiles * Hq * B;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::QSTAGES; ++i) {
+      mbar_init(bar_q_full + 8 * i, 1);
+      mbar_init(bar_q_empty + 8 * i, CONSUMER_WARPS);
+    }
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgid = threadIdx.x / 128;
+  if (wgid == 2) {
+    // ---- producer: one thread keeps both rings full. The first K/V tiles of
+    // an item are asked for before its Q and dO, so that they arrive while the
+    // consumers finish the item before.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int kv_count = 0;  // K/V tiles asked for so far, over all items
+      int local = 0;     // items begun so far
+      int next_len = kv_len[item_batch(blockIdx.x, B, Hq)];
+      int next_off = q_offset[item_batch(blockIdx.x, B, Hq)];
+      for (int item = blockIdx.x; item < n_items; item = item_of_round(++local)) {
+        const Item w = decode_item<BQ, BK, 0>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal,
+                                              next_len, next_off);
+        if (item_of_round(local + 1) < n_items) {
+          next_len = kv_len[item_batch(item_of_round(local + 1), B, Hq)];
+          next_off = q_offset[item_batch(item_of_round(local + 1), B, Hq)];
+        }
+        const int ahead = min(w.n_tiles, C::STAGES);
+        for (int it = 0; it <= w.n_tiles; ++it) {
+          if (it == ahead) {
+            const int qs = local % C::QSTAGES;
+            const int q_round = local / C::QSTAGES;
+            if (q_round > 0) mbar_wait(bar_q_empty + 8 * qs, (q_round - 1) & 1);
+            const uint32_t full = bar_q_full + 8 * qs;
+            const uint32_t dst = sQ + qs * C::QDO_BYTES;
+            mbar_arrive_expect_tx(full, C::QDO_BYTES);
+            for (int box = 0; box < C::NBOX; ++box) {
+              tma_load_4d(dst + box * Q_TILE_BYTES, &map_q, full, box * BOX_COLS, w.h, w.q0, w.b);
+              tma_load_4d(dst + (C::NBOX + box) * Q_TILE_BYTES, &map_do, full, box * BOX_COLS,
+                          w.h, w.q0, w.b);
+            }
+          }
+          if (it == w.n_tiles) break;
+          const int stage = kv_count % C::STAGES;
+          const int round = kv_count / C::STAGES;
+          if (round > 0) mbar_wait(bar_empty + 8 * stage, (round - 1) & 1);
+          const uint32_t full = bar_full + 8 * stage;
+          const uint32_t dst = sKV + stage * C::STAGE_BYTES;
+          mbar_arrive_expect_tx(full, C::STAGE_BYTES);
+          for (int box = 0; box < C::NBOX; ++box) {
+            tma_load_4d(dst + box * C::KV_TILE_BYTES, &map_k, full, box * BOX_COLS, w.hk,
+                        it * BK, w.b);
+            tma_load_4d(dst + (C::NBOX + box) * C::KV_TILE_BYTES, &map_v, full, box * BOX_COLS,
+                        w.hk, it * BK, w.b);
+          }
+          ++kv_count;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows a warpgroup, 16 a warp, two a thread.
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;  // row within the warp's 16
+    const int t = lane % 4;  // column pair within each 8 columns
+    const int r0 = wgid * 64 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const float scale2 = sm_scale * LOG2E;
+    int kv_count = 0;
+    int local = 0;
+    int next_len = kv_len[item_batch(blockIdx.x, B, Hq)];
+    int next_off = q_offset[item_batch(blockIdx.x, B, Hq)];
+    for (int item = blockIdx.x; item < n_items; item = item_of_round(++local)) {
+      const Item w = decode_item<BQ, BK, 0>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal,
+                                            next_len, next_off);
+      if (item_of_round(local + 1) < n_items) {
+        next_len = kv_len[item_batch(item_of_round(local + 1), B, Hq)];
+        next_off = q_offset[item_batch(item_of_round(local + 1), B, Hq)];
+      }
+      const int qs = local % C::QSTAGES;
+      const int row0 = w.q0 + r0;
+      const int row1 = row0 + 8;
+      const int qpos0 = row0 + w.qoff;
+      const int wg_qpos_min = w.q0 + wgid * 64 + w.qoff;
+      const uint32_t sQw = sQ + qs * C::QDO_BYTES + wgid * 64 * ROW_BYTES;
+      const uint32_t sDOw = sQw + C::NBOX * Q_TILE_BYTES;
+
+      // This thread's two rows of lse (log2 units) and delta stay in
+      // registers for the item; the loads run under the wait for Q.
+      const float* lse_b = lse + ((int64_t)w.b * Hq + w.h) * T_len;
+      const float* delta_b = delta + ((int64_t)w.b * Hq + w.h) * T_len;
+      float lse2[2], dlt[2];
+      lse2[0] = row0 < T_len ? lse_b[row0] * LOG2E : 0.f;
+      lse2[1] = row1 < T_len ? lse_b[row1] * LOG2E : 0.f;
+      dlt[0] = row0 < T_len ? delta_b[row0] : 0.f;
+      dlt[1] = row1 < T_len ? delta_b[row1] : 0.f;
+
+      float acc[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+      mbar_wait(bar_q_full + 8 * qs, (local / C::QSTAGES) & 1);
+      for (int it = 0; it < w.n_tiles; ++it, ++kv_count) {
+        const int stage = kv_count % C::STAGES;
+        const int k0 = it * BK;
+        if (causal && k0 > wg_qpos_min + 63) {
+          // Every key of the tile lies above this warpgroup's rows. It still
+          // waits for the tile, so that it sees every phase of the stage.
+          mbar_wait(bar_full + 8 * stage, (kv_count / C::STAGES) & 1);
+          if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+          continue;
+        }
+        const uint32_t sK = sKV + stage * C::STAGE_BYTES;
+        const uint32_t sV = sK + C::NBOX * C::KV_TILE_BYTES;
+        mbar_wait(bar_full + 8 * stage, (kv_count / C::STAGES) & 1);
+
+        // ---- S = Q K^T, then dP = dO V^T: 64 rows x BK keys each, one
+        // k-step per 16 of D. P is formed while dP is still in flight.
+        float s[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<BK>(s, smem_desc(sQw + (kk / 4) * Q_TILE_BYTES + (kk % 4) * 32, 16, GROUP_BYTES),
+                       smem_desc(sK + (kk / 4) * C::KV_TILE_BYTES + (kk % 4) * 32, 16,
+                                 GROUP_BYTES),
+                       kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<BK>(dp,
+                       smem_desc(sDOw + (kk / 4) * Q_TILE_BYTES + (kk % 4) * 32, 16, GROUP_BYTES),
+                       smem_desc(sV + (kk / 4) * C::KV_TILE_BYTES + (kk % 4) * 32, 16,
+                                 GROUP_BYTES),
+                       kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // ---- P into s. On the tiles that cross kv_len or the diagonal P is
+        // selected to zero on dead pairs, never multiplied: exp2 may overflow
+        // there.
+        const bool edge = k0 + BK > w.live || (causal && wg_qpos_min < k0 + BK - 1);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float p = fast_exp2(s[i] * scale2 - lse2[(i >> 1) & 1]);
+          if (edge) {
+            const int kpos = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+            const int qpos = qpos0 + ((i & 2) ? 8 : 0);
+            p = (kpos < w.live && (!causal || qpos >= kpos)) ? p : 0.f;
+          }
+          s[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+
+        // ---- dS / sm_scale = P (dP - delta), rounded to bf16 as the A
+        // operand of each k-step of dq += dS K.
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] *= dp[i] - dlt[(i >> 1) & 1];
+        uint32_t ads[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(ads[kk], s, kk);
+
+        // K a second time, as it lies: [keys][D], the transposed-B form.
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<DP>(acc, ads[kk],
+                       smem_desc(sK + kk * 16 * ROW_BYTES, C::KV_TILE_BYTES, GROUP_BYTES), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(ads[kk][e]));  // live until here
+        }
+        if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+      }
+      if (lane == 0) mbar_arrive(bar_q_empty + 8 * qs);  // this item's Q and dO are read
+
+      // ---- this block owns its dq rows: written once, sm_scale folded in
+      // here. The producer is already loading the next item.
+      const int64_t q_stride = (int64_t)Hq * D;
+      __nv_bfloat16* dqb = dq + ((int64_t)w.b * T_len * Hq + w.h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = j * 8 + 2 * t;
+        if (col < D) {  // D is a multiple of 8: col + 1 < D too
+          if (row0 < T_len)
+            *reinterpret_cast<__nv_bfloat162*>(dqb + row0 * q_stride + col) =
+                __floats2bfloat162_rn(acc[4 * j] * sm_scale, acc[4 * j + 1] * sm_scale);
+          if (row1 < T_len)
+            *reinterpret_cast<__nv_bfloat162*>(dqb + row1 * q_stride + col) =
+                __floats2bfloat162_rn(acc[4 * j + 2] * sm_scale, acc[4 * j + 3] * sm_scale);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_dq(const Args& a) {
+  using C = Cfg<DP>;
+  CUtensorMap map_q, map_do, map_k, map_v;
+  CUresult r = make_map_4d(&map_q, a.q, a.B, a.T_len, a.Hq, a.D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_do, a.dout, a.B, a.T_len, a.Hq, a.D, BQ);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_k, a.k, a.B, a.S, a.Hkv, a.D, BK);
+  if (r == CUDA_SUCCESS) r = make_map_4d(&map_v, a.v, a.B, a.S, a.Hkv, a.D, BK);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  auto kernel = flash_bwd_dq_wgmma_kernel<DP>;
+  static bool allowed = false;  // once per instance
+  if (!allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const int n_q_tiles = (a.T_len + BQ - 1) / BQ;
+  const int64_t n_items = (int64_t)n_q_tiles * a.Hq * a.B;
+  const int sms = sm_count();
+  if (n_items > INT32_MAX || sms <= 0) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_items < sms ? n_items : sms);
+  kernel<<<grid, NTHREADS, C::SMEM, a.stream>>>(
+      map_q, map_do, map_k, map_v, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.dq),
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.q_offset), a.B, a.T_len, a.S,
+      a.Hq, a.Hkv, a.D, a.sm_scale, a.causal, n_q_tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgq
+
 }  // namespace
 
 // Each returns the cudaError_t of the launch (0 on success), launches on
@@ -852,6 +1166,36 @@ extern "C" int spider_flash_bwd_dkv_wgmma(const void* q, const void* k, const vo
 #define SPIDER_FLASH_CASE(DP_) \
   case DP_ / 16:               \
     return wg::launch_dkv<DP_>(a);
+  switch ((D + 15) / 16) {
+    SPIDER_FLASH_CASE(16)
+    SPIDER_FLASH_CASE(32)
+    SPIDER_FLASH_CASE(48)
+    SPIDER_FLASH_CASE(64)
+    SPIDER_FLASH_CASE(80)
+    SPIDER_FLASH_CASE(96)
+    SPIDER_FLASH_CASE(112)
+    SPIDER_FLASH_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SPIDER_FLASH_CASE
+}
+
+// dq in the wgmma form: bf16 only, D a multiple of 8 up to 128, q, k, v and
+// dout 16-byte aligned. Returns as spider_flash_bwd_dkv_wgmma does.
+extern "C" int spider_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse, const void* delta,
+                                         void* dq, const void* kv_len, const void* q_offset,
+                                         int B, int T_len, int S, int Hq, int Hkv, int D,
+                                         float sm_scale, int causal, void* stream) {
+  if (B <= 0 || T_len <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 128 ||
+      D % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, kv_len, q_offset, B, T_len, S,
+         Hq, Hkv, D, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+#define SPIDER_FLASH_CASE(DP_) \
+  case DP_ / 16:               \
+    return wgq::launch_dq<DP_>(a);
   switch ((D + 15) / 16) {
     SPIDER_FLASH_CASE(16)
     SPIDER_FLASH_CASE(32)

@@ -394,47 +394,6 @@ struct Cfg {
   static constexpr int SMEM = QSTAGES * Q_BYTES + STAGES * STAGE_BYTES + 1024 + 128;
 };
 
-// One work item: a q tile of one (q head, batch). Items are numbered with the
-// q tile slowest and, under a causal mask, descending, so the heavy items come
-// first and neighbours share a KV head; block w takes items w, w + grid, ...
-struct Item {
-  int h, b, hk, q0, live, qoff, n_tiles;
-};
-
-__device__ __forceinline__ int item_batch(int item, int B, int Hq) {
-  return (item % (Hq * B)) / Hq;
-}
-
-// The block's item of its round `local`: rounds run to and fro over the
-// blocks (w, 2G - 1 - w, 2G + w, ...), so that with items sorted heavy to light
-// every block's share weighs about the same. At or past n_items: no more.
-__device__ __forceinline__ int item_of_round(int local) {
-  const int w = (local & 1) ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
-  return local * (int)gridDim.x + w;
-}
-
-// kv_len_b and q_offset_b are the item's batch's entries, loaded by the caller
-// one item ahead so that no item waits on them.
-template <int BK>
-__device__ __forceinline__ Item decode_item(int item, int n_q_tiles, int B, int T_len, int S,
-                                            int Hq, int Hkv, int causal, int kv_len_b,
-                                            int q_offset_b) {
-  Item w;
-  const int per_tile = Hq * B;
-  const int qt = item / per_tile;
-  const int rem = item - qt * per_tile;
-  w.b = rem / Hq;
-  w.h = rem - w.b * Hq;
-  w.hk = w.h / (Hq / Hkv);
-  w.q0 = (causal ? n_q_tiles - 1 - qt : qt) * BQ;
-  w.live = max(0, min(kv_len_b, S));
-  w.qoff = q_offset_b;
-  int kv_hi = w.live;
-  if (causal) kv_hi = min(kv_hi, min(w.q0 + BQ, T_len) + w.qoff);
-  w.n_tiles = max(1, (kv_hi + BK - 1) / BK);
-  return w;
-}
-
 template <int DP, int BK>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -477,8 +436,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       int next_len = kv_len[item_batch(blockIdx.x, B, Hq)];
       int next_off = q_offset[item_batch(blockIdx.x, B, Hq)];
       for (int item = blockIdx.x; item < n_items; item = item_of_round(++local)) {
-        const Item w = decode_item<BK>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal, next_len,
-                                   next_off);
+        const Item w = decode_item<BQ, BK, 1>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal,
+                                              next_len, next_off);
         if (item_of_round(local + 1) < n_items) {
           next_len = kv_len[item_batch(item_of_round(local + 1), B, Hq)];
           next_off = q_offset[item_batch(item_of_round(local + 1), B, Hq)];
@@ -519,8 +478,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     int next_len = kv_len[item_batch(blockIdx.x, B, Hq)];
     int next_off = q_offset[item_batch(blockIdx.x, B, Hq)];
     for (int item = blockIdx.x; item < n_items; item = item_of_round(++local)) {
-      const Item w = decode_item<BK>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal, next_len,
-                                 next_off);
+      const Item w = decode_item<BQ, BK, 1>(item, n_q_tiles, B, T_len, S, Hq, Hkv, causal,
+                                            next_len, next_off);
       if (item_of_round(local + 1) < n_items) {
         next_len = kv_len[item_batch(item_of_round(local + 1), B, Hq)];
         next_off = q_offset[item_batch(item_of_round(local + 1), B, Hq)];
@@ -648,18 +607,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   }
-}
-
-// The card's SM count: one persistent block each.
-inline int sm_count() {
-  static int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-    return sms;
-  }();
-  return n;
 }
 
 template <int DP, int BK>

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the flash kernels: mbarriers, TMA tile
 // loads, swizzled shared-memory descriptors, wgmma issue / fence / commit /
-// wait, register reallocation, and the host side of a TMA tensor map.
+// wait, register reallocation, the work-item order of the persistent kernels,
+// and the host side of a TMA tensor map.
 //
 // Shared-memory tiles are [rows][64 bf16] (128-byte rows) under the 128-byte
 // swizzle, exactly as one TMA box of 64 columns lands: groups of 8 rows are
@@ -78,6 +79,48 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global into shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The same from shared into global memory, as part of the thread's current
+// bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until the thread's bulk stores have read their shared memory (the
+// source may be overwritten), all but the newest `PENDING` groups.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The same, until they are complete.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before bulk copies that
+// read or overwrite the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor under the 128-byte swizzle. For a K-major
@@ -143,6 +186,63 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&s)[N], 
   a[1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
   a[3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// ---- persistent work items --------------------------------------------------
+
+// One work item of a persistent attention kernel: a q tile of one (q head,
+// batch). Items are numbered with the q tile slowest and, under a causal mask,
+// descending, so the heavy items come first and neighbours share a KV head.
+struct Item {
+  int h, b, hk, q0, live, qoff, n_tiles;
+};
+
+__device__ __forceinline__ int item_batch(int item, int B, int Hq) {
+  return (item % (Hq * B)) / Hq;
+}
+
+// The block's item of its round `local`: rounds run to and fro over the
+// blocks (w, 2G - 1 - w, 2G + w, ...), so that with items sorted heavy to light
+// every block's share weighs about the same. At or past n_items: no more.
+__device__ __forceinline__ int item_of_round(int local) {
+  const int w = (local & 1) ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  return local * (int)gridDim.x + w;
+}
+
+// BQ query rows an item, BK keys a tile; n_tiles is the count of key tiles
+// below kv_len and the item's causal diagonal, at least MIN_TILES. kv_len_b
+// and q_offset_b are the item's batch's entries, loaded by the caller one item
+// ahead so that no item waits on them.
+template <int BQ, int BK, int MIN_TILES>
+__device__ __forceinline__ Item decode_item(int item, int n_q_tiles, int B, int T_len, int S,
+                                            int Hq, int Hkv, int causal, int kv_len_b,
+                                            int q_offset_b) {
+  Item w;
+  const int per_tile = Hq * B;
+  const int qt = item / per_tile;
+  const int rem = item - qt * per_tile;
+  w.b = rem / Hq;
+  w.h = rem - w.b * Hq;
+  w.hk = w.h / (Hq / Hkv);
+  w.q0 = (causal ? n_q_tiles - 1 - qt : qt) * BQ;
+  w.live = max(0, min(kv_len_b, S));
+  w.qoff = q_offset_b;
+  int kv_hi = w.live;
+  if (causal) kv_hi = min(kv_hi, min(w.q0 + BQ, T_len) + w.qoff);
+  w.n_tiles = max(MIN_TILES, (kv_hi + BK - 1) / BK);
+  return w;
+}
+
+// The card's SM count: one persistent block each.
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+    return sms;
+  }();
+  return n;
 }
 
 // ---- host: tensor maps ------------------------------------------------------

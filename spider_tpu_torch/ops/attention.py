@@ -8,7 +8,7 @@ q, k and v, through a ``torch.autograd.Function``) and take the plain
 tests check the arithmetic the kernels are held to on the card. On a CUDA
 tensor a wrapper launches its kernel or raises; it never falls back.
 
-The forward and the dk/dv backward each have two kernels, and ``flash_route``
+The forward and the two backward kernels (dq; dk/dv) each have two forms, and ``flash_route``
 names the one a call takes from its dtype and head dim alone: "wgmma" (TMA
 staging and warpgroup products, csrc/hopper.cuh) for bf16 with D a multiple
 of 8, "mma" (the general mma.sync form) for fp32 inputs and other head dims.
@@ -173,7 +173,7 @@ ROUTES = ("wgmma", "mma")
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a flash forward or dk/dv backward call takes on the card.
+    """The kernel a flash forward, dq or dk/dv backward call takes on the card.
 
     "wgmma": bf16 q/k/v with a head dim that is a multiple of 8 (a TMA
     tensor map needs 16-byte row strides) up to 128: every shape of the main
@@ -277,6 +277,9 @@ def _bwd_library():
         lib.spider_flash_bwd_dkv_wgmma.argtypes = ([ctypes.c_void_p] * 10 + _BWD_COMMON[:-2]
                                                    + [ctypes.c_void_p])
         lib.spider_flash_bwd_dkv_wgmma.restype = ctypes.c_int
+        lib.spider_flash_bwd_dq_wgmma.argtypes = ([ctypes.c_void_p] * 9 + _BWD_COMMON[:-2]
+                                                  + [ctypes.c_void_p])
+        lib.spider_flash_bwd_dq_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -311,19 +314,26 @@ def _bwd_scalars(q, k, causal, sm_scale):
             int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale):
-    """dq [B,T,Hq,D] on the card (csrc/flash_bwd.cu). live, off: [B] int32
+def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=None):
+    """dq [B,T,Hq,D] on the card (csrc/flash_bwd.cu), through the kernel
+    ``flash_route`` names, or the one the caller does. live, off: [B] int32
     from ``_live_and_offset``; delta from ``_delta``."""
     _check_bwd(q, k, v, g, lse, delta)
+    route = _resolve_route(route, (q, k, v, g))
     dq = torch.empty_like(q)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), live.data_ptr(), off.data_ptr())
+    scalars = _bwd_scalars(q, k, causal, sm_scale)
     with torch.cuda.device(q.device):
-        err = _bwd_library().spider_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), live.data_ptr(), off.data_ptr(),
-            *_bwd_scalars(q, k, causal, sm_scale))
+        if route == "wgmma":
+            err = _bwd_library().spider_flash_bwd_dq_wgmma(*pointers, *scalars[:-2],
+                                                           scalars[-1])
+        else:
+            err = _bwd_library().spider_flash_bwd_dq(*pointers, *scalars)
     if err != 0:
-        raise RuntimeError(f"spider_flash_bwd_dq launch failed with cudaError_t {err}")
+        raise RuntimeError(f"flash backward dq ({route}) launch failed with error {err}")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.route_launches[route] += 1
     return dq
 
 
@@ -352,6 +362,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=Non
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.route_launches = dict.fromkeys(ROUTES, 0)
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 
@@ -363,8 +374,8 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
                    g_lse: Optional[torch.Tensor] = None, route: Optional[str] = None):
     """(dq, dk, dv) of flash attention from its saved (out, lse) and the
     cotangents g of out and, optionally, g_lse of lse. CPU tensors take
-    ``flash_backward_reference``; CUDA tensors launch the two kernels, dk/dv
-    by ``flash_route`` unless `route` names its kernel."""
+    ``flash_backward_reference``; CUDA tensors launch the two kernels, each
+    by ``flash_route`` unless `route` names the kernels' form."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, out, lse, g, causal, sm_scale, kv_len,
                                         q_offset, g_lse)
@@ -373,7 +384,7 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
     B, T = q.shape[:2]
     live, off = _live_and_offset(B, T, k.shape[1], kv_len, q_offset, q.device)
     args = (q, k, v, g, lse, _delta(g, out, g_lse), live, off, causal, sm_scale)
-    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args, route=route)
+    return (flash_bwd_dq(*args, route=route),) + flash_bwd_dkv(*args, route=route)
 
 
 class _FlashFunction(torch.autograd.Function):

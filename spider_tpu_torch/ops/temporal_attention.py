@@ -79,15 +79,31 @@ def temporal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return out.reshape(B, F, P, C)
 
 
+ROUTES = ("ring", "simple")
+
+
+def tattn_route(dtype: torch.dtype) -> str:
+    """The kernel a temporal-attention call takes on the card, by dtype
+    alone. "ring": bf16, what UNet3D runs: persistent blocks that stream
+    their tiles through a ring of shared-memory stages by bulk copies and
+    take the products on the tensor cores. "simple": fp32 inputs, on the
+    first, synchronous form with its arithmetic in fp32 on the CUDA cores
+    (exact for them); it takes bf16 too when a call names it."""
+    return "ring" if dtype == torch.bfloat16 else "simple"
+
+
 def _library():
     from spider_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load("tattn_fwd").spider_tattn_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_build.load("tattn_fwd")
+    if lib.spider_tattn_fwd.argtypes is None:
+        head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+        lib.spider_tattn_fwd.argtypes = head + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.spider_tattn_fwd.restype = ctypes.c_int
+        # no is_fp32: the ring form takes bf16 only
+        lib.spider_tattn_fwd_ring.argtypes = head + [ctypes.c_float, ctypes.c_void_p]
+        lib.spider_tattn_fwd_ring.restype = ctypes.c_int
+    return lib
 
 
 def _frame_pixel_strides(x: torch.Tensor, layout: str):
@@ -97,13 +113,15 @@ def _frame_pixel_strides(x: torch.Tensor, layout: str):
 
 
 def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
-                              *, scale: Optional[float] = None,
-                              layout: str = "bfpc") -> torch.Tensor:
+                              *, scale: Optional[float] = None, layout: str = "bfpc",
+                              route: Optional[str] = None) -> torch.Tensor:
     """Launch csrc/tattn_fwd.cu on CUDA tensors, whatever the routing
-    predicate says, and add one to ``temporal_attention.launches``. Raises on
+    predicate says, through the kernel ``tattn_route`` names or the one the
+    caller does, and add one to ``temporal_attention.launches`` and to the
+    route's entry of ``temporal_attention.route_launches``. Raises on
     anything the kernel does not take: another device or dtype, F > 32, a
-    head dim that is not a multiple of 8 up to 256, mismatched strides, or
-    rows that are not 16-byte aligned."""
+    head dim that is not a multiple of 8 up to 256, mismatched strides, rows
+    that are not 16-byte aligned, or a named "ring" on fp32."""
     B, F, P, C = _dims(q, layout)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -118,6 +136,13 @@ def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"temporal kernel takes bf16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    ruled = tattn_route(q.dtype)
+    if route is None:
+        route = ruled
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "ring" and ruled != "ring":
+        raise ValueError(f"the ring route takes bf16, got {q.dtype}")
     if q.device.type != "cuda":
         raise ValueError(f"temporal kernel runs on CUDA tensors, got {q.device}")
     vec = 16 // q.element_size()
@@ -132,15 +157,18 @@ def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, P, heads, D,
+            *_frame_pixel_strides(q, layout), *_frame_pixel_strides(out, layout), float(scale))
     with torch.cuda.device(q.device):   # the launch goes to the current device
-        err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         B, F, P, heads, D, *_frame_pixel_strides(q, layout),
-                         *_frame_pixel_strides(out, layout), float(scale),
-                         int(q.dtype == torch.float32),
-                         torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "ring":
+            err = _library().spider_tattn_fwd_ring(*args, stream)
+        else:
+            err = _library().spider_tattn_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
-        raise RuntimeError(f"spider_tattn_fwd launch failed with cudaError_t {err}")
+        raise RuntimeError(f"temporal attention ({route}) launch failed with cudaError_t {err}")
     temporal_attention.launches += 1
+    temporal_attention.route_launches[route] += 1
     return out
 
 
@@ -168,3 +196,4 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads:
 
 
 temporal_attention.launches = 0
+temporal_attention.route_launches = dict.fromkeys(ROUTES, 0)

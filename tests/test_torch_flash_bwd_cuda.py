@@ -5,9 +5,8 @@ These tests need an NVIDIA GPU: the kernels have no CPU mode, so without a
 card they skip. They import torch only, so they also run where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_flash_bwd_cuda.py``.
 
-Every bf16 case runs the dk/dv kernel of both routes, "wgmma" and the general
-"mma" (``ops/attention.py::flash_route``), each named by the call; dq has one
-kernel.
+Every bf16 case runs the dq and the dk/dv kernel of both routes, "wgmma" and
+the general "mma" (``ops/attention.py::flash_route``), each named by the call.
 
 Both versions take the same q, k, v, dO, out and lse (the forward kernel's).
 Tolerances: with bf16 inputs they differ in the kernels rounding P and dS to
@@ -53,19 +52,20 @@ def _close(got, want, atol, rel, name):
 def _check(q, k, v, g, atol=2e-2, rel=2.0 ** -7, g_lse=None, route=None, **kw):
     out, lse = A.flash_attention_with_lse(q, k, v, route=route, **kw)
     before = A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches
-    routed = dict(A.flash_bwd_dkv.route_launches)
+    routed = dict(A.flash_bwd_dq.route_launches), dict(A.flash_bwd_dkv.route_launches)
     got = A.flash_backward(q, k, v, out, lse, g, g_lse=g_lse, route=route, **kw)
     torch.cuda.synchronize()
     assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     took = route or A.flash_route(q.dtype, q.shape[-1])
-    assert A.flash_bwd_dkv.route_launches == {r: n + (r == took) for r, n in routed.items()}
+    for fn, was in zip((A.flash_bwd_dq, A.flash_bwd_dkv), routed):
+        assert fn.route_launches == {r: n + (r == took) for r, n in was.items()}
     want = A.flash_backward_reference(q, k, v, out, lse, g, g_lse=g_lse, **kw)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close(a, b, atol, rel, name)
     assert want[0].float().abs().max() > 0
 
 
-@pytest.mark.parametrize("D", [16, 40, 64, 128])
+@pytest.mark.parametrize("D", [16, 40, 64, 80, 128])
 @pytest.mark.parametrize("heads", [(4, 2), (8, 1), (2, 2)])
 @pytest.mark.parametrize("causal", [False, True])
 @ROUTES
@@ -131,8 +131,9 @@ def test_kernels_head_dim_off_the_tma_grid(dev):
     _check(q, k, v, g, causal=True)
 
 
-# The wgmma dk/dv kernel's tiles: 128 keys a block (64 a warpgroup), 64 query
-# rows a tile. One below, at and one above 128 and 256.
+# The wgmma kernels' tiles: dk/dv takes 128 keys a block (64 a warpgroup) and
+# 64 query rows a tile, dq 128 query rows an item (64 a warpgroup) and 64
+# keys a tile. One below, at and one above 128 and 256.
 EDGES = [127, 128, 129, 255, 256, 257]
 
 
@@ -174,7 +175,7 @@ def test_kernels_kv_len_inside_first_and_last_tile(dev, kv_len, causal, route):
 
 
 @pytest.mark.parametrize("conv", ["suffix", "kv_len", "q_offset", "q_offset_scalar"])
-@pytest.mark.parametrize("D", [16, 40, 64, 128])
+@pytest.mark.parametrize("D", [16, 40, 64, 80, 128])
 @pytest.mark.parametrize("heads", [(32, 8), (8, 8)])
 @ROUTES
 def test_kernels_conventions_head_dims_and_groups(dev, conv, D, heads, route):
@@ -189,9 +190,28 @@ def test_kernels_conventions_head_dims_and_groups(dev, conv, D, heads, route):
     _check(q, k, v, g, route=route, **kw)
 
 
-def test_wgmma_dkv_gives_the_same_bits_twice(dev):
-    # One block owns its dk/dv rows and sums the group's heads and the q tiles
-    # in a fixed order: no atomics, so two runs agree to the bit.
+@pytest.mark.parametrize("D,heads", [(128, (32, 8)), (80, (8, 8)), (40, (8, 8)), (16, (8, 2))])
+@pytest.mark.parametrize("case", ["causal", "full", "kv_len", "q_offset", "g_lse"])
+@ROUTES
+def test_kernels_ragged_items_over_several_tiles(dev, route, D, heads, case):
+    # ragged T and S over several 128-row items and 64-key tiles; at least 40
+    # live keys per sample
+    B, T, S = 2, 333, 333 if case in ("causal", "g_lse") else 500
+    q, k, v, g = _inputs(B, T, S, *heads, D, torch.bfloat16, dev, seed=27)
+    kw = dict(causal=case != "full")
+    if case in ("kv_len", "q_offset"):
+        kw["kv_len"] = torch.tensor([450, 340], dtype=torch.int32, device=dev)
+    if case == "q_offset":
+        kw["q_offset"] = torch.tensor([100, 7], dtype=torch.int32, device=dev)
+    g_lse = (torch.from_numpy(np.random.default_rng(28).standard_normal(
+        (B, heads[0], T), dtype=np.float32)).to(dev) if case == "g_lse" else None)
+    _check(q, k, v, g, g_lse=g_lse, route=route, **kw)
+
+
+def test_wgmma_backward_gives_the_same_bits_twice(dev):
+    # One block owns its dq rows, one its dk/dv rows, summing the key tiles (the
+    # group's heads and the q tiles) in a fixed order: no atomics, so two runs
+    # agree to the bit.
     q, k, v, g = _inputs(2, 300, 300, 8, 2, 128, torch.bfloat16, dev, seed=26)
     out, lse = A.flash_attention_with_lse(q, k, v, causal=True)
     runs = [A.flash_backward(q, k, v, out, lse, g, causal=True, route="wgmma")
@@ -257,5 +277,11 @@ def test_backward_rejects_what_it_does_not_take(dev):
         A.flash_backward(q, k, v, out, lse[:, :, :8].contiguous(), g)
     # the wgmma route named for what the rule does not send it: no fallback
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    before = A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches
     with pytest.raises(ValueError):
         A.flash_backward(qf, kf, vf, out.float(), lse, gf, route="wgmma")
+    live, off = A._live_and_offset(1, 16, 16, None, None, dev)
+    with pytest.raises(ValueError):
+        A.flash_bwd_dq(qf, kf, vf, gf, lse, A._delta(gf, out.float(), None), live, off, True,
+                       None, route="wgmma")
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == before

@@ -1,12 +1,13 @@
-"""CPU checks of the rules that pick a flash kernel and a UNet attention
-path on the card, and of the kernel library's build digest.
+"""CPU checks of the rules that pick a flash kernel, a temporal kernel and a
+UNet attention path on the card, and of the kernel library's build digest.
 
-``flash_route`` (ops/attention.py) names the forward and dk/dv kernel a call
-takes from its dtype and head dim; ``spatial_flash_predicate``
-(models/unet2d.py) says where the UNets' spatial attention goes to the flash
-kernel. Both are pure functions, so the CPU can hold them to every shape the
-main paths run. Nothing here launches a kernel: on CPU tensors the wrappers
-take the plain versions, whatever the rules say.
+``flash_route`` (ops/attention.py) names the forward, dq and dk/dv kernel a
+call takes from its dtype and head dim; ``tattn_route``
+(ops/temporal_attention.py) the temporal kernel from its dtype;
+``spatial_flash_predicate`` (models/unet2d.py) says where the UNets' spatial
+attention goes to the flash kernel. All are pure functions, so the CPU can
+hold them to every shape the main paths run. Nothing here launches a kernel:
+on CPU tensors the wrappers take the plain versions, whatever the rules say.
 """
 
 import os
@@ -20,6 +21,7 @@ from spider_tpu_torch.models.unet2d import (spatial_flash_config, spatial_flash_
 from spider_tpu_torch.models.unet3d import UNet3DConfig
 from spider_tpu_torch.ops import attention as A
 from spider_tpu_torch.ops import cuda_build
+from spider_tpu_torch.ops import temporal_attention as TA
 
 # (name, dtype, head dim): every flash shape of the main paths.
 MAIN_PATH = [("llama3_8b prefill / train", torch.bfloat16, 128),
@@ -44,6 +46,7 @@ def test_fp32_and_odd_head_dims_take_the_general_route(dtype, D):
 def test_route_is_one_of_the_counted_routes():
     assert set(A.ROUTES) == {"wgmma", "mma"}
     assert set(A.flash_attention.route_launches) == set(A.ROUTES)
+    assert set(A.flash_bwd_dq.route_launches) == set(A.ROUTES)
     assert set(A.flash_bwd_dkv.route_launches) == set(A.ROUTES)
     for D in range(1, A.MAX_HEAD_DIM + 1):
         for dtype in (torch.bfloat16, torch.float32):
@@ -75,6 +78,86 @@ def test_resolve_route_raises_and_never_falls_back():
     odd = torch.zeros(1 * 4 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].reshape(1, 4, 2, 64)
     with pytest.raises(ValueError):           # 2 bytes off a 16-byte boundary
         A._resolve_route("wgmma", (q, odd, q))
+
+
+def _bwd_args(dtype, D, T=9, S=12):
+    """CPU arguments of flash_bwd_dq / flash_bwd_dkv at a tiny size."""
+    g = torch.Generator().manual_seed(2)
+    mk = lambda *s: torch.randn(s, generator=g).to(dtype)
+    q, k, v, do = mk(1, T, 4, D), mk(1, S, 2, D), mk(1, S, 2, D), mk(1, T, 4, D)
+    lse, delta = torch.zeros((1, 4, T)), torch.zeros((1, 4, T))
+    live, off = A._live_and_offset(1, T, S, None, None, "cpu")
+    return q, k, v, do, lse, delta, live, off, True, None
+
+
+@pytest.mark.parametrize("name,dtype,D", MAIN_PATH, ids=[m[0] for m in MAIN_PATH])
+def test_flash_bwd_dq_follows_flash_route(name, dtype, D):
+    # dq resolves its route from (q, k, v, dO) exactly as dk/dv does
+    q, k, v, do = _bwd_args(dtype, D)[:4]
+    assert A._resolve_route(None, (q, k, v, do)) == A.flash_route(dtype, D) == "wgmma"
+    assert A._resolve_route("mma", (q, k, v, do)) == "mma"
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.float32, 40),
+                                     (torch.bfloat16, 36), (torch.bfloat16, 100)])
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_named_wgmma_backward_raises_on_fp32_and_odd_head_dims(kernel, dtype, D):
+    # the route is resolved before anything is launched: no fallback to "mma"
+    before = A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches
+    with pytest.raises(ValueError, match="wgmma"):
+        getattr(A, kernel)(*_bwd_args(dtype, D), route="wgmma")
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("route", [None, "wgmma", "mma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_on_cpu_takes_the_reference_whatever_the_route(route, dtype):
+    q, k, v, do = _bwd_args(dtype, 16)[:4]
+    out, lse = A.mha_reference_with_lse(q, k, v, causal=True)
+    before = (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches,
+              dict(A.flash_bwd_dq.route_launches), dict(A.flash_bwd_dkv.route_launches))
+    got = A.flash_backward(q, k, v, out, lse, do, causal=True, route=route)
+    want = A.flash_backward_reference(q, k, v, out, lse, do, causal=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (A.flash_bwd_dq.launches, A.flash_bwd_dkv.launches,
+            A.flash_bwd_dq.route_launches, A.flash_bwd_dkv.route_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# tattn_route: the temporal kernel's two forms
+# ---------------------------------------------------------------------------
+
+def test_tattn_route_is_pure_and_counted():
+    assert TA.ROUTES == ("ring", "simple")
+    assert set(TA.temporal_attention.route_launches) == set(TA.ROUTES)
+    assert TA.tattn_route(torch.bfloat16) == "ring"        # what UNet3D runs
+    for dtype in (torch.float32, torch.float16, torch.float64):
+        assert TA.tattn_route(dtype) == "simple"
+
+
+@pytest.mark.parametrize("layout", TA.LAYOUTS)
+def test_tattn_on_cpu_takes_the_reference_and_counts_nothing(layout):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 8, 40, 64), generator=g) for _ in range(3))
+    before = TA.temporal_attention.launches, dict(TA.temporal_attention.route_launches)
+    out = TA.temporal_attention(q, k, v, 8, layout=layout)      # inside the predicate
+    assert TA.kernel_predicate(8, 8, 40, 64)
+    assert torch.equal(out, TA.temporal_attention_reference(q, k, v, 8, layout=layout))
+    assert (TA.temporal_attention.launches, TA.temporal_attention.route_launches) == before
+
+
+def test_named_tattn_route_raises_and_never_falls_back():
+    q = torch.zeros((1, 8, 40, 64))
+    before = TA.temporal_attention.launches
+    with pytest.raises(ValueError, match="ring"):             # fp32 belongs to "simple"
+        TA.temporal_attention_kernel(q, q, q, 8, route="ring")
+    with pytest.raises(ValueError, match="route"):
+        TA.temporal_attention_kernel(q.bfloat16(), q.bfloat16(), q.bfloat16(), 8, route="tma")
+    for route in (None, "simple"):                            # a CPU tensor: no kernel
+        with pytest.raises(ValueError, match="CUDA"):
+            TA.temporal_attention_kernel(q, q, q, 8, route=route)
+    assert TA.temporal_attention.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,9 @@
-"""The temporal-attention CUDA kernel against its plain PyTorch version.
+"""The temporal-attention CUDA kernels against their plain PyTorch version.
+
+Every bf16 case runs both forms (``ops/temporal_attention.py::tattn_route``),
+each named by the call: "ring", the persistent form with asynchronous
+staging that the rule sends bf16 to, and "simple", the first form, which fp32
+inputs take.
 
 These tests need an NVIDIA GPU: the kernel has no CPU mode, so without a
 card they skip. They import torch only, so they also run where JAX is not
@@ -39,11 +44,17 @@ def _inputs(shape, dtype, dev, seed=0):
 BF16_EPS = 2.0 ** -8
 
 
-def _check(q, k, v, heads, layout, atol, rtol=BF16_EPS):
-    before = TA.temporal_attention.launches
-    out = TA.temporal_attention_kernel(q, k, v, heads, layout=layout)
+ROUTES = pytest.mark.parametrize("route", ["ring", "simple"])
+
+
+def _check(q, k, v, heads, layout, atol, rtol=BF16_EPS, route=None):
+    before = TA.temporal_attention.launches, dict(TA.temporal_attention.route_launches)
+    out = TA.temporal_attention_kernel(q, k, v, heads, layout=layout, route=route)
     torch.cuda.synchronize()
-    assert TA.temporal_attention.launches == before + 1
+    took = route or TA.tattn_route(q.dtype)
+    assert TA.temporal_attention.launches == before[0] + 1
+    assert TA.temporal_attention.route_launches == {r: n + (r == took)
+                                                    for r, n in before[1].items()}
     want = TA.temporal_attention_reference(q, k, v, heads, layout=layout)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert torch.isfinite(out).all()
@@ -54,34 +65,68 @@ def _check(q, k, v, heads, layout, atol, rtol=BF16_EPS):
 @pytest.mark.parametrize("layout", ["bfpc", "bpfc"])
 @pytest.mark.parametrize("F", [6, 16])
 @pytest.mark.parametrize("D", [40, 80, 160])
-def test_kernel_matches_plain_bf16(dev, D, F, layout):
-    # P = 45 is ragged against every pixel tile the kernel picks.
+@ROUTES
+def test_kernel_matches_plain_bf16(dev, D, F, layout, route):
+    # P = 45 is ragged against every pixel tile the kernels pick.
     B, P, H = 2, 45, 8
     shape = (B, P, F, H * D) if layout == "bpfc" else (B, F, P, H * D)
-    _check(*_inputs(shape, torch.bfloat16, dev), H, layout, 2e-2)
+    _check(*_inputs(shape, torch.bfloat16, dev), H, layout, 2e-2, route=route)
 
 
-@pytest.mark.parametrize("F,D,H", [(1, 8, 2), (32, 64, 4), (20, 256, 1)])
-def test_kernel_frame_and_head_dim_edges(dev, F, D, H):
-    _check(*_inputs((1, F, 33, H * D), torch.bfloat16, dev, seed=1), H, "bfpc", 2e-2)
+@pytest.mark.parametrize("F,D,H", [(1, 8, 2), (8, 40, 8), (12, 64, 8), (32, 64, 4),
+                                   (32, 40, 8), (20, 256, 1)])
+@ROUTES
+def test_kernel_frame_and_head_dim_edges(dev, F, D, H, route):
+    _check(*_inputs((1, F, 33, H * D), torch.bfloat16, dev, seed=1), H, "bfpc", 2e-2,
+           route=route)
 
 
-def test_kernel_zeroscope_level0(dev):
-    _check(*_inputs((2, 16, 2880, 320), torch.bfloat16, dev, seed=2), 8, "bfpc", 2e-2)
+# ZeroScope's four levels at CFG batch 2, 16 frames, 8 heads: (P, C).
+LEVELS = {"L0": (2880, 320), "L1": (720, 640), "L2": (180, 1280), "mid": (45, 1280)}
+
+
+@pytest.mark.parametrize("level", list(LEVELS))
+@ROUTES
+def test_kernel_zeroscope_levels(dev, level, route):
+    P, C = LEVELS[level]
+    _check(*_inputs((2, 16, P, C), torch.bfloat16, dev, seed=2), 8, "bfpc", 2e-2, route=route)
+
+
+@pytest.mark.parametrize("P", [1001, 33, 1])
+@pytest.mark.parametrize("layout", ["bfpc", "bpfc"])
+@ROUTES
+def test_kernel_ragged_pixel_counts(dev, P, layout, route):
+    # pixels past P are neither read into the result nor written
+    shape = (2, P, 16, 640) if layout == "bpfc" else (2, 16, P, 640)
+    _check(*_inputs(shape, torch.bfloat16, dev, seed=6), 8, layout, 2e-2, route=route)
+
+
+def test_ring_gives_the_same_bits_twice(dev):
+    # one warp owns a (pixel, head) unit and sums in a fixed order
+    q, k, v = _inputs((2, 16, 101, 320), torch.bfloat16, dev, seed=7)
+    first = TA.temporal_attention_kernel(q, k, v, 8, route="ring")
+    again = TA.temporal_attention_kernel(q, k, v, 8, route="ring")
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("layout", ["bfpc", "bpfc"])
-def test_kernel_fp32_inputs(dev, layout):
+@pytest.mark.parametrize("route", [None, "simple"])
+def test_kernel_fp32_inputs(dev, layout, route):
+    # fp32 is the simple form's alone, by the rule and by name
     shape = (2, 70, 16, 640) if layout == "bpfc" else (2, 16, 70, 640)
-    _check(*_inputs(shape, torch.float32, dev, seed=3), 8, layout, 1e-4, rtol=0.0)
+    q, k, v = _inputs(shape, torch.float32, dev, seed=3)
+    assert TA.tattn_route(q.dtype) == "simple"
+    _check(q, k, v, 8, layout, 1e-4, rtol=0.0, route=route)
 
 
-def test_kernel_reads_strided_views(dev):
-    # Channel slices of wider tensors: the kernel reads the strides it is given.
+@ROUTES
+def test_kernel_reads_strided_views(dev, route):
+    # Channel slices of wider tensors: the kernels read the strides they are given.
     wide = _inputs((2, 16, 40, 1280), torch.bfloat16, dev, seed=4)
     q, k, v = (x[..., 320:960] for x in wide)
     assert not q.is_contiguous()
-    _check(q, k, v, 8, "bfpc", 2e-2)
+    _check(q, k, v, 8, "bfpc", 2e-2, route=route)
 
 
 def test_wrapper_routes_like_the_reference(dev):
@@ -103,6 +148,11 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     q, k, v = _inputs((1, 16, 40, 320), torch.float16, dev)
     with pytest.raises(TypeError):
         TA.temporal_attention(q, k, v, 8)                 # inside the predicate: no fallback
+    q, k, v = _inputs((1, 16, 40, 320), torch.float32, dev)
+    before = TA.temporal_attention.launches
+    with pytest.raises(ValueError):
+        TA.temporal_attention_kernel(q, k, v, 8, route="ring")   # fp32: no fallback
+    assert TA.temporal_attention.launches == before
     q, k, v = _inputs((1, 16, 40, 96), torch.bfloat16, dev)
     with pytest.raises(ValueError):
         TA.temporal_attention_kernel(q, k, v, 8)          # D = 12
