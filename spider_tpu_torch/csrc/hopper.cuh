@@ -1,4 +1,4 @@
-// Hopper (sm_90a) primitives shared by the flash kernels: mbarriers, TMA tile
+// Hopper (sm_90a) primitives shared by the flash and int4 kernels: mbarriers, TMA tile
 // loads, swizzled shared-memory descriptors, wgmma issue / fence / commit /
 // wait, register reallocation, the work-item order of the persistent kernels,
 // and the host side of a TMA tensor map.
@@ -76,6 +76,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-d tensor map (inner coordinate first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -283,6 +293,23 @@ inline CUresult make_map_4d(CUtensorMap* map, const void* base, int B, int L, in
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A byte matrix [rows, cols] (contiguous, cols a multiple of 16, the base
+// 16-byte aligned) cut into boxes of `box_cols` x `box_rows` bytes that land
+// as they lie, row after row, without a swizzle; what a box reads past an edge
+// arrives as zeros.
+inline CUresult make_map_2d_u8(CUtensorMap* map, const void* base, int rows, int cols,
+                               int box_rows, int box_cols) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -3,7 +3,7 @@
 Counterpart of spider_tpu/ops/quant.py, the int4 serving path of the 8B
 decoder. Decode reads every weight once per token, so packing two 4-bit
 weights per byte reads a quarter of the bf16 bytes, if the unpack happens
-inside the matmul. ``int4_matmul`` launches the hand-written kernel
+inside the matmul. ``int4_matmul`` launches a hand-written kernel
 (csrc/int4_matmul.cu) on CUDA tensors and takes ``int4_matmul_reference`` on
 CPU tensors. On a CUDA tensor it launches the kernel or raises; it never
 falls back.
@@ -17,12 +17,23 @@ the low nibbles (rows 0..K/2-1 of W) before the high ones. W column n is
 scaled by ``scale[n]`` on the fp32 accumulator.
 
 Routing on CUDA follows the JAX wrapper's own rule (quant.py:114-122):
-M = rows of x up to 4 * block_m = 1024 launch the kernel; longer inputs
+M = rows of x up to 4 * block_m = 1024 launch a kernel; longer inputs
 (a long-prompt prefill) dequantise the weight and call ``torch.matmul``,
 where the product is bound by the tensor cores and the unpack amortises
 over thousands of rows. That is the reference's routing, not a fallback.
-The JAX wrapper also sends a K/2 that no block divides to XLA; the CUDA
-kernel masks the ragged edge itself, so ragged K takes the kernel.
+The JAX wrapper also sends a K/2 that no block divides to XLA; the first
+CUDA kernel masks the ragged edge itself, so ragged K takes that kernel.
+
+Three kernels share the source, and ``int4_route`` names one by a stated
+rule: "stream" (bf16 x, up to 16 rows, K/2 up to 2048: the decode step),
+"wgmma" (bf16 x, 48 to 1024 rows: the prefill, bound by the tensor cores)
+and "mma", the first kernel, for everything else. ``route=`` on
+``int4_matmul_kernel`` names one for tests and timings;
+``int4_matmul.route_launches`` counts per route. Where the wgmma form cuts K
+in slices, the slices' partial tiles meet in an fp32 scratch tensor and are
+added in slice order by the block that arrives last at the tile's counter:
+the same bits every run. Scratch and counters are cached per (device,
+stream) and the counters are left zeroed by every launch.
 """
 
 from __future__ import annotations
@@ -98,28 +109,129 @@ def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor, scale: torch.Te
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel (csrc/int4_matmul.cu)
+# CUDA kernels (csrc/int4_matmul.cu)
 # ---------------------------------------------------------------------------
 
-def _library():
-    from spider_tpu_torch.ops import cuda_build
+ROUTES = ("stream", "wgmma", "mma")
+# The constants of the rule below were read from rows of chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at its 700 W limit (device time).
+# Rows of x the streaming form takes: one mma row tile, the serving batcher's
+# 16 slots. Each of its warps keeps its share of x in registers (64 a lane
+# at 16 rows), which is what frees shared memory for a deep ring; a second
+# row tile does not fit.
+STREAM_MAX_M = 16
+# The K/2 the streaming form takes: its 16 warps own 128 packed bytes of a row
+# each, and it reads whole rows. Cutting a longer K in slices that meet through
+# scratch was slower than the first kernel (down, K/2 = 7168, at 16 rows:
+# 0.035 ms against 0.022 in the `kernel` rows of that draft).
+STREAM_MAX_K2 = 2048
+# Rows of x from which the wgmma form runs. Its block computes 128 rows of x
+# whatever M is, so below ~48 rows the first kernel, whose work grows with M,
+# is ahead (`int4_crossover` rows: gate/up at M 32 0.031 ms on "mma" against
+# 0.043 on "wgmma", at M 48 0.048 against 0.035).
+WGMMA_MIN_M = 48
 
-    fn = cuda_build.load("int4_matmul").spider_int4_matmul
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+
+def int4_route(dtype: torch.dtype, M: int, K2: int, aligned: bool) -> str:
+    """The kernel an int4 matmul of M <= 1024 rows takes on the card.
+    "stream": bf16 x, M <= 16 and K/2 <= 2048 (decode: whole rows streamed
+    through a deep TMA ring, x in registers). "wgmma": bf16 x, M >= 48
+    (prefill: the tensor cores bound it). Both want K/2 a multiple of 16
+    and x and packed 16-byte aligned (`aligned`): a TMA row pitch. "mma":
+    everything else (fp32 x, ragged K/2, unaligned pointers, 17..47 rows,
+    up to 16 rows with a longer K), the first kernel, which masks every edge
+    itself."""
+    if dtype != torch.bfloat16 or not aligned or K2 % 16:
+        return "mma"
+    if M <= STREAM_MAX_M:
+        return "stream" if K2 <= STREAM_MAX_K2 else "mma"
+    return "wgmma" if M >= WGMMA_MIN_M else "mma"
+
+
+def stream_plan(N: int, sms: int) -> Tuple[int, int]:
+    """(column tiles, blocks) of the streaming form: tiles of 16 output
+    columns, dealt in contiguous runs to one block an SM."""
+    tiles = -(-N // 16)
+    return tiles, min(tiles, sms)
+
+
+def wgmma_plan(M: int, N: int, K2: int, sms: int) -> Tuple[int, int]:
+    """(K slices, output tiles) of the wgmma form: 128 x 128 output tiles, K
+    cut in slices (of at least 4 k tiles of 64 packed bytes) while the tiles
+    alone would leave SMs without a block."""
+    tiles = -(-N // 128) * -(-M // 128)
+    kt = -(-K2 // 64)
+    slices = max(1, min(sms // tiles, kt // 4))
+    kt_slice = -(-kt // slices)
+    return -(-kt // kt_slice), tiles
+
+
+_FNS = None
+_SMS = {}
+# Per (device, stream): a zeroed int32 tensor of counters, which every launch
+# leaves zeroed, and an fp32 scratch tensor for partial tiles. Launches on one
+# stream run in order, so they can share both.
+_COUNTERS = {}
+_SCRATCH = {}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def sm_count(index: int) -> int:
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def stream_buffers(counters, scratch, device, stream: int, n_counters: int, n_floats: int):
+    """The (counters, scratch) pair of (device, stream) from the two caches,
+    grown to at least the sizes asked for."""
+    key = (device.index, stream)
+    c = counters.get(key)
+    if c is None or c.numel() < n_counters:
+        c = counters[key] = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
+    f = scratch.get(key)
+    if f is None or f.numel() < n_floats:
+        f = scratch[key] = torch.empty(n_floats, dtype=torch.float32, device=device)
+    return c, f
+
+
+def _functions():
+    global _FNS
+    if _FNS is None:
+        from spider_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("int4_matmul")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.spider_int4_matmul.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.spider_int4_matmul_stream.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.spider_int4_matmul_wgmma.argtypes = [p] * 6 + [i] * 5 + [p]
+        for fn in (lib.spider_int4_matmul, lib.spider_int4_matmul_stream,
+                   lib.spider_int4_matmul_wgmma):
+            fn.restype = i
+        _FNS = (lib.spider_int4_matmul, lib.spider_int4_matmul_stream,
+                lib.spider_int4_matmul_wgmma)
+    return _FNS
 
 
 def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch csrc/int4_matmul.cu and add one to ``int4_matmul.launches``.
-    Raises on anything the kernel does not take: another device, x not bf16
-    or fp32, an out_dtype other than bf16 or fp32, packed not int8 [N, K/2],
-    scale not fp32 [N], non-contiguous operands, or M outside 1..1024."""
+                       out_dtype: Optional[torch.dtype] = None,
+                       route: Optional[str] = None) -> torch.Tensor:
+    """Launch csrc/int4_matmul.cu through the kernel ``int4_route`` names or
+    the one the caller does, and add one to ``int4_matmul.launches`` and to
+    the route's entry of ``int4_matmul.route_launches``. Raises on anything
+    the kernel does not take: another device, x not bf16 or fp32, an
+    out_dtype other than bf16 or fp32, packed not int8 [N, K/2], scale not
+    fp32 [N], non-contiguous operands, M outside 1..1024, or a named
+    "stream" or "wgmma" on an input the rule does not send there."""
     out_dtype = out_dtype or x.dtype
-    if x.device.type != "cuda":
-        raise ValueError(f"int4 kernel runs on CUDA tensors, got {x.device}")
+    device = x.device
     if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"int4 kernel takes bf16 or fp32 x and out_dtype, got {x.dtype} "
                         f"and {out_dtype}")
@@ -130,26 +242,54 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
     K = x.shape[-1]
     if K != 2 * K2 or N == 0 or K2 == 0:
         raise ValueError(f"x [.., {K}] does not match packed [{N}, {K2}] (K = 2 * K/2)")
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (N,):
+    if scale.dtype != torch.float32 or scale.dim() != 1 or scale.shape[0] != N:
         raise TypeError(f"scale must be fp32 [{N}], got {scale.dtype} {tuple(scale.shape)}")
-    for name, t in (("x", x), ("packed", packed), ("scale", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lead = x.shape[:-1]
+    if packed.device != device or scale.device != device:
+        raise ValueError(f"packed is on {packed.device}, scale on {scale.device}, x on {device}")
+    if not (x.is_contiguous() and packed.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("x, packed and scale must be contiguous")
     M = x.numel() // K
     if not 1 <= M <= MAX_KERNEL_M:
         raise ValueError(f"int4 kernel takes 1..{MAX_KERNEL_M} rows, got {M}")
-    out = torch.empty((*lead, N), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):   # the launch goes to the current device
-        err = _library()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                         M, N, K2, int(x.dtype == torch.float32),
-                         int(out_dtype == torch.float32),
-                         torch.cuda.current_stream(x.device).cuda_stream)
+    x_ptr, w_ptr = x.data_ptr(), packed.data_ptr()
+    ruled = int4_route(x.dtype, M, K2, (x_ptr | w_ptr) % 16 == 0)
+    if route is None:
+        route = ruled
+    elif route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    elif route != "mma" and route != ruled:
+        raise ValueError(f"the {route} route does not take {x.dtype} x with M={M}, K/2={K2} "
+                         f"(the rule sends it to {ruled!r})")
+    if device.type != "cuda":
+        raise ValueError(f"int4 kernel runs on CUDA tensors, got {device}")
+    out = torch.empty((*x.shape[:-1], N), dtype=out_dtype, device=device)
+    mma, stream_fn, wgmma_fn = _functions()
+    index = device.index
+    current = torch.cuda.current_device()
+    if index != current:                     # the launch goes to the current device
+        torch.cuda.set_device(index)
+    try:
+        stream = current_stream_handle(index)
+        out_fp32 = int(out_dtype == torch.float32)
+        if route == "mma":
+            err = mma(x_ptr, w_ptr, scale.data_ptr(), out.data_ptr(), M, N, K2,
+                      int(x.dtype == torch.float32), out_fp32, stream)
+        elif route == "stream":
+            err = stream_fn(x_ptr, w_ptr, scale.data_ptr(), out.data_ptr(), M, N, K2,
+                            stream_plan(N, sm_count(index))[1], out_fp32, stream)
+        else:
+            slices, tiles = wgmma_plan(M, N, K2, sm_count(index))
+            counters, part = stream_buffers(_COUNTERS, _SCRATCH, device, stream, tiles,
+                                            slices * tiles * 128 * 128 if slices > 1 else 1)
+            err = wgmma_fn(x_ptr, w_ptr, scale.data_ptr(), out.data_ptr(), part.data_ptr(),
+                           counters.data_ptr(), M, N, K2, slices, out_fp32, stream)
+    finally:
+        if index != current:
+            torch.cuda.set_device(current)
     if err != 0:
-        raise RuntimeError(f"spider_int4_matmul launch failed with cudaError_t {err}")
+        raise RuntimeError(f"int4 matmul ({route}) launch failed with error {err}")
     int4_matmul.launches += 1
+    int4_matmul.route_launches[route] += 1
     return out
 
 
@@ -176,3 +316,4 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 int4_matmul.launches = 0
+int4_matmul.route_launches = dict.fromkeys(ROUTES, 0)

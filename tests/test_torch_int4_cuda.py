@@ -12,6 +12,12 @@ rounding of the output, half a step or 2^-9 |out|, plus one step where the
 two sums fall on either side of a rounding edge: bf16 out is held to
 1e-3 + 2^-7 |plain|. fp32 out with bf16 x: 1e-4. fp32 x goes through the
 tensor cores as a pair of bf16 (about 16 bits of mantissa): 1e-4.
+
+Every bf16 case runs on the route ``int4_route`` names ("stream" up to 16
+rows with K/2 up to 2048, "wgmma" from 48 rows, the first kernel "mma"
+between, for a longer K at up to 16 rows, for fp32 x and for a K/2 that is no
+multiple of 16) and on "mma"; the two new routes are run several times and
+must give the same bits.
 """
 
 import numpy as np
@@ -41,11 +47,26 @@ def _inputs(M, K, N, x_dtype, dev, seed=0):
     return x, packed, scale
 
 
-def _check(x, packed, scale, out_dtype, launches=1):
-    before = Q.int4_matmul.launches
-    out = Q.int4_matmul(x, packed, scale, out_dtype)
+def _ruled(x, packed):
+    M = x.numel() // x.shape[-1]
+    aligned = (x.data_ptr() | packed.data_ptr()) % 16 == 0
+    return Q.int4_route(x.dtype, M, packed.shape[1], aligned)
+
+
+def _check(x, packed, scale, out_dtype, route=None):
+    """One launch through `route` ("ruled": the rule's, through int4_matmul)
+    held to the plain version; returns the output."""
+    ruled = _ruled(x, packed)
+    before = (Q.int4_matmul.launches, Q.int4_matmul.route_launches[ruled if route in
+                                                                   (None, "ruled") else route])
+    if route in (None, "ruled"):
+        out = Q.int4_matmul(x, packed, scale, out_dtype)
+        route = ruled
+    else:
+        out = Q.int4_matmul_kernel(x, packed, scale, out_dtype, route=route)
     torch.cuda.synchronize()
-    assert Q.int4_matmul.launches == before + launches
+    assert (Q.int4_matmul.launches, Q.int4_matmul.route_launches[route]) == (before[0] + 1,
+                                                                            before[1] + 1)
     want = Q.int4_matmul_reference(x, packed, scale, out_dtype)
     assert out.shape == want.shape and out.dtype == want.dtype == out_dtype
     assert torch.isfinite(out).all()
@@ -55,18 +76,80 @@ def _check(x, packed, scale, out_dtype, launches=1):
     else:
         bound = torch.full_like(diff, 1e-4)
     assert (diff <= bound).all(), diff.max().item()
+    return out
 
 
+@pytest.mark.parametrize("route", ["ruled", "mma"])
 @pytest.mark.parametrize("M", [1, 16, 128, 1024])
 @pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 512), (512, 4096)])
-def test_kernel_matches_plain_bf16(dev, M, K, N):
-    _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=M), torch.bfloat16)
+def test_kernel_matches_plain_bf16(dev, M, K, N, route):
+    _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=M), torch.bfloat16, route)
+
+
+@pytest.mark.parametrize("M,want", [(1, "stream"), (16, "stream"), (17, "mma"), (47, "mma"),
+                                    (48, "wgmma"), (128, "wgmma"), (1024, "wgmma")])
+def test_the_rule_picks_the_route(dev, M, want):
+    x, packed, scale = _inputs(M, 512, 64, torch.bfloat16, dev, seed=6)
+    assert _ruled(x, packed) == want
+    _check(x, packed, scale, torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 48, 63, 65, 128, 129, 1000])
+@pytest.mark.parametrize("K,N", [
+    (4096, 1000),     # N no multiple of a 16- or 128-column tile
+    (4096, 136),      # one column tile and a sliver
+    (14336, 272),     # K/2 = 7168: "mma" up to 16 rows; four K slices of the wgmma form
+    (4128, 1000),     # K/2 = 2064: just over the stream form's rows; a ragged k tile
+    (4064, 1000),     # K/2 = 2032: the stream form's last warp has 112 of its 128 bytes
+    (96, 4096),       # K/2 = 48: less than one k tile
+])
+def test_tile_and_slice_edges(dev, M, K, N):
+    _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=M + K), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 4096), (16, 4096, 14336), (5, 4096, 1024),
+                                   (7, 4064, 1000), (128, 14336, 4096), (256, 4096, 1024),
+                                   (1000, 4096, 1000), (64, 14336, 272)])
+def test_new_routes_give_the_same_bits_twice(dev, M, K, N):
+    # Partial sums meet in a fixed order (warps of a block; K slices of the wgmma
+    # form through scratch; no atomics on floats): run the rule's route several
+    # times, with other work between, and compare the bits.
+    x, packed, scale = _inputs(M, K, N, torch.bfloat16, dev, seed=7)
+    assert _ruled(x, packed) in ("stream", "wgmma")
+    first = _check(x, packed, scale, torch.bfloat16)
+    for _ in range(5):
+        _check(*_inputs(16, 4096, 1024, torch.bfloat16, dev, seed=8), torch.bfloat16)
+        again = Q.int4_matmul(x, packed, scale, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("route,M,K,dtype", [("stream", 128, 512, torch.bfloat16),
+                                             ("wgmma", 16, 512, torch.bfloat16),
+                                             ("stream", 16, 512, torch.float32),
+                                             ("wgmma", 32, 512, torch.bfloat16),
+                                             ("stream", 16, 4128, torch.bfloat16)])
+def test_a_named_route_raises_on_what_the_rule_does_not_send_it(dev, route, M, K, dtype):
+    x, packed, scale = _inputs(M, K, 64, dtype, dev)
+    before = (Q.int4_matmul.launches, dict(Q.int4_matmul.route_launches))
+    with pytest.raises(ValueError):
+        Q.int4_matmul_kernel(x, packed, scale, route=route)
+    assert (Q.int4_matmul.launches, Q.int4_matmul.route_launches) == before
+
+
+def test_an_unaligned_x_takes_the_first_kernel(dev):
+    x, packed, scale = _inputs(17, 512, 64, torch.bfloat16, dev, seed=9)
+    shifted = x.flatten()[8:8 + 16 * 512].view(16, 512)      # 16 bytes on, still aligned
+    assert _ruled(shifted, packed) == "stream"
+    odd = x.flatten()[4:4 + 16 * 512].view(16, 512)          # 8 bytes on
+    assert _ruled(odd, packed) == "mma"
+    _check(odd, packed, scale, torch.bfloat16)
 
 
 @pytest.mark.parametrize("M,K,N", [(37, 4100, 1000), (5, 34, 9), (17, 96, 33)])
 def test_ragged_edges(dev, M, K, N):
-    # K/2 not a multiple of 16 (scalar loads), N and M not multiples of the
-    # block's 32 columns and 16 rows.
+    # K/2 not a multiple of 16 (scalar loads; the first kernel by the rule), N
+    # and M not multiples of the block's 32 columns and 16 rows.
     _check(*_inputs(M, K, N, torch.bfloat16, dev, seed=1), torch.bfloat16)
 
 
