@@ -63,6 +63,22 @@ Phases, each printing one JSON line:
                against the plain backward, make_lm_train_step at [4, 512], profiled
                steps of each (device time and wall time of the same steps), then
                RunnerBase.train() (epoch loop, checkpoint) and a checkpoint round trip
+  checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
+               random weights), written at full size to a temporary directory by the
+               port's own safetensors writer, their key lists equal to the real
+               checkpoints' (tests/fixtures/convert_keys/), then loaded through the
+               port's entry points: the Llama-3-8B (full width and depth, bf16, four
+               shards and an index) through from_pretrained('llama', path=...), every
+               int8 and bf16 tensor equal to the on-card conversion of the written ones,
+               and 32 greedy tokens after a T 128 prefill (32 flash_fwd launches, the
+               slice's main path) equal to a model filled in memory from the same
+               tensors; SD-1.5, ZeroScope and AudioLDM (diffusers subfolders, fp16, the
+               vocoder weight-normed in a .bin) and ImageBind-huge (one fp32 .pth)
+               through from_pretrained(kind, path=...), every tensor equal, and one CFG
+               UNet call of SD-1.5 at 512px bit-equal to the in-memory pipeline's; then
+               build_full_spider(paths={'llama': ...}): base leaves bit-equal, the
+               vocabulary rows past 128256 the reference's extension rows. Load
+               seconds, GB/s, device GB and the peak host RSS (sampled) of each load
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
@@ -76,7 +92,8 @@ form and the paged split form; the int4 launches are held route by route
 (stream, wgmma, and the first kernel for down at up to 16 rows).
 
 `python3 chip_smoke.py kernels` stops after the kernel and routing rows (no
-models are built); it prints no final line.
+models are built); `python3 chip_smoke.py checkpoint` runs the build, the
+wgmma probe and the checkpoint phase only. Neither prints the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -100,6 +117,8 @@ SD_CAPTION = "a running horse on a beach"
 AUDIO_CAPTION = "galloping hooves on sand"
 VIDEO_CAPTION = "a horse running on a beach"
 PROMPT_TOKENS = 128
+# 128 TinyTokenizer tokens with its BOS.
+CHAT_PROMPT = ("Describe a horse running on a beach at sunset. " * 8)[:PROMPT_TOKENS - 1]
 NEW_TOKENS = 150
 STEPS = 40
 GUIDANCE = 7.5
@@ -177,6 +196,11 @@ FROZEN_ROWS = 128256
 # cosine ~0).
 GRAD_REL = 5e-2
 GRAD_COS = 0.999
+# The checkpoint phase: seed of the synthetic weights, shards of the 8B,
+# greedy tokens compared after the loaded model's prefill.
+CKPT_SEED = 11
+CKPT_SHARDS = 4
+CKPT_NEW_TOKENS = 32
 
 
 def emit(obj) -> None:
@@ -1273,7 +1297,7 @@ def chat_attention_row(model) -> dict:
 def phase_chat(model, tokenizer, spider_free_T: int):
     from spider_tpu_torch.serving.spider_free import make_llama_chat_fn
 
-    prompt = ("Describe a horse running on a beach at sunset. " * 8)[:PROMPT_TOKENS - 1]
+    prompt = CHAT_PROMPT
     assert len(tokenizer(prompt).input_ids) == PROMPT_TOKENS
     long_prompt = ("x" * (spider_free_T - 1))
     first = make_llama_chat_fn(model, tokenizer, max_new_tokens=1)
@@ -2034,6 +2058,437 @@ def phase_train(sd, ad, vd, dev, smi: str):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# checkpoint: synthetic HF/diffusers checkpoints written at full size, loaded
+# through the port's own entry points
+# ---------------------------------------------------------------------------
+
+class HostRssPeak:
+    """Peak resident set size of this process while the block runs, sampled
+    from /proc/self/statm every millisecond by a thread (VmHWM covers the
+    whole life of the process, and a process may not be allowed to reset it
+    through /proc/self/clear_refs)."""
+
+    def __init__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.base = self.peak = self._rss()
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+
+    def row(self) -> dict:
+        return dict(host_rss_gb_before=self.base / 1e9, host_rss_gb_peak=self.peak / 1e9,
+                    host_rss_gb_added=(self.peak - self.base) / 1e9)
+
+
+def manifest_keys(name: str):
+    with open(os.path.join(ROOT, "tests", "fixtures", "convert_keys", f"{name}.txt")) as f:
+        return [line for line in f.read().splitlines() if line]
+
+
+def fill_synthetic_(module, seed: int):
+    """Every floating tensor of `module` ~ N(0, 0.02), norm scales 1 +
+    N(0, 0.02) (a seeded generator on the module's device), so no two
+    tensors of a checkpoint are alike."""
+    import torch
+    from torch import nn
+
+    gen = None
+    with torch.no_grad():
+        for mname, mod in module.named_modules():
+            norm = isinstance(mod, (nn.LayerNorm, nn.GroupNorm))
+            for pname, t in list(mod.named_parameters(recurse=False)) + list(
+                    mod.named_buffers(recurse=False)):
+                if not t.is_floating_point():
+                    continue
+                if gen is None:
+                    gen = torch.Generator(device=t.device).manual_seed(seed)
+                t.normal_(0.0, 0.02, generator=gen)
+                if (norm and pname == "weight") or pname.endswith("layernorm") or \
+                        (pname == "norm" and mname == "model"):
+                    t.add_(1.0)
+    return module
+
+
+def _states_equal(loaded, want) -> list:
+    """Names where `loaded`'s tensor differs from `want`'s (cast to
+    `loaded`'s dtype) or does not lie on the card."""
+    bad = []
+    for name, t in loaded.items():
+        w = want[name].to(t.device, t.dtype)
+        if t.device.type != "cuda" or t.shape != w.shape or not bool((t == w).all()):
+            bad.append(name)
+    return sorted(bad) + sorted(set(want) - set(loaded))
+
+
+def _timed_load(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with HostRssPeak() as rss:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, dict(load_s=seconds, device_gb=(torch.cuda.memory_allocated() - before) / 1e9,
+                     **rss.row())
+
+
+def write_llama_checkpoint(directory: str, dev):
+    """The synthetic Llama-3-8B in Meta's HF layout: llama3_8b's width,
+    depth and vocabulary in bf16, CKPT_SHARDS safetensors shards of about
+    equal size plus the index and config.json. Cuts the depth, never the
+    width or vocabulary, if the disk cannot hold it. Returns (source model
+    in bf16 on the card, {checkpoint key: tensor on the card}, row)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from spider_tpu_torch.models import checkpoint_io as io
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import llama as L
+
+    full = dataclasses.replace(L.llama3_8b(), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    H, V, I = full.hidden_size, full.vocab_size, full.intermediate_size
+    kv = full.num_key_value_heads * full.head_dim_
+    per_layer = 2 * (2 * H * H + 2 * kv * H + 3 * H * I + 2 * H)
+    fixed = 2 * (2 * V * H + H)
+    free = shutil.disk_usage(directory).free
+    depth = full.num_hidden_layers
+    if fixed + depth * per_layer > 0.9 * free:
+        depth = int((0.9 * free - fixed) // per_layer)
+        if depth < 1:
+            raise RuntimeError(f"{free / 1e9:.1f} GB free cannot hold even one layer")
+    cfg = dataclasses.replace(full, num_hidden_layers=depth)
+    t0 = time.perf_counter()
+    src = fill_synthetic_(L.LlamaForCausalLM(cfg, dev).eval(), CKPT_SEED)
+    rules = C.llama_rules({"lm_head.weight"}, cfg)
+    hf = C.export_state_dict(rules, src.state_dict())
+    order = [k for r in rules for k in r.keys]            # embed, layers, norm, lm_head
+    total = sum(t.numel() * t.element_size() for t in hf.values())
+    shards, cur, size = [], [], 0
+    for k in order:
+        cur.append(k)
+        size += hf[k].numel() * hf[k].element_size()
+        if size >= total * (len(shards) + 1) / CKPT_SHARDS and len(shards) < CKPT_SHARDS - 1:
+            shards.append(cur)
+            cur = []
+    shards.append(cur)
+    io.save_sharded([lambda keys=keys: {k: hf[k].cpu() for k in keys} for keys in shards],
+                    directory)
+    rope = dict(cfg.rope_scaling, rope_type="llama3")
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(dict(architectures=["LlamaForCausalLM"], model_type="llama",
+                       vocab_size=V, hidden_size=H, intermediate_size=I,
+                       num_hidden_layers=depth, num_attention_heads=cfg.num_attention_heads,
+                       num_key_value_heads=cfg.num_key_value_heads,
+                       max_position_embeddings=cfg.max_position_embeddings,
+                       rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+                       rope_scaling=rope, tie_word_embeddings=False, attention_bias=False,
+                       hidden_act="silu", torch_dtype="bfloat16"), f, indent=2)
+    files = sorted(os.listdir(directory))
+    want_keys = manifest_keys("llama3_8b")
+    if depth < full.num_hidden_layers:
+        want_keys = [k for k in want_keys
+                     if not k.startswith("model.layers.") or int(k.split(".")[2]) < depth]
+    return src, hf, dict(
+        depth=depth, depth_cut=depth < full.num_hidden_layers, free_disk_gb=free / 1e9,
+        checkpoint_gb=total / 1e9, shards=len(shards), files=files,
+        keys_equal_manifest=sorted(hf) == sorted(want_keys), write_s=time.perf_counter() - t0)
+
+
+def _greedy(model, ids, n):
+    import torch
+
+    from spider_tpu_torch.models.decode import GenerateConfig, generate
+
+    with torch.inference_mode():
+        out = generate(model, model.embed(ids), torch.tensor([ids.shape[1]], dtype=torch.int32),
+                       GenerateConfig(max_new_tokens=n))
+    return out["tokens"][0].tolist()
+
+
+def checkpoint_llama(directory: str, dev):
+    """Write the synthetic 8B, load it with from_pretrained('llama',
+    path=...), hold every tensor to the on-card conversion of the written
+    tensors, and decode: a T 128 prefill and CKPT_NEW_TOKENS greedy tokens
+    against a model filled in memory from the same tensors."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.serving.spider_free import make_llama_chat_fn
+
+    src, hf, row = write_llama_checkpoint(directory, dev)
+    (model, tokenizer), load = _timed_load(
+        lambda: factory.from_pretrained("llama", path=directory, device=dev))
+    cfg8 = dataclasses.replace(src.config, quantization="int8")
+    ref = L.LlamaForCausalLM(cfg8, dev).eval()
+    ref.load_state_dict(C.convert_llama_state_dict(hf, cfg8, "int8"), strict=True)
+    bad = _states_equal(model.state_dict(), ref.state_dict())
+    q, scale = C.quantize_int8(hf["model.layers.0.mlp.down_proj.weight"])
+    down = model.model.layers[0].mlp.down_proj
+    same_cfg = all(getattr(model.config, f) == getattr(src.config, f) for f in (
+        "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+        "num_attention_heads", "num_key_value_heads", "rope_theta", "rope_scaling"))
+
+    prompt = CHAT_PROMPT
+    ids = torch.tensor([tokenizer(prompt).input_ids], dtype=torch.long, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = _greedy(model, ids, CKPT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, routes = read_launches(), read_route_launches()
+    want = _greedy(ref, ids, CKPT_NEW_TOKENS)
+    chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=CKPT_NEW_TOKENS)(prompt)
+    ref_chat = make_llama_chat_fn(ref, tokenizer, max_new_tokens=CKPT_NEW_TOKENS)(prompt)
+    gb = row["checkpoint_gb"]
+    row = dict(phase="checkpoint", model="llama", **row)
+    row.update(load, read_gb_per_s=gb / load["load_s"],
+               tokenizer=type(tokenizer).__name__, prompt_tokens=ids.shape[1],
+               tensors=len(ref.state_dict()), tensors_differing=bad[:8],
+               quantize_direct_equal=bool(torch.equal(q, down.kernel_q)
+                                          and torch.equal(scale, down.kernel_scale)),
+               config_equal=same_cfg, new_tokens=len(got), tokens_equal=got == want,
+               chat_equal=chat == ref_chat, generate_s=decode_s, launches=launches,
+               route_launches=routes)
+    row["ok"] = bool(row["keys_equal_manifest"] and not bad and ids.shape[1] == PROMPT_TOKENS and row["quantize_direct_equal"]
+                     and same_cfg and got == want and len(got) == CKPT_NEW_TOKENS
+                     and chat == ref_chat and launches["flash_fwd"] == src.config.num_hidden_layers
+                     and routes["flash_fwd"]["wgmma"] == src.config.num_hidden_layers
+                     and on_ruled_route(routes))
+    del model, ref
+    torch.cuda.empty_cache()
+    return src, hf, row
+
+
+# The manifests of each pipeline's subfolders. AudioLDM's UNet also reads the
+# four class-embedding keys the pipeline's UNet has (the manifest's config has
+# no class embedding), and its vocoder is written weight-normed: each conv's
+# `weight` of the manifest as `weight_g` and `weight_v`.
+PIPELINE_MANIFESTS = {
+    "sd15": {"text_encoder": "clip_vit_l14", "unet": "unet_sd15", "vae": "vae_sd"},
+    "zeroscope": {"text_encoder": "clip_vit_h14", "unet": "unet3d_zeroscope", "vae": "vae_sd"},
+    "audioldm": {"text_encoder": "clap_text", "unet": "unet_audioldm", "vae": "vae_audioldm",
+                 "vocoder": "hifigan_audioldm"},
+}
+CLASS_EMBED_KEYS = [f"class_embedding.linear_{i}.{p}" for i in (1, 2) for p in ("weight", "bias")]
+
+
+def _checkpoint_keys(kind: str, sub: str):
+    keys = manifest_keys(PIPELINE_MANIFESTS[kind][sub])
+    if kind == "audioldm" and sub == "unet":
+        keys += CLASS_EMBED_KEYS
+    if sub == "vocoder":
+        keys = [k[:-7] + s if k.endswith(".weight") else k for k in keys
+                for s in ((".weight_g", ".weight_v") if k.endswith(".weight") else ("",))]
+    return keys
+
+
+def checkpoint_pipeline(kind: str, directory: str, dev):
+    """Write a diffusers-layout synthetic checkpoint of `kind` at full size
+    (fp16, as the releases' fp16 variants; the vocoder fp32 as a .bin), load
+    it with from_pretrained(kind, path=...) in bf16 and hold every tensor to
+    the written one; for sd15 one CFG UNet call at 512px against the
+    pipeline filled in memory from the same tensors."""
+    import torch
+
+    from spider_tpu_torch.models import checkpoint_io as io
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+
+    t0 = time.perf_counter()
+    written, keys_ok, total = {}, True, 0
+    for i, (sub, (module, rules_fn)) in enumerate(
+            factory.pipeline_parts(kind, device=dev, dtype=torch.float16).items()):
+        keys = _checkpoint_keys(kind, sub)
+        rules = rules_fn(keys, module.config)
+        hf = C.export_state_dict(rules, fill_synthetic_(module, CKPT_SEED + i).state_dict())
+        keys_ok &= sorted(hf) == sorted(keys)
+        os.makedirs(os.path.join(directory, sub))
+        cpu = {k: v.cpu() for k, v in hf.items()}
+        if sub == "vocoder":
+            torch.save(cpu, os.path.join(directory, sub, "pytorch_model.bin"))
+        else:
+            io.save_file(cpu, os.path.join(directory, sub, "diffusion_pytorch_model.safetensors"))
+        total += sum(t.numel() * t.element_size() for t in cpu.values())
+        written[sub] = (rules, hf)
+        del module, cpu
+    write_s = time.perf_counter() - t0
+    pipe, load = _timed_load(lambda: factory.from_pretrained(kind, path=directory, device=dev,
+                                                             dtype=torch.bfloat16))
+    bad = []
+    for sub, (rules, hf) in written.items():
+        bad += [f"{sub}.{n}" for n in _states_equal(getattr(pipe, sub).state_dict(),
+                                                    C.convert_state_dict(rules, hf))]
+    row = dict(phase="checkpoint", model=kind, checkpoint_gb=total / 1e9, write_s=write_s,
+               read_gb_per_s=total / 1e9 / load["load_s"], keys_equal_manifest=keys_ok,
+               tensors_differing=bad[:8], **load)
+    row["ok"] = keys_ok and not bad
+    if kind == "sd15":
+        parts = factory.pipeline_parts(kind, device=dev, dtype=torch.bfloat16)
+        unet = parts["unet"][0].eval()
+        unet.load_state_dict(C.convert_state_dict(*written["unet"]), strict=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        ucfg = unet.config                           # 512px: a 64x64 latent, 77 tokens
+        x = torch.randn(1, 64, 64, ucfg.in_channels, generator=gen, device=dev)
+        ctx = torch.randn(2, 77, ucfg.cross_attention_dim, generator=gen, device=dev)
+        x, ctx = x.to(torch.bfloat16), ctx.to(torch.bfloat16)
+        t = torch.tensor([981, 981], device=dev)
+        with torch.inference_mode():
+            got = pipe.unet(torch.cat([x, x]), t, ctx)
+            want = unet(torch.cat([x, x]), t, ctx)
+        row.update(unet_call_bits_equal=bool(torch.equal(got, want)),
+                   unet_out_finite=bool(torch.isfinite(got).all()),
+                   unet_out_shape=list(got.shape))
+        row["ok"] &= row["unet_call_bits_equal"] and row["unet_out_finite"]
+        del parts, unet
+    del pipe, written
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_imagebind(directory: str, dev):
+    """ImageBind-huge (vision and audio trunks, the manifest's keys) as one
+    fp32 .pth, as that release ships, loaded with
+    from_pretrained('imagebind', path=...)."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models.imagebind import ImageBindEncoder, imagebind_huge
+
+    t0 = time.perf_counter()
+    module = ImageBindEncoder(dataclasses.replace(imagebind_huge(), dtype=torch.float32), dev)
+    keys = manifest_keys("imagebind_huge")
+    rules = C.imagebind_rules(keys, module.config)
+    hf = C.export_state_dict(rules, fill_synthetic_(module, CKPT_SEED).state_dict())
+    path = os.path.join(directory, "imagebind_huge.pth")
+    cpu = {k: v.cpu() for k, v in hf.items()}
+    torch.save(cpu, path)
+    total = sum(t.numel() * t.element_size() for t in cpu.values())
+    del module, cpu
+    write_s = time.perf_counter() - t0
+    enc, load = _timed_load(lambda: factory.from_pretrained("imagebind", path=path, device=dev,
+                                                            dtype=torch.bfloat16))
+    bad = _states_equal(enc.state_dict(), C.convert_state_dict(rules, hf))
+    row = dict(phase="checkpoint", model="imagebind", checkpoint_gb=total / 1e9,
+               write_s=write_s, read_gb_per_s=total / 1e9 / load["load_s"],
+               keys_equal_manifest=sorted(hf) == sorted(keys), tensors_differing=bad[:8], **load)
+    row["ok"] = row["keys_equal_manifest"] and not bad
+    del enc, hf
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_spider(directory: str, dev, src, hf):
+    """build_full_spider(paths={'llama': directory}): the base leaves are
+    the checkpoint's bits, the rows past its vocabulary the reference's
+    extension rows, and what trains is what the random-init build trains."""
+    import torch
+
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+
+    spider, load = _timed_load(lambda: factory.build_full_spider(
+        device=dev, paths={"llama": directory}, with_sam=False))
+    llm, V = spider.llm, src.config.vocab_size
+    new_vocab = llm.config.vocab_size
+    state = llm.state_dict()
+    bad = []
+    for rule in C.llama_rules(hf, src.config):
+        name, key = rule.names[0], rule.keys[0]
+        got = state[name][:V] if name in ("embed_tokens.weight", "lm_head.weight") else state[name]
+        if not torch.equal(got, hf[key].to(got.dtype)):
+            bad.append(name)
+    ext = C.extend_llama_embeddings({"embed_tokens.weight": hf["model.embed_tokens.weight"],
+                                     "lm_head.weight": hf["lm_head.weight"]}, new_vocab)
+    rows_equal = all(torch.equal(state[n][V:], ext[n][V:]) for n in ext)
+    trainable = {n for n, p in llm.named_parameters() if p.requires_grad}
+    lora = {n for n in state if n.endswith(("lora_a", "lora_b"))}
+    frozen_ok = (trainable == lora | {"embed_tokens.weight", "lm_head.weight"}
+                 and llm.embed_tokens.weight.dtype == torch.float32
+                 and llm.model.layers[0].self_attn.q_proj.weight.dtype == torch.bfloat16
+                 and V == FROZEN_ROWS)
+    row = dict(phase="checkpoint", model="build_full_spider", vocab=new_vocab, base_vocab=V,
+               new_rows=new_vocab - V, base_tensors_differing=bad[:8],
+               extension_rows_equal=rows_equal, trainable_as_random_build=frozen_ok,
+               tokenizer=type(spider.tokenizer).__name__, **load)
+    row["ok"] = not bad and rows_equal and frozen_ok and new_vocab > V
+    del spider, llm, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_checkpoint(dev, smi: str):
+    """The checkpoint slice: the rows above, each emitted when done, each
+    family written, loaded, checked and deleted before the next; the 8B
+    checkpoint stays on disk for build_full_spider, last. Returns (all rows
+    ok, the launches of the 8B prefill and decode: the slice's main path)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    ok = True
+    root = tempfile.mkdtemp(prefix="spider_ckpt_")
+    t_phase = time.perf_counter()
+
+    def done(row):
+        nonlocal ok
+        emit(dict(row, nvidia_smi=smi))
+        ok &= row["ok"]
+
+    try:
+        done(dict(phase="checkpoint", model="disk", ok=True,
+                  directory_free_gb=shutil.disk_usage(root).free / 1e9))
+        llama_dir = os.path.join(root, "llama")
+        os.makedirs(llama_dir)
+        src, hf, row = checkpoint_llama(llama_dir, dev)
+        done(row)
+        for kind in ("sd15", "zeroscope", "audioldm"):
+            d = os.path.join(root, kind)
+            done(checkpoint_pipeline(kind, d, dev))
+            shutil.rmtree(d)
+        d = os.path.join(root, "imagebind")
+        os.makedirs(d)
+        done(checkpoint_imagebind(d, dev))
+        shutil.rmtree(d)
+        done(checkpoint_spider(llama_dir, dev, src, hf))
+        del src, hf
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    done(dict(phase="checkpoint", model="total", seconds=time.perf_counter() - t_phase, ok=ok))
+    return ok, row["launches"]
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -2113,10 +2568,15 @@ def phase_floors(rows, spider_free_T: int) -> dict:
 
 def main() -> int:
     kernels_only = sys.argv[1:] == ["kernels"]
-    if sys.argv[1:] and not kernels_only:
-        print("usage: chip_smoke.py [kernels]", file=sys.stderr)
+    checkpoint_only = sys.argv[1:] == ["checkpoint"]
+    if sys.argv[1:] and not (kernels_only or checkpoint_only):
+        print("usage: chip_smoke.py [kernels | checkpoint]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # Nothing here may reach a network: a checkpoint directory without
+    # tokenizer files must not send transformers (where installed) to a hub.
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
     try:
         from spider_tpu_torch.ops import cuda_build
     except ImportError as e:
@@ -2158,6 +2618,14 @@ def main() -> int:
 
     from spider_tpu_torch.models import factory
     from spider_tpu_torch.models.tokenizer import TinyTokenizer
+
+    if checkpoint_only:
+        ok &= phase_checkpoint(dev, smi)[0]
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a checkpoint row failed (see the JSON lines above)",
+                  file=sys.stderr)
+        return 0 if ok else 1
 
     spider_free_T = spider_free_prompt_len(TinyTokenizer())
 
@@ -2219,6 +2687,15 @@ def main() -> int:
         ok &= row["ok"]
     for name in KERNELS:
         main_launches[name] += train_launches[name]
+
+    # The checkpoint slice: real layouts written at full size and loaded;
+    # the card's memory goes to the 8B checkpoint and the Spider built on it.
+    del sd, ad, vd
+    torch.cuda.empty_cache()
+    ckpt_ok, ckpt_launches = phase_checkpoint(dev, smi)
+    ok &= ckpt_ok
+    for name in KERNELS:
+        main_launches[name] += ckpt_launches[name]
     ok &= all(n > 0 for n in main_launches.values())
 
     # One row per kernel at a shape its main path gives it (name of the row

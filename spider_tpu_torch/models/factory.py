@@ -1,22 +1,25 @@
-"""Random-init builders of the port's models on an explicit device, from a
-seeded ``torch.Generator`` (counterpart of the random-init branches of
+"""Builders of the port's models on an explicit device (counterpart of
 spider_tpu/models/factory.py): the full-size serving models
 (``from_pretrained``) and the trainable Spider at test scale
-(``build_tiny_spider``) and at full width (``build_full_spider``). Weight
-values do not change the work a forward pass does; real weights load through
-spider_tpu/models/convert.py and ``convert.load_jax_params``.
+(``build_tiny_spider``) and at full width (``build_full_spider``). Without a
+checkpoint path they are random from a seeded ``torch.Generator`` (weight
+values do not change the work a forward pass does); with one they stream
+an HF/diffusers checkpoint through models/convert.py onto the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from spider_tpu_torch.models import convert as C
 from spider_tpu_torch.models import llama as L
-from spider_tpu_torch.models.tokenizer import TinyTokenizer, extend_tokenizer
+from spider_tpu_torch.models.tokenizer import TinyTokenizer, extend_tokenizer, load_tokenizer
 
 # Standard deviation of an int8 weight drawn uniformly from [-127, 127], and
 # of an int4 weight, a nibble of a uniformly drawn byte, uniform in [-8, 7].
@@ -73,85 +76,147 @@ def llama3_8b_quantized(quantization: str = "int8") -> L.LlamaConfig:
                                param_dtype=torch.bfloat16)
 
 
-def from_pretrained(kind: str, *, device, dtype: torch.dtype = torch.bfloat16,
-                    seed: int = 0, quantization: str = "int8"):
-    """Full-size random-init model on `device`.
+# Files of which an HF tokenizer directory holds at least one.
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model", "vocab.json",
+                    "vocab.txt", "spiece.model", "merges.txt")
 
-    kinds: 'sd15' -> StableDiffusionPipeline at 512px (text encoder, UNet
-    and VAE in `dtype`); 'zeroscope' -> TextToVideoSDPipeline at 576x320
-    (CLIP ViT-H, the 1.4B UNet3D and the SD VAE in `dtype`); 'audioldm' ->
-    AudioLDMPipeline (CLAP text, the AudioLDM-l UNet and mel VAE in `dtype`;
-    the HiFi-GAN vocoder in fp32, as the reference computes it); 'llama' ->
-    (LlamaForCausalLM 8B with `quantization` 'int8' or 'int4' projections,
-    TinyTokenizer).
-    'imagebind' -> ImageBindEncoder (imagebind_huge) in `dtype`.
-    There is no checkpoint path yet: convert a checkpoint with
-    spider_tpu/models/convert.py, then fill the returned module with
-    ``spider_tpu_torch.models.convert.load_jax_params``.
-    """
-    if kind == "llama":
-        if quantization not in ("int8", "int4"):
-            raise ValueError(f"llama quantization must be 'int8' or 'int4', got "
-                             f"{quantization!r}")
-        return build_llama(llama3_8b_quantized(quantization), device, seed), TinyTokenizer()
+
+def _hf_tokenizer(path: Optional[str], subfolder: str = "tokenizer"):
+    """The checkpoint's HF tokenizer (``<path>/<subfolder>`` if that is a
+    directory, else ``path``), or TinyTokenizer when there is no path or it
+    cannot be loaded, as spider_tpu/models/factory.py:201-213 falls back.
+    Only a local directory holding tokenizer files is handed to
+    ``transformers`` (never a name it could look up on a hub, nor a
+    directory without a vocabulary, from which some of its versions build
+    an empty tokenizer); without the package it is always TinyTokenizer."""
+    if path is not None:
+        cand = os.path.join(path, subfolder)
+        target = cand if os.path.isdir(cand) else path
+        if not (os.path.isdir(target) and
+                any(os.path.exists(os.path.join(target, f)) for f in _TOKENIZER_FILES)):
+            logging.warning("no tokenizer files in %s; using TinyTokenizer", target)
+            return TinyTokenizer()
+        try:
+            return load_tokenizer(target)
+        except Exception as e:          # the reference's fallback, logged here
+            logging.warning("no tokenizer loaded from %s (%s: %s); using TinyTokenizer",
+                            target, type(e).__name__, e)
+    return TinyTokenizer()
+
+
+def _sub(path: Optional[str], name: str) -> Optional[str]:
+    """A diffusers subfolder of `path` if it exists, else `path` itself."""
+    if path is None:
+        return None
+    p = os.path.join(path, name)
+    return p if os.path.exists(p) else path
+
+
+def pipeline_parts(kind: str, *, device, dtype: torch.dtype = torch.bfloat16):
+    """{diffusers subfolder: (module, rule set)} of a full-size pipeline:
+    'sd15' (CLIP ViT-L/14 text, the SD-1.5 UNet, the SD VAE), 'zeroscope'
+    (CLIP ViT-H/14, the 1.4B UNet3D, the SD VAE), 'audioldm' (CLAP text, the
+    AudioLDM-l UNet with its class embedding, the mel VAE, and the HiFi-GAN
+    vocoder, in fp32 as the reference computes it). Modules in `dtype`,
+    their weights as constructed."""
+    from spider_tpu_torch.models.clip_text import (ClapTextConfig, ClapTextModel,
+                                                   CLIPTextModel, clip_vit_h14, clip_vit_l14)
+    from spider_tpu_torch.models.unet2d import (UNet2DConditionModel, unet_audioldm,
+                                                unet_sd15)
+    from spider_tpu_torch.models.unet3d import UNet3DConditionModel, unet3d_zeroscope
+    from spider_tpu_torch.models.vae import AutoencoderKL, vae_audioldm, vae_sd
+    from spider_tpu_torch.models.vocoder import HifiGan, hifigan_audioldm
+
+    def rep(cfg):
+        return dataclasses.replace(cfg, dtype=dtype)
+
     if kind == "sd15":
-        from spider_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_l14
-        from spider_tpu_torch.models.pipelines.sd import StableDiffusionPipeline
-        from spider_tpu_torch.models.unet2d import UNet2DConditionModel, unet_sd15
-        from spider_tpu_torch.models.vae import AutoencoderKL, vae_sd
-
-        gen = torch.Generator(device=device).manual_seed(seed)
-        text = CLIPTextModel(dataclasses.replace(clip_vit_l14(), dtype=dtype), device)
-        unet = UNet2DConditionModel(dataclasses.replace(unet_sd15(), dtype=dtype), device)
-        vae = AutoencoderKL(dataclasses.replace(vae_sd(), dtype=dtype), device)
-        for m in (text, unet, vae):
-            random_init_(m.eval(), gen)
-        return StableDiffusionPipeline(TinyTokenizer(), text, unet, vae, height=512,
-                                       width=512)
+        return {"text_encoder": (CLIPTextModel(rep(clip_vit_l14()), device), C.clip_text_rules),
+                "unet": (UNet2DConditionModel(rep(unet_sd15()), device), C.unet2d_rules),
+                "vae": (AutoencoderKL(rep(vae_sd()), device), C.vae_rules)}
     if kind == "zeroscope":
-        from spider_tpu_torch.models.clip_text import CLIPTextModel, clip_vit_h14
-        from spider_tpu_torch.models.pipelines.vd import TextToVideoSDPipeline
-        from spider_tpu_torch.models.unet3d import UNet3DConditionModel, unet3d_zeroscope
-        from spider_tpu_torch.models.vae import AutoencoderKL, vae_sd
-
-        gen = torch.Generator(device=device).manual_seed(seed)
-        text = CLIPTextModel(dataclasses.replace(clip_vit_h14(), dtype=dtype), device)
-        unet = UNet3DConditionModel(dataclasses.replace(unet3d_zeroscope(), dtype=dtype),
-                                    device)
-        vae = AutoencoderKL(dataclasses.replace(vae_sd(), dtype=dtype), device)
-        for m in (text, unet, vae):
-            random_init_(m.eval(), gen)
-        return TextToVideoSDPipeline(TinyTokenizer(), text, unet, vae)
+        return {"text_encoder": (CLIPTextModel(rep(clip_vit_h14()), device), C.clip_text_rules),
+                "unet": (UNet3DConditionModel(rep(unet3d_zeroscope()), device), C.unet3d_rules),
+                "vae": (AutoencoderKL(rep(vae_sd()), device), C.vae_rules)}
     if kind == "audioldm":
-        from spider_tpu_torch.models.clip_text import ClapTextConfig, ClapTextModel
-        from spider_tpu_torch.models.pipelines.ad import AudioLDMPipeline
-        from spider_tpu_torch.models.unet2d import UNet2DConditionModel, unet_audioldm
-        from spider_tpu_torch.models.vae import AutoencoderKL, vae_audioldm
-        from spider_tpu_torch.models.vocoder import HifiGan, hifigan_audioldm
-
-        gen = torch.Generator(device=device).manual_seed(seed)
-        tcfg = dataclasses.replace(ClapTextConfig(), dtype=dtype)
+        tcfg = rep(ClapTextConfig())
         # The cross-attention context is the CLAP vector itself, so its
         # width is the CLAP projection width (pipelines/ad.py).
         ucfg = dataclasses.replace(unet_audioldm(), dtype=dtype,
                                    cross_attention_dim=tcfg.projection_dim,
                                    addition_embed_type="class_embed",
                                    projection_class_embeddings_input_dim=tcfg.projection_dim)
-        text = ClapTextModel(tcfg, device)
-        unet = UNet2DConditionModel(ucfg, device)
-        vae = AutoencoderKL(dataclasses.replace(vae_audioldm(), dtype=dtype), device)
-        vocoder = HifiGan(hifigan_audioldm(), device)
-        for m in (text, unet, vae, vocoder):
-            random_init_(m.eval(), gen)
-        return AudioLDMPipeline(TinyTokenizer(), text, unet, vae, vocoder, mel_bins=64)
+        return {"text_encoder": (ClapTextModel(tcfg, device), C.clap_text_rules),
+                "unet": (UNet2DConditionModel(ucfg, device), C.unet2d_rules),
+                "vae": (AutoencoderKL(rep(vae_audioldm()), device), C.vae_rules),
+                "vocoder": (HifiGan(hifigan_audioldm(), device), C.hifigan_rules)}
+    raise ValueError(f"no pipeline kind {kind!r} (expected 'sd15', 'zeroscope' or 'audioldm')")
+
+
+def from_pretrained(kind: str, path: Optional[str] = None, *, device,
+                    dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                    quantization: str = "int8"):
+    """Full-size model on `device`: random from `seed` without `path`; with
+    `path`, the checkpoint there, streamed onto the device (an HF/diffusers
+    directory or a single .safetensors/.bin/.pth file).
+
+    kinds: 'sd15' -> StableDiffusionPipeline at 512px, 'zeroscope' ->
+    TextToVideoSDPipeline at 576x320, 'audioldm' -> AudioLDMPipeline
+    (``pipeline_parts`` has their modules; a checkpoint is read from its
+    ``text_encoder``, ``unet``, ``vae`` and ``vocoder`` subfolders, the
+    tokenizer from ``tokenizer``); 'llama' -> (LlamaForCausalLM 8B with
+    `quantization` 'int8' or 'int4' projections, tokenizer): from a
+    checkpoint, its config.json gives the shape and the projections quantise
+    to int8, as the reference's from_pretrained does; 'imagebind' ->
+    ImageBindEncoder (imagebind_huge) in `dtype`. A checkpoint's tokenizer
+    is its HF tokenizer through ``transformers``, or TinyTokenizer where
+    that cannot load (``_hf_tokenizer``).
+    """
+    if kind == "llama":
+        if quantization not in ("int8", "int4"):
+            raise ValueError(f"llama quantization must be 'int8' or 'int4', got "
+                             f"{quantization!r}")
+        if path is None:
+            return (build_llama(llama3_8b_quantized(quantization), device, seed),
+                    TinyTokenizer())
+        if quantization != "int8":
+            raise NotImplementedError("a checkpoint loads with int8 projections only, as "
+                                      "the reference's from_pretrained does")
+        _, model = C.convert_llama_checkpoint(path, "int8", device=device,
+                                              param_dtype=torch.bfloat16)
+        return model, _hf_tokenizer(path, "")
     if kind == "imagebind":
         from spider_tpu_torch.models.imagebind import ImageBindEncoder, imagebind_huge
 
-        gen = torch.Generator(device=device).manual_seed(seed)
-        cfg = dataclasses.replace(imagebind_huge(), dtype=dtype)
-        return random_init_(ImageBindEncoder(cfg, device).eval(), gen)
-    raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', 'audioldm', "
-                     f"'imagebind' or 'llama')")
+        model = ImageBindEncoder(dataclasses.replace(imagebind_huge(), dtype=dtype),
+                                 device).eval()
+        if path is None:
+            return random_init_(model, torch.Generator(device=device).manual_seed(seed))
+        return C.load_checkpoint(model, C.imagebind_rules, path)
+    if kind not in ("sd15", "zeroscope", "audioldm"):
+        raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', "
+                         f"'audioldm', 'imagebind' or 'llama')")
+    parts = pipeline_parts(kind, device=device, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for sub, (module, rules) in parts.items():
+        module.eval()
+        if path is None:
+            random_init_(module, gen)
+        else:
+            C.load_checkpoint(module, rules, _sub(path, sub))
+    tok = _hf_tokenizer(path) if path is not None else TinyTokenizer()
+    mods = [module for module, _ in parts.values()]
+    if kind == "sd15":
+        from spider_tpu_torch.models.pipelines.sd import StableDiffusionPipeline
+
+        return StableDiffusionPipeline(tok, *mods, height=512, width=512)
+    if kind == "zeroscope":
+        from spider_tpu_torch.models.pipelines.vd import TextToVideoSDPipeline
+
+        return TextToVideoSDPipeline(tok, *mods)
+    from spider_tpu_torch.models.pipelines.ad import AudioLDMPipeline
+
+    return AudioLDMPipeline(tok, *mods, mel_bins=64)
 
 
 # ---------------------------------------------------------------------------
@@ -254,57 +319,91 @@ def build_tiny_spider(*, device, seed: int = 0, use_moe_aligner: bool = False,
                   **spider_kwargs)
 
 
-def build_full_spider(*, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                      lora_r: int = 32, with_encoder: bool = True, with_sam: bool = False,
+def build_full_spider(*, device, paths: Optional[Dict[str, str]] = None, seed: int = 0,
+                      dtype: torch.dtype = torch.bfloat16, lora_r: int = 32,
+                      with_encoder: bool = True, with_sam: bool = False,
                       with_pipes: bool = False, use_moe_aligner: bool = True,
                       max_context_len: int = 500, remat: bool = True,
                       diffusion_pipes: Optional[Dict] = None, **spider_kwargs):
-    """Full-size trainable Spider at the reference operating point, random
-    weights: frozen ImageBind-huge encoder -> input projection -> LoRA-r32
-    Llama-3-8B architecture with the extended signal-token vocabulary ->
+    """Full-size trainable Spider at the reference operating point: frozen
+    ImageBind-huge encoder -> input projection -> LoRA-r32 Llama-3-8B
+    architecture with the extended signal-token vocabulary ->
     moe_transformer aligners (hidden 512, 3 experts x 4+4 layers; dims per
     FULL_ALIGN_SPECS).
 
+    paths: checkpoint directories or files by component ('llama',
+    'imagebind', 'sd15', 'zeroscope', 'audioldm'; 'sam' is not ported and
+    raises); a component without one is random from `seed`. The llama
+    checkpoint gives the base weights (its config.json the shape) and keeps
+    them unquantised; its vocabulary grows by ``extend_embedding_rows``,
+    the reference's new rows. The LoRA pairs, the aligner and the input
+    projection keep their random init, as the reference grafts them.
+
     One-card operating point: the base Llama weights are stored in `dtype`
     and frozen (no gradient, no optimizer state); what trains is fp32: the
-    LoRA pairs, ``embed_tokens`` and ``lm_head`` (whose first 128256 rows the
-    optimizer freezes: ``num_frozen_embed_rows``), the input projection, the
-    aligner and ``logit_scale``. ``remat`` recomputes each of the 32 blocks
-    in the backward pass. The vocabulary is 128256 + the tokenizer's, rounded
-    up to a multiple of 128.
+    LoRA pairs, ``embed_tokens`` and ``lm_head`` (whose first rows, the base
+    vocabulary, the optimizer freezes: ``num_frozen_embed_rows``), the input
+    projection, the aligner and ``logit_scale``. ``remat`` recomputes each of
+    the blocks in the backward pass. Vocabulary: with TinyTokenizer (no
+    checkpoint, or one whose tokenizer cannot load: ``_hf_tokenizer``) the
+    base vocabulary (128256 for llama3_8b) + the tokenizer's, rounded up to a
+    multiple of 128, so the signal tokens' rows are new rows; with the
+    checkpoint's HF tokenizer, as the reference has it, its length rounded up
+    to a multiple of 128, or the base vocabulary if that is larger.
 
     with_pipes builds resident SD-1.5 / ZeroScope / AudioLDM pipelines for the
     alignment targets; `diffusion_pipes` hands over pipelines already built.
     """
     from spider_tpu_torch.models.spider import Spider
 
-    if with_sam:
-        raise NotImplementedError("the SAM mask decoder is not ported: with_sam must be False")
+    paths = {k: v for k, v in (paths or {}).items() if v}
+    if with_sam or "sam" in paths:
+        raise NotImplementedError("the SAM mask decoder is not ported (ROADMAP A8): with_sam "
+                                  "must be False and paths['sam'] unset")
+    unknown = set(paths) - {"llama", "imagebind", "sd15", "zeroscope", "audioldm"}
+    if unknown:
+        raise ValueError(f"unknown checkpoint path(s) {sorted(unknown)}")
     gen = torch.Generator(device=device).manual_seed(seed)
-    tokenizer = TinyTokenizer()
+    llama_path = paths.get("llama")
+    tokenizer = _hf_tokenizer(llama_path, "") if llama_path else TinyTokenizer()
     modality_tokens = {"IMAGE": 1, "VIDEO": 1, "AUDIO": 1, "MASK": 1, "BOX": 1}
     extend_tokenizer(tokenizer, modality_tokens, bbox_bins=0)
-    new_vocab = -(-(128256 + len(tokenizer)) // 128) * 128
-    cfg = dataclasses.replace(L.llama3_8b(), vocab_size=new_vocab,
-                              lora=L.LoraConfig(r=lora_r), dtype=dtype, param_dtype=dtype,
-                              remat=remat)
+    base = C.read_llama_config(llama_path) if llama_path else L.llama3_8b()
+    if isinstance(tokenizer, TinyTokenizer):
+        new_vocab = -(-(base.vocab_size + len(tokenizer)) // 128) * 128
+    else:
+        new_vocab = max(-(-len(tokenizer) // 128) * 128, base.vocab_size)
+    cfg = dataclasses.replace(base, vocab_size=new_vocab, lora=L.LoraConfig(r=lora_r),
+                              dtype=dtype, param_dtype=dtype, remat=remat)
     llm = random_init_(L.LlamaForCausalLM(cfg, device), gen)
     llm.requires_grad_(False)
+    lora = set()
     for name, p in llm.named_parameters():
         if name.endswith(("lora_a", "lora_b")):
             p.requires_grad_(True)
+            lora.add(name)
     for mod in (llm.embed_tokens, llm.lm_head):       # new rows train, in fp32
         mod.weight = nn.Parameter(mod.weight.detach().float())
+    if llama_path:
+        def grow(name, t):
+            if name in ("embed_tokens.weight", "lm_head.weight"):
+                return C.extend_embedding_rows(name, t, new_vocab)
+            return t
+
+        C.load_checkpoint(llm, C.llama_rules, llama_path, skip=lora, hook=grow)
 
     encoder = None
     if with_encoder:
-        encoder = from_pretrained("imagebind", device=device, dtype=dtype, seed=seed)
+        encoder = from_pretrained("imagebind", paths.get("imagebind"), device=device,
+                                  dtype=dtype, seed=seed)
     aligners, moe = _build_aligners(cfg.hidden_size, FULL_ALIGN_SPECS, use_moe_aligner, 512,
                                     4, device, gen)
     pipes = dict(diffusion_pipes or {})
     if with_pipes:
         for m, kind in (("IMAGE", "sd15"), ("VIDEO", "zeroscope"), ("AUDIO", "audioldm")):
-            pipes.setdefault(m, from_pretrained(kind, device=device, dtype=dtype, seed=seed))
+            if m not in pipes:
+                pipes[m] = from_pretrained(kind, paths.get(kind), device=device, dtype=dtype,
+                                           seed=seed)
     return Spider(llm=llm, tokenizer=tokenizer, encoder=encoder,
                   llama_proj=_llama_proj(1024, cfg.hidden_size, device, gen),
                   aligners=aligners, moe_aligner=moe, diffusion_pipes=pipes,
@@ -314,19 +413,17 @@ def build_full_spider(*, device, seed: int = 0, dtype: torch.dtype = torch.bfloa
 
 def build_spider_from_config(model_config: Dict, *, device):
     """Config blob -> Spider on `device`. preset='tiny' builds the test-scale
-    model, 'full' the full-width one (random weights; checkpoint paths are
-    not ported yet)."""
+    model (random weights; it takes no checkpoint paths), 'full' the
+    full-width one, loading the checkpoints ``paths`` names."""
     cfg = dict(model_config)
     preset = cfg.pop("preset", "tiny")
     if preset == "tiny":
+        if any(cfg.get("paths", {}).values()):
+            raise ValueError("preset 'tiny' is random and takes no checkpoint paths")
         keys = ("use_moe_aligner", "with_pipes", "modality_tokens", "lora_r") + _SPIDER_KWARGS
         return build_tiny_spider(device=device, **{k: cfg[k] for k in keys if k in cfg})
     if preset == "full":
-        if cfg.get("paths"):
-            raise NotImplementedError("loading checkpoints by path is not ported: convert "
-                                      "them with spider_tpu/models/convert.py and fill the "
-                                      "model with convert.load_jax_spider")
-        keys = ("lora_r", "with_encoder", "with_sam", "with_pipes",
+        keys = ("paths", "lora_r", "with_encoder", "with_sam", "with_pipes",
                 "use_moe_aligner") + _SPIDER_KWARGS
         return build_full_spider(device=device, **{k: cfg[k] for k in keys if k in cfg})
     raise ValueError(f"unknown spider preset {preset!r} (expected 'tiny' or 'full')")

@@ -1,9 +1,11 @@
 """Spider's vocabulary extension and a byte-level tokenizer for tests and
 offline use.
 
-Copies of ``extend_tokenizer`` and ``TinyTokenizer`` from
-spider_tpu/models/tokenizer.py, which is pure Python: the port needs them
-without importing the JAX package. ``extend_tokenizer`` adds per-modality tag
+Copies of ``extend_tokenizer``, ``TinyTokenizer`` and ``load_tokenizer`` of
+the JAX package's models/tokenizer.py, which is pure Python: the port needs
+them without importing the JAX package. ``load_tokenizer`` imports
+``transformers`` only when it is given a path, and raises ImportError where
+that package is missing. ``extend_tokenizer`` adds per-modality tag
 tokens ``<X>``/``</X>``, signal tokens ``[X0]..[Xn]``, the special tokens
 ``[INPUT]/[OUTPUT]/[END]/[TASK]...`` and ``<Loc%d>`` bbox bins to any object
 with the HF-tokenizer surface (``add_tokens`` / ``__call__`` / ``__len__``),
@@ -180,3 +182,20 @@ class TinyTokenizer:
             return self._specials.index(token)
         ids = self.encode(token, add_special_tokens=False)
         return ids[0] if len(ids) == 1 else -1
+
+
+def load_tokenizer(path_or_name: Optional[str] = None):
+    """HF tokenizer when a local path is given; TinyTokenizer otherwise."""
+    if path_or_name:
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError(f"load_tokenizer({path_or_name!r}) reads an HF tokenizer, which "
+                              "needs the transformers package; it is not installed") from e
+
+        tok = AutoTokenizer.from_pretrained(path_or_name, use_fast=True)
+        if tok.pad_token is None:
+            tok.pad_token = tok.eos_token
+        tok.padding_side = "right"
+        return tok
+    return TinyTokenizer()
