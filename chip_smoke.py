@@ -50,6 +50,28 @@ Phases, each printing one JSON line:
                contiguous batcher (8 slots, int8), the paged batcher (16 slots over
                32 blocks of 128, int8) and the same paged batcher on the int4 model;
                then device ms a 16-slot paged decode step of the int4 model, profiled
+  speculative  bench_suite.py::bench_speculative_decode's point on the 8B int8 model:
+               128 prompt ids, 128 new tokens, gamma 8, n-grams up to 3; tok/s of the
+               stepped greedy generate, the host loop and the on-device loop (each
+               twice, the same bits), the oracle curve (about 100%, 50% and 0%
+               acceptance), windows and tokens a window, 32 x (1 + windows) flash
+               launches a run; the prefix it shares with the stepped stream and the
+               stepped top-2 gap where they part; SpiderFree.chat with the speculative
+               chat function beside the plain one
+  chat_stream  decode.stream_generate on the 8B: 150 tokens after the 128-token prompt,
+               equal to generate's; time to first token, tok/s
+  llm_batcher  serving/batcher.py::LlmBatcher: 8 serving prompts at once, 48 tokens;
+               each wave's tokens equal to a generate over its padded array; agreement
+               with single-request decoding as a share; waves, tok/s
+  qwen2        qwen2_7b at full width and depth (random, q/k/v biases nonzero): int8
+               prefill T 128 + 32 tokens; the same with mrope positions (equal tokens);
+               the paged batcher against fresh greedy decodes; int4 generate with its
+               launches by route; a synthetic Qwen2-layout checkpoint (4 of 28 layers)
+               through from_pretrained('llama', path=...)
+  llama2       llama2_7b int8 at full width and depth: prefill T 128 + 32 tokens
+  moe          a Llama at llama3_8b widths cut to 2 layers with 4 experts: top-1 and
+               top-2 forwards against plain attention, make_lm_train_step at [4, 512]
+               with the aux term, peak GB
   train        the train entry's own build_runner (spider_tpu_torch/train.py: task ->
                datasets -> build_spider_from_config(preset='full') -> runner_base) at
                full width (LoRA r 32 on the llama3_8b architecture with the extended
@@ -83,7 +105,7 @@ Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
 Each main-path phase (chat, request, any_to_many, each serving configuration,
-the train steps) sets every kernel's launch count to 0 just before it runs and
+speculative to moe, the train steps) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
 and the run fails if a main-path launch took a general route: every bf16
@@ -93,7 +115,9 @@ form and the paged split form; the int4 launches are held route by route
 
 `python3 chip_smoke.py kernels` stops after the kernel and routing rows (no
 models are built); `python3 chip_smoke.py checkpoint` runs the build, the
-wgmma probe and the checkpoint phase only. Neither prints the final line.
+wgmma probe and the checkpoint phase only; `python3 chip_smoke.py family` the
+build, the wgmma probe and the phases speculative to moe. None prints the
+final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -443,6 +467,15 @@ def phase_kernel_flash(dev, spider_free_T: int):
         ("zeroscope_self_T2880_D40", (32, 2880, 2880, 8, 8, 40), dict(causal=False)),
         ("audioldm_self_T8192_D16", (2, 8192, 8192, 8, 8, 16), dict(causal=False)),
         ("audioldm_cross_T8192_S1_D16", (2, 8192, 1, 8, 8, 16), dict(causal=False)),
+        # a speculative verify window mid-run: 8 queries at q_offset = kv_len
+        # over the cache of T + N + G = 264 keys, kv_len + 8 of them live
+        ("verify_T8_S264", (1, SPEC_GAMMA, 264, 32, 8, 128),
+         dict(causal=True, kv_len=i32(200), q_offset=i32(192))),
+        # the Qwen2-7B (28/4 heads, a group of 7) and Llama-2-7B (32/32) prefills
+        ("qwen2_prefill_T128", (1, 128, 128 + FAMILY_NEW_TOKENS, 28, 4, 128),
+         dict(causal=True, kv_len=i32(128), q_offset=0)),
+        ("llama2_prefill_T128", (1, 128, 128 + FAMILY_NEW_TOKENS, 32, 32, 128),
+         dict(causal=True, kv_len=i32(128), q_offset=0)),
     ]
     rows = []
     for i, (name, shape, kw) in enumerate(cases):
@@ -816,17 +849,20 @@ def phase_kernel_paged(dev):
 
     from spider_tpu_torch.ops import paged_attention as PA
 
-    page, Hq, Hkv, D = 128, 32, 8, 128
-    # (name, slots, max_pages, kv_len per slot): the serving shape (16 slots,
-    # max_len 512) with lengths at page edges and one past the table; the same
-    # with every slot full; the chat's long context in one slot.
+    page, D = 128, 128
+    # (name, slots, max_pages, kv_len per slot, query heads, KV heads): the
+    # serving shape (16 slots, max_len 512) with lengths at page edges and one
+    # past the table; the same with every slot full; the chat's long context
+    # in one slot; the serving shape for Qwen2-7B (a group of 7 query heads,
+    # padded to the kernel's 16 rows).
     serving_lens = [1, 127, 128, 129, 512, 4 * page + 5, 300, 2, 255, 256, 257, 384, 511,
                     64, 65, 400]
-    cases = [("serving_B16_MP4", 16, 4, serving_lens),
-             ("serving_B16_MP4_len512", 16, 4, [512] * 16),
-             ("chat_B1_MP14_len1758", 1, 14, [1758])]
+    cases = [("serving_B16_MP4", 16, 4, serving_lens, 32, 8),
+             ("serving_B16_MP4_len512", 16, 4, [512] * 16, 32, 8),
+             ("chat_B1_MP14_len1758", 1, 14, [1758], 32, 8),
+             ("qwen2_B16_MP4", 16, 4, serving_lens, 28, 4)]
     rows = []
-    for i, (name, B, MP, lens) in enumerate(cases):
+    for i, (name, B, MP, lens, Hq, Hkv) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(300 + i)
         n_blocks = B * MP + 1
         q = torch.randn((B, Hq, D), generator=g, device=dev, dtype=torch.bfloat16)
@@ -889,6 +925,9 @@ def _int4_case(dev, seed, M, K, N):
 # llama3_8b's projections (K in, N out); gate and up share a shape.
 INT4_SHAPES = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
                "down": (14336, 4096), "lm_head": (4096, 128256)}
+# qwen2_7b's: down's K/2 = 9472 keeps it on "mma" at up to 16 rows.
+QWEN2_INT4_SHAPES = {"q_o": (3584, 3584), "k_v": (3584, 512), "gate_up": (3584, 18944),
+                     "down": (18944, 3584)}
 
 
 def phase_kernel_int4(dev):
@@ -906,6 +945,8 @@ def phase_kernel_int4(dev):
     cases.append(("lm_head_M128", 128, *INT4_SHAPES["lm_head"]))
     cases += [(f"{n}_M1024", 1024, *INT4_SHAPES[n]) for n in ("gate_up", "down")]
     cases.append(("ragged_M37_K4100_N1000", 37, 4100, 1000))
+    cases += [(f"qwen2_{n}_M{M}", M, K, N) for M in (1, 16, 128)
+              for n, (K, N) in QWEN2_INT4_SHAPES.items()]
     rows = []
     for i, (name, M, K, N) in enumerate(cases):
         x, packed, scale = _int4_case(dev, 400 + i, M, K, N)
@@ -2489,6 +2530,706 @@ def phase_checkpoint(dev, smi: str):
     return ok, row["launches"]
 
 
+# ---------------------------------------------------------------------------
+# The rest of the Llama family on the main path: prompt-lookup speculation,
+# token streaming and the wave batcher on the 8B chat model; Qwen2-7B and
+# Llama-2-7B at full width and depth; the MoE FFN at llama3_8b width
+# ---------------------------------------------------------------------------
+
+SPEC_PROMPT_TOKENS = 128              # bench_suite.py::bench_speculative_decode's point
+SPEC_NEW_TOKENS = 128
+SPEC_GAMMA = 8
+SPEC_MAX_NGRAM = 3
+FAMILY_NEW_TOKENS = 32
+MROPE_SECTION = (16, 24, 24)          # Qwen2-VL's split of head_dim/2 = 64
+BATCHER_REQUESTS = 8
+BATCHER_SINGLE = 4                    # of them also decoded alone, for the agreement share
+QWEN2_PAGED_REQUESTS = 4
+QWEN2_CKPT_LAYERS = 4                 # the synthetic Qwen2 checkpoint's depth (of 28)
+MOE_LAYERS = 2                        # of llama3_8b's 32: 60 GB of experts at full depth
+MOE_EXPERTS = 4
+MOE_PROMPT_TOKENS = 128
+# Two routes whose logits differ by at most LOGIT_ATOL (the in-model bound of
+# paged_check and int4_check) can pick different argmaxes only where the top
+# two logits are within twice that.
+FLIP_GAP = 2 * LOGIT_ATOL
+
+
+def _sync_s(fn):
+    """(fn(), host seconds to a device synchronise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _add_launches(total: dict, counts: dict) -> dict:
+    for name in KERNELS:
+        total[name] = total.get(name, 0) + counts[name]
+    return total
+
+
+def _first_divergence(a, b):
+    """Index of the first position where token lists a and b differ (the
+    shorter length if one is a prefix of the other), and whether they are
+    equal."""
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n, list(a) == list(b)
+
+
+def _stepped_gap(model, ids, tokens, i, max_len):
+    """Top-2 logit gap of the stepped greedy decode (decode.generate's
+    prefill and single-token steps over a cache of max_len) at the step that
+    chose tokens[i]."""
+    import torch
+
+    from spider_tpu_torch.models.llama import init_kv_cache
+
+    dev = model.device
+    T = len(ids)
+    cache = init_kv_cache(model.config, 1, max_len, device=dev)
+    kv = torch.tensor([T], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits, _, cache = model(input_ids=torch.tensor([ids], device=dev), kv_write_index=0,
+                                 kv_cache=cache, kv_len=kv)
+        for t in tokens[:i]:
+            logits, _, cache = model(input_ids=torch.tensor([[t]], device=dev),
+                                     positions=kv[:, None], kv_write_index=kv, kv_cache=cache,
+                                     kv_len=kv + 1)
+            kv = kv + 1
+        top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def _greedy_by_positions(model, ids, n, streams: bool):
+    """decode.generate's greedy stream with explicit positions: [B, T] as
+    generate gives them, or the same positions on the three mrope streams
+    [3, B, T] (text tokens)."""
+    import torch
+
+    from spider_tpu_torch.models.llama import init_kv_cache
+
+    dev = model.device
+    T = len(ids)
+    cache = init_kv_cache(model.config, 1, T + n, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    kv = torch.tensor([T], dtype=torch.int32, device=dev)
+    lift = (lambda p: p[None].expand(3, *p.shape)) if streams else (lambda p: p)
+    with torch.inference_mode():
+        logits, _, cache = model(input_ids=torch.tensor([ids], device=dev), positions=lift(pos),
+                                 kv_write_index=0, kv_cache=cache, kv_len=kv)
+        tok = logits[:, -1].argmax(-1)
+        out = [tok]
+        for _ in range(n - 1):
+            logits, _, cache = model(input_ids=tok[:, None], positions=lift(kv[:, None]),
+                                     kv_write_index=kv, kv_cache=cache, kv_len=kv + 1)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok)
+            kv = kv + 1
+    return torch.cat(out).tolist()
+
+
+def _generate_ids(model, ids, n, eos=(), pad=0):
+    """decode.generate's tokens of one prompt at batch 1, and its seconds."""
+    import torch
+
+    from spider_tpu_torch.models.decode import GenerateConfig, generate
+
+    with torch.inference_mode():
+        emb = model.embed(torch.tensor([ids], device=model.device))
+    out, s = _sync_s(lambda: generate(model, emb, torch.tensor([len(ids)], dtype=torch.int32),
+                                      GenerateConfig(max_new_tokens=n, eos_ids=tuple(eos),
+                                                     pad_id=pad)))
+    return out["tokens"][0].tolist(), s
+
+
+def _flash_on_wgmma(launches, routes, want: int) -> bool:
+    return (launches["flash_fwd"] == want and routes["flash_fwd"]["wgmma"] == want
+            and on_ruled_route(routes))
+
+
+def phase_speculative(model, tokenizer, smi: str):
+    """bench_suite.py::bench_speculative_decode's operating point through the
+    port on the 8B int8 chat model: 128 prompt ids, 128 new tokens, gamma 8,
+    n-grams up to 3. The stepped greedy generate, the host loop and the
+    on-device loop (each twice), the oracle curve (about 100%, 50% and 0%
+    acceptance), then SpiderFree.chat with the speculative chat function
+    beside the plain one."""
+    import numpy as np
+    import torch
+
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models import speculative as S
+    from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
+
+    L = model.config.num_hidden_layers
+    ids = [int(t) for t in np.random.default_rng(0).integers(10, 5000, SPEC_PROMPT_TOKENS)]
+    pcfg = S.PromptLookupConfig(max_new_tokens=SPEC_NEW_TOKENS, gamma=SPEC_GAMMA,
+                                max_ngram=SPEC_MAX_NGRAM)
+    windows = [0]
+    verify = S._verify
+
+    def counted(*a):
+        windows[0] += 1
+        return verify(*a)
+
+    launches = dict.fromkeys(KERNELS, 0)
+    runs, ok = {}, True
+    S._verify = counted
+    try:
+        reset_launches()
+        stepped, stepped_s = _generate_ids(model, ids, SPEC_NEW_TOKENS)
+        counts, routes = read_launches(), read_route_launches()
+        _add_launches(launches, counts)
+        ok &= _flash_on_wgmma(counts, routes, L)
+        runs["stepped"] = dict(seconds=stepped_s, tok_s=len(stepped) / stepped_s)
+
+        def run(name, fn, **kw):
+            nonlocal ok
+            windows[0] = 0
+            reset_launches()
+            toks, s = _sync_s(lambda: fn(model, ids, pcfg, **kw))
+            counts, routes = read_launches(), read_route_launches()
+            _add_launches(launches, counts)
+            w = windows[0]
+            flash_ok = _flash_on_wgmma(counts, routes, L * (1 + w))
+            ok &= flash_ok and len(toks) == SPEC_NEW_TOKENS
+            runs[name] = dict(seconds=s, tok_s=len(toks) / s, windows=w,
+                              tokens_per_window=(len(toks) - 1) / max(w, 1),
+                              ms_per_window=s * 1e3 / max(w, 1),
+                              flash_launches=counts["flash_fwd"],
+                              flash_launches_expected=L * (1 + w), flash_ok=flash_ok)
+            return toks
+
+        host = [run(f"host_loop_{i}", S.speculative_generate) for i in range(2)]
+        dev = [run(f"ondevice_{i}", S.speculative_generate_ondevice) for i in range(2)]
+        curve = {}
+        for label, kw in (("oracle_100", dict(oracle=dev[0])),
+                          ("oracle_50", dict(oracle=dev[0], corrupt_every=4)),
+                          ("oracle_0", dict(oracle=[0] * SPEC_NEW_TOKENS))):
+            toks = run(label, S.speculative_generate_ondevice, **kw)
+            runs[label]["stream_agree"] = _first_divergence(toks, dev[0])[0]
+            curve[label] = runs[label]["tok_s"]
+    finally:
+        S._verify = verify
+    prefix, equal = _first_divergence(dev[0], stepped)
+    gap = None if equal else _stepped_gap(model, ids, stepped, prefix,
+                                          len(ids) + SPEC_NEW_TOKENS)
+    bits = host[0] == host[1] and dev[0] == dev[1] and host[0] == dev[0]
+    ok &= bits and (equal or gap <= FLIP_GAP)
+    yield dict(phase="speculative", model="llama3_8b int8 (random weights)",
+               prompt_tokens=len(ids), new_tokens=SPEC_NEW_TOKENS, gamma=SPEC_GAMMA,
+               max_ngram=SPEC_MAX_NGRAM, runs=runs, tok_s_vs_acceptance=curve,
+               host_ondevice_equal_and_repeatable=bits, prefix_match_vs_stepped=prefix,
+               equal_to_stepped=equal, stepped_top2_gap_at_divergence=gap,
+               flip_gap_bound=FLIP_GAP, launches=launches, nvidia_smi=smi, ok=ok)
+
+    # SpiderFree.chat: the speculative chat function beside the plain one;
+    # each decoder's tokens are recorded (the byte-level tokenizer drops the
+    # random model's ids past 255 from the text)
+    from spider_tpu_torch.models import decode as D
+
+    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+    launches = dict.fromkeys(KERNELS, 0)
+    chats, ok, streams, prompts = {}, True, {}, []
+    real = {"plain": D.generate, "speculative": S.speculative_generate_ondevice}
+
+    def plain_rec(m, emb, plen, gcfg, generator=None):
+        out = real["plain"](m, emb, plen, gcfg, generator=generator)
+        streams["plain"] = out["tokens"][0].tolist()
+        return out
+
+    def spec_rec(m, ids, pcfg):
+        prompts.append(list(ids))
+        streams["speculative"] = real["speculative"](m, ids, pcfg)
+        return streams["speculative"]
+
+    D.generate, S.speculative_generate_ondevice = plain_rec, spec_rec
+    try:
+        fns = {name: make_llama_chat_fn(model, tokenizer, max_new_tokens=SPEC_NEW_TOKENS,
+                                        speculative=name == "speculative") for name in real}
+    finally:
+        D.generate = real["plain"]
+    for name, fn in fns.items():
+        timing = {}
+
+        def chat_fn(prompt, fn=fn, timing=timing):
+            text, timing["chat_s"] = timed_chat(fn, prompt)
+            return text
+
+        sf = SpiderFree(cfg, chat_fn=chat_fn)
+        reset_launches()
+        events, s = _sync_s(lambda: sf.chat(f"Describe {SD_CAPTION}.", task_prompt="TEXT")[0])
+        counts, routes = read_launches(), read_route_launches()
+        _add_launches(launches, counts)
+        ok &= [k for k, _ in events] == ["text"] and on_ruled_route(routes)
+        chats[name] = dict(seconds=s, chat_s=timing["chat_s"], text=events[0][1],
+                           flash_launches=counts["flash_fwd"])
+    S.speculative_generate_ondevice = real["speculative"]
+    texts_equal = chats["plain"]["text"] == chats["speculative"]["text"]
+    for c in chats.values():
+        c["text_chars"] = len(c.pop("text"))
+    prefix, equal = _first_divergence(streams["speculative"], streams["plain"])
+    gap = None if equal else _stepped_gap(model, prompts[0], streams["plain"], prefix,
+                                          len(prompts[0]) + SPEC_NEW_TOKENS)
+    ok &= equal or gap <= FLIP_GAP
+    yield dict(phase="speculative", part="spider_free_chat", prompt_tokens=len(prompts[0]),
+               chats=chats, texts_equal=texts_equal, tokens_prefix_match=prefix,
+               tokens_equal=equal, plain_top2_gap_at_divergence=gap, flip_gap_bound=FLIP_GAP,
+               launches=launches, nvidia_smi=smi, ok=ok)
+
+
+def phase_chat_stream(model, tokenizer, smi: str):
+    """decode.stream_generate on the 8B int8 model: the 128-token chat
+    prompt, 150 new tokens; its tokens against decode.generate's."""
+    import torch
+
+    from spider_tpu_torch.models.decode import GenerateConfig, stream_generate
+
+    ids = tokenizer(CHAT_PROMPT, add_special_tokens=True).input_ids
+    eos = (tokenizer.eos_token_id,)
+    gcfg = GenerateConfig(max_new_tokens=NEW_TOKENS, eos_ids=eos,
+                          pad_id=tokenizer.pad_token_id)
+    with torch.inference_mode():
+        emb = model.embed(torch.tensor([ids], device=model.device))
+    plen = torch.tensor([len(ids)], dtype=torch.int32)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = stream_generate(model, emb, plen, gcfg)
+    toks = [next(it)]
+    ttft = time.perf_counter() - t0
+    toks += list(it)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts, routes = read_launches(), read_route_launches()
+    want, _ = _generate_ids(model, ids, NEW_TOKENS, eos, tokenizer.pad_token_id)
+    if eos[0] in want:
+        want = want[:want.index(eos[0]) + 1]
+    L = model.config.num_hidden_layers
+    return dict(phase="chat_stream", model="llama3_8b int8", prompt_tokens=len(ids),
+                new_tokens=len(toks), time_to_first_token_ms=ttft * 1e3,
+                tok_s=(len(toks) - 1) / (total - ttft), seconds=total,
+                tokens_equal_generate=toks == want, launches=counts, route_launches=routes,
+                nvidia_smi=smi, ok=toks == want and _flash_on_wgmma(counts, routes, L))
+
+
+def phase_llm_batcher(model, tokenizer, smi: str):
+    """serving/batcher.py::LlmBatcher on the 8B int8 model: 8 of the serving
+    prompts submitted at once, 48 new tokens each. Each wave's tokens
+    against a generate over the same right-padded, bucket-length array; the
+    first BATCHER_SINGLE answers against decoding each prompt alone."""
+    import torch
+
+    from spider_tpu_torch.models.decode import GenerateConfig, generate
+    from spider_tpu_torch.serving import batcher as BM
+
+    prompts = serving_prompts(BATCHER_REQUESTS)
+    pad = tokenizer.pad_token_id
+    gcfg = GenerateConfig(max_new_tokens=SERVING_NEW_TOKENS, eos_ids=(tokenizer.eos_token_id,),
+                          pad_id=pad)
+    real = BM.generate
+    produced = []
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        produced.append(out["tokens"])
+        return out
+
+    b = BM.LlmBatcher(model, tokenizer, gen_cfg=gcfg, max_batch_size=BATCHER_REQUESTS,
+                      max_wait_s=0.2, length_bucket=128)
+    waves = []
+    run_wave = b._run_wave
+    b._run_wave = lambda wave: (waves.append([ids for ids, _ in wave]), run_wave(wave))
+    BM.generate = recorded
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [b.submit(p) for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        seconds = time.perf_counter() - t0
+        counts, routes = read_launches(), read_route_launches()
+    finally:
+        BM.generate = real
+        b.close()
+    same_bits = len(waves) == len(produced) == b.n_waves
+    rows = {}
+    for wave_ids, got in zip(waves, produced):
+        arr, plen = b.pad_wave(wave_ids)
+        with torch.inference_mode():
+            emb = model.embed(torch.from_numpy(arr).to(model.device))
+        want = generate(model, emb, torch.from_numpy(plen), gcfg)["tokens"]
+        same_bits &= torch.equal(got, want)
+        for ids, row in zip(wave_ids, got.tolist()):
+            rows[tuple(ids)] = [t for t in row if t != pad]
+    single = []
+    for p in prompts[:BATCHER_SINGLE]:
+        ids = tokenizer(p, add_special_tokens=True).input_ids
+        alone = [t for t in _greedy_tokens(model, tokenizer, [p], SERVING_NEW_TOKENS)[0]]
+        single.append(_first_divergence(alone, rows[tuple(ids)]))
+    emitted = sum(len(r) for r in rows.values())
+    L = model.config.num_hidden_layers
+    return dict(phase="llm_batcher", model="llama3_8b int8", requests=len(prompts),
+                new_tokens=SERVING_NEW_TOKENS, waves=b.n_waves,
+                wave_sizes=[len(w) for w in waves], seconds=seconds,
+                tok_s=emitted / seconds, emitted_tokens=emitted,
+                waves_equal_generate_bits=same_bits,
+                single_request_agreement=sum(eq for _, eq in single) / len(single),
+                single_request_leading_equal=[n for n, _ in single],
+                single_request_compared=len(single), launches=counts, route_launches=routes,
+                nvidia_smi=smi,
+                ok=same_bits and all(isinstance(o, str) for o in outs)
+                and _flash_on_wgmma(counts, routes, L * b.n_waves))
+
+
+def write_qwen2_checkpoint(directory: str, dev, layers: int):
+    """A synthetic Qwen2-7B in the HF layout (model_type qwen2, q/k/v
+    biases, config.json without attention_bias, as Qwen2's own): full width
+    and vocabulary, `layers` layers, bf16, two shards. Returns (source model,
+    {checkpoint key: tensor}, row)."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models import checkpoint_io as io
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import llama as L
+
+    cfg = dataclasses.replace(L.qwen2_7b(), num_hidden_layers=layers, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    src = fill_synthetic_(L.LlamaForCausalLM(cfg, dev).eval(), CKPT_SEED + 1)
+    rules = C.llama_rules({"lm_head.weight"}, cfg)
+    hf = C.export_state_dict(rules, src.state_dict())
+    order = [k for r in rules for k in r.keys]
+    half = len(order) // 2
+    io.save_sharded([lambda keys=keys: {k: hf[k].cpu() for k in keys}
+                     for keys in (order[:half], order[half:])], directory)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(dict(architectures=["Qwen2ForCausalLM"], model_type="qwen2",
+                       vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+                       intermediate_size=cfg.intermediate_size, num_hidden_layers=layers,
+                       num_attention_heads=cfg.num_attention_heads,
+                       num_key_value_heads=cfg.num_key_value_heads,
+                       max_position_embeddings=cfg.max_position_embeddings,
+                       rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+                       tie_word_embeddings=False, hidden_act="silu", torch_dtype="bfloat16"),
+                  f, indent=2)
+    gb = sum(t.numel() * t.element_size() for t in hf.values()) / 1e9
+    return src, hf, dict(depth=layers, bias_keys=sum(k.endswith(".bias") for k in hf),
+                         checkpoint_gb=gb, write_s=time.perf_counter() - t0)
+
+
+def phase_qwen2(tokenizer, dev, smi: str):
+    """qwen2_7b at full width and depth (28 layers, hidden 3584, 28/4 heads,
+    D 128, vocabulary 152064, q/k/v biases random and nonzero) from a seed:
+    int8 prefill T 128 + 32 greedy tokens; the same with mrope positions;
+    the paged batcher; int4 generate; a synthetic Qwen2-layout checkpoint
+    through from_pretrained('llama', path=...)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.serving.continuous import PagedContinuousBatcher
+
+    N = FAMILY_NEW_TOKENS
+    ids = tokenizer(CHAT_PROMPT, add_special_tokens=True).input_ids
+    cfg8 = dataclasses.replace(L.qwen2_7b(), quantization="int8", param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _sync_s(lambda: factory.build_llama(cfg8, dev, seed=5))
+    Ln = cfg8.num_hidden_layers
+    bias = model.model.layers[0].self_attn.k_proj.bias
+    _generate_ids(model, ids, 1)                                    # warm-up
+    prefill_s = min(_generate_ids(model, ids, 1)[1] for _ in range(2))
+    reset_launches()
+    toks, gen_s = _generate_ids(model, ids, N)
+    counts, routes = read_launches(), read_route_launches()
+    plain = _greedy_by_positions(model, ids, N, streams=False)
+    model_m = L.LlamaForCausalLM(dataclasses.replace(cfg8, mrope_section=MROPE_SECTION),
+                                 dev).eval()
+    model_m.load_state_dict(model.state_dict())
+    mrope = _greedy_by_positions(model_m, ids, N, streams=True)
+    del model_m
+    torch.cuda.empty_cache()
+    yield dict(phase="qwen2", part="int8_generate", model="qwen2_7b int8 (random weights)",
+               layers=Ln, hidden=cfg8.hidden_size, heads=[cfg8.num_attention_heads,
+                                                          cfg8.num_key_value_heads],
+               vocab=cfg8.vocab_size, bias_nonzero=bool(bias.abs().max() > 0),
+               build_s=build_s, prompt_tokens=len(ids), prefill_ms_T128=prefill_s * 1e3,
+               new_tokens=N, generate_s=gen_s, decode_tok_s=(N - 1) / (gen_s - prefill_s),
+               mrope_section=list(MROPE_SECTION), mrope_equal_plain=mrope == plain,
+               positions_loop_equal_generate=plain == toks,
+               device_gb=torch.cuda.memory_allocated() / 1e9, launches=counts,
+               route_launches=routes, nvidia_smi=smi,
+               ok=bool(bias.abs().max() > 0) and mrope == plain == toks
+               and _flash_on_wgmma(counts, routes, Ln))
+
+    # the paged batcher: 16 slots over 32 blocks of 128, as phase_serving's
+    prompts = serving_prompts(QWEN2_PAGED_REQUESTS)
+    cb = PagedContinuousBatcher(model, tokenizer, num_slots=16, max_len=512, max_new_tokens=N,
+                                page=128, num_blocks=32)
+    emitted = {}
+    finish = cb._finish
+
+    def record(slot):
+        req = cb._requests[slot]
+        finish(slot)
+        emitted[id(req.future)] = list(req.emitted)
+
+    cb._finish = record
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [cb.submit(p) for p in prompts]
+    outs = [f.result(timeout=600) for f in futs]
+    seconds = time.perf_counter() - t0
+    counts, routes = read_launches(), read_route_launches()
+    steps, prefills = cb.n_decode_steps, cb.n_prefills
+    cb.close()
+    compared = []
+    for p, f in zip(prompts, futs):
+        p_ids = tokenizer(p, add_special_tokens=True).input_ids
+        fresh = _greedy_tokens(model, tokenizer, [p], N)[0]
+        got = emitted[id(f)]
+        n, equal = _first_divergence(got, fresh)
+        gap = None if equal else _stepped_gap(model, p_ids, fresh, n, len(p_ids) + N)
+        compared.append(dict(prompt_tokens=len(p_ids), leading_equal=n, equal=equal,
+                             stepped_top2_gap_at_divergence=gap))
+    want = dict(flash_fwd=Ln * prefills, paged_decode=Ln * steps, int4_matmul=0, tattn_fwd=0,
+                flash_bwd_dq=0, flash_bwd_dkv=0)
+    yield dict(phase="qwen2", part="paged_batcher", model="qwen2_7b int8", requests=len(prompts),
+               new_tokens=N, seconds=seconds, tok_s=sum(len(v) for v in emitted.values()) / seconds,
+               decode_steps=steps, prefills=prefills, launches=counts, launches_expected=want,
+               route_launches=routes, against_fresh_greedy=compared, flip_gap_bound=FLIP_GAP,
+               nvidia_smi=smi,
+               ok=all(isinstance(o, str) for o in outs) and counts == want
+               and routes["paged_decode"] == dict(split=Ln * steps, simple=0)
+               and on_ruled_route(routes)
+               and all(c["equal"] or c["stepped_top2_gap_at_divergence"] <= FLIP_GAP
+                       for c in compared))
+    del model, cb
+    torch.cuda.empty_cache()
+
+    # int4 generate
+    cfg4 = dataclasses.replace(L.qwen2_7b(), quantization="int4", param_dtype=torch.bfloat16)
+    model4 = factory.build_llama(cfg4, dev, seed=5)
+    _generate_ids(model4, ids, 2)                                   # warm-up
+    reset_launches()
+    toks4, gen4_s = _generate_ids(model4, ids, N)
+    counts, routes = read_launches(), read_route_launches()
+    want4 = int4_route_counts(cfg4, N - 1, 1)
+    yield dict(phase="qwen2", part="int4_generate", model="qwen2_7b int4", new_tokens=N,
+               generate_s=gen4_s, tok_s=N / gen4_s, int4_launches=counts["int4_matmul"],
+               int4_routes=routes["int4_matmul"], int4_routes_expected=want4,
+               launches=counts, route_launches=routes, nvidia_smi=smi,
+               ok=len(toks4) == N and routes["int4_matmul"] == want4
+               and counts["int4_matmul"] == (7 * Ln + 1) * N
+               and _flash_on_wgmma(counts, routes, Ln))
+    del model4
+    torch.cuda.empty_cache()
+
+    # a synthetic Qwen2-layout checkpoint, cut to QWEN2_CKPT_LAYERS layers
+    root = tempfile.mkdtemp(prefix="spider_qwen2_")
+    try:
+        src, hf, row = write_qwen2_checkpoint(root, dev, QWEN2_CKPT_LAYERS)
+        (loaded, _), load = _timed_load(
+            lambda: factory.from_pretrained("llama", path=root, device=dev))
+        cfgc = dataclasses.replace(src.config, quantization="int8")
+        ref = L.LlamaForCausalLM(cfgc, dev).eval()
+        ref.load_state_dict(C.convert_llama_state_dict(hf, cfgc, "int8"), strict=True)
+        bad = _states_equal(loaded.state_dict(), ref.state_dict())
+        lc = loaded.config
+        cfg_ok = (lc.attention_bias and not lc.tie_word_embeddings
+                  and lc.num_hidden_layers == QWEN2_CKPT_LAYERS
+                  and all(getattr(lc, f) == getattr(cfg8, f) for f in (
+                      "vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
+                      "num_key_value_heads", "rms_norm_eps", "rope_theta")))
+        t_ids = torch.tensor([ids], dtype=torch.long, device=dev)
+        reset_launches()
+        got = _greedy(loaded, t_ids, N)
+        counts, routes = read_launches(), read_route_launches()
+        want = _greedy(ref, t_ids, N)
+        yield dict(phase="qwen2", part="checkpoint", model=f"qwen2_7b, {QWEN2_CKPT_LAYERS} of "
+                   f"28 layers (cut)", **row, **load, read_gb_per_s=row["checkpoint_gb"]
+                   / load["load_s"], tensors=len(ref.state_dict()), tensors_differing=bad[:8],
+                   config_read=cfg_ok, tokens_equal=got == want, launches=counts,
+                   route_launches=routes, nvidia_smi=smi,
+                   ok=not bad and cfg_ok and got == want
+                   and row["bias_keys"] == 3 * QWEN2_CKPT_LAYERS
+                   and _flash_on_wgmma(counts, routes, QWEN2_CKPT_LAYERS))
+        del src, hf, loaded, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_llama2(tokenizer, dev, smi: str):
+    """llama2_7b int8 at full width and depth (MHA 32/32, vocabulary 32000)
+    from a seed: prefill T 128 + 32 greedy tokens."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+
+    ids = tokenizer(CHAT_PROMPT, add_special_tokens=True).input_ids
+    cfg = dataclasses.replace(L.llama2_7b(), quantization="int8", param_dtype=torch.bfloat16)
+    model, build_s = _sync_s(lambda: factory.build_llama(cfg, dev, seed=6))
+    _generate_ids(model, ids, 1)                                    # warm-up
+    prefill_s = min(_generate_ids(model, ids, 1)[1] for _ in range(2))
+    reset_launches()
+    toks, gen_s = _generate_ids(model, ids, FAMILY_NEW_TOKENS)
+    counts, routes = read_launches(), read_route_launches()
+    row = dict(phase="llama2", model="llama2_7b int8 (random weights)",
+               layers=cfg.num_hidden_layers, heads=[cfg.num_attention_heads,
+                                                    cfg.num_key_value_heads],
+               vocab=cfg.vocab_size, build_s=build_s, prompt_tokens=len(ids),
+               prefill_ms_T128=prefill_s * 1e3, new_tokens=len(toks), generate_s=gen_s,
+               decode_tok_s=(len(toks) - 1) / (gen_s - prefill_s),
+               device_gb=torch.cuda.memory_allocated() / 1e9, launches=counts,
+               route_launches=routes, nvidia_smi=smi,
+               ok=len(toks) == FAMILY_NEW_TOKENS
+               and _flash_on_wgmma(counts, routes, cfg.num_hidden_layers))
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+class plain_llama_attention:
+    """Within the block every flash_attention call of models/llama.py takes
+    mha_reference instead (the comparison run of phase_moe)."""
+
+    def __enter__(self):
+        from spider_tpu_torch.models import llama as L
+        from spider_tpu_torch.ops.attention import mha_reference
+
+        self.real = L.flash_attention
+        L.flash_attention = lambda q, k, v, **kw: mha_reference(q, k, v, **kw)
+
+    def __exit__(self, *exc):
+        from spider_tpu_torch.models import llama as L
+
+        L.flash_attention = self.real
+
+
+def phase_moe(dev, smi: str):
+    """A Llama at llama3_8b widths (hidden 4096, intermediate 14336, 32/8
+    heads, vocabulary 128256) cut to MOE_LAYERS layers with MOE_EXPERTS
+    experts (fp32 parameters, bf16 compute): top-1 and top-2 forwards over a
+    T 128 prompt against the same model with plain attention, then one
+    make_lm_train_step at [4, 512] with the aux term."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.runners.train_step import build_optimizer, make_lm_train_step
+
+    cfg1 = dataclasses.replace(L.llama3_8b(), num_hidden_layers=MOE_LAYERS,
+                               num_experts=MOE_EXPERTS, moe_top_k=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m1 = factory.build_llama(cfg1, dev, seed=7)
+    experts = sum(p.numel() for n, p in m1.named_parameters() if n.endswith((".w1", ".w2")))
+    g = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.randint(3, cfg1.vocab_size, (1, MOE_PROMPT_TOKENS), generator=g, device=dev)
+
+    for top_k in (1, 2):
+        m = m1
+        if top_k == 2:
+            m = L.LlamaForCausalLM(dataclasses.replace(cfg1, moe_top_k=2), dev).eval()
+            m.load_state_dict(m1.state_dict())
+        picks = []
+
+        def hook(mod, inputs, out, picks=picks):
+            x = inputs[0].reshape(-1, inputs[0].shape[-1]).float()
+            picks.append((x @ mod.wg).topk(mod.cfg.moe_top_k, dim=-1).indices.sort(-1).values)
+
+        handles = [layer.mlp.register_forward_hook(hook) for layer in m.model.layers]
+        with torch.inference_mode():
+            reset_launches()
+            routed = m(input_ids=ids)[0][0].float()
+            torch.cuda.synchronize()
+            counts, routes = read_launches(), read_route_launches()
+            aux = m.moe_aux_losses().tolist()
+            with plain_llama_attention():
+                plain = m(input_ids=ids)[0][0].float()
+        for h in handles:
+            h.remove()
+        same = torch.ones(MOE_PROMPT_TOKENS, dtype=torch.bool, device=dev)
+        for a, b in zip(picks[:MOE_LAYERS], picks[MOE_LAYERS:]):
+            same &= (a == b).all(-1)
+        diff_same = (routed[same] - plain[same]).abs().max().item()
+        _, agree, scale = _logit_agreement(routed, plain)
+        yield dict(phase="moe", part=f"forward_top{top_k}",
+                   model=f"llama3_8b widths, {MOE_LAYERS} of 32 layers (cut), {MOE_EXPERTS} "
+                   "experts", expert_params=experts, prompt_tokens=MOE_PROMPT_TOKENS,
+                   aux=aux, tokens_routed_alike=int(same.sum()),
+                   logits_max_abs_diff_routed_alike=diff_same, logits_max_abs=scale,
+                   argmax_agree_share=agree, launches=counts, route_launches=routes,
+                   bounds=dict(logits_atol=LOGIT_ATOL, agree_min=AGREE_MIN), nvidia_smi=smi,
+                   ok=bool(torch.isfinite(routed).all()) and diff_same <= LOGIT_ATOL
+                   and agree >= AGREE_MIN and _flash_on_wgmma(counts, routes, MOE_LAYERS))
+        if m is not m1:
+            del m
+        del routed, plain
+        torch.cuda.empty_cache()
+
+    # the experts, gates, attention and norms train; the two vocabulary
+    # matrices stay frozen, as the Spider trainer keeps its base
+    B, T = TRAIN_LM_SHAPE
+    for p in (m1.embed_tokens.weight, m1.lm_head.weight):
+        p.requires_grad_(False)
+    opt = build_optimizer(3e-4, params={n: p for n, p in m1.named_parameters()
+                                        if p.requires_grad}, weight_decay=0.01)
+    step = make_lm_train_step(m1, opt)
+    m1.train()
+    ids = torch.randint(3, cfg1.vocab_size, (B, T), generator=g, device=dev)
+    labels = ids.clone()
+    labels[:, : T // 4] = -100
+    reset_launches()
+    metrics, s = _sync_s(lambda: step(dict(input_ids=ids, labels=labels)))
+    counts, routes = read_launches(), read_route_launches()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    want = dict(flash_fwd=MOE_LAYERS, flash_bwd_dq=MOE_LAYERS, flash_bwd_dkv=MOE_LAYERS,
+                tattn_fwd=0, paged_decode=0, int4_matmul=0)
+    row = dict(phase="moe", part="lm_train_step", batch=B, seq_len=T, seconds=s,
+               trained_params=sum(p.numel() for p in opt.params.values()), metrics=metrics, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               launches=counts, launches_expected=want, route_launches=routes,
+               nvidia_smi=smi,
+               ok=all(v == v and abs(v) < float("inf") for v in metrics.values())
+               and counts == want and on_ruled_route(routes))
+    del opt, step, m1
+    torch.cuda.empty_cache()
+    yield row
+
+
+def family_phases(model, tokenizer, dev, smi: str):
+    """The phases of the Llama family's rest, in order, each row as it is
+    done: speculative, chat_stream, llm_batcher on the 8B chat model, then
+    qwen2, llama2 and moe, each freeing its models before the next."""
+    yield from phase_speculative(model, tokenizer, smi)
+    yield phase_chat_stream(model, tokenizer, smi)
+    yield phase_llm_batcher(model, tokenizer, smi)
+    yield from phase_qwen2(tokenizer, dev, smi)
+    yield phase_llama2(tokenizer, dev, smi)
+    yield from phase_moe(dev, smi)
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -2569,8 +3310,9 @@ def phase_floors(rows, spider_free_T: int) -> dict:
 def main() -> int:
     kernels_only = sys.argv[1:] == ["kernels"]
     checkpoint_only = sys.argv[1:] == ["checkpoint"]
-    if sys.argv[1:] and not (kernels_only or checkpoint_only):
-        print("usage: chip_smoke.py [kernels | checkpoint]", file=sys.stderr)
+    family_only = sys.argv[1:] == ["family"]
+    if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only):
+        print("usage: chip_smoke.py [kernels | checkpoint | family]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -2627,6 +3369,16 @@ def main() -> int:
                   file=sys.stderr)
         return 0 if ok else 1
 
+    if family_only:
+        model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
+        for row in family_phases(model, tokenizer, dev, smi):
+            emit(row)
+            ok &= row["ok"]
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a family row failed (see the JSON lines above)", file=sys.stderr)
+        return 0 if ok else 1
+
     spider_free_T = spider_free_prompt_len(TinyTokenizer())
 
     # ---- kernel vs plain (these launches are not the main path's)
@@ -2677,6 +3429,12 @@ def main() -> int:
         ok &= row["ok"]
         for name in KERNELS:
             main_launches[name] += row["launches"][name]
+    # speculation, streaming and the wave batcher on the 8B chat model, then
+    # Qwen2-7B, Llama-2-7B and the MoE Llama, each freeing its models
+    for row in family_phases(model, tokenizer, dev, smi):
+        emit(row)
+        ok &= row["ok"]
+        _add_launches(main_launches, row["launches"])
 
     # The trainer needs the card's memory: the two chat models go first.
     del model, model4

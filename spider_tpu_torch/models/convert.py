@@ -452,7 +452,10 @@ def llama_rules(keys: Collection[str], cfg: L.LlamaConfig,
                 quantize: Optional[str] = None) -> List[Rule]:
     """HF LlamaForCausalLM names -> the port's LlamaForCausalLM
     (spider_tpu/models/convert.py:59-107); with quantize='int8' every
-    projection and the lm_head become ``kernel_q``/``kernel_scale``."""
+    projection and the lm_head become ``kernel_q``/``kernel_scale``. With
+    ``cfg.attention_bias`` (Qwen2) the q/k/v ``.bias`` keys are read as
+    stored; with ``cfg.tie_word_embeddings`` there is no lm_head, and an
+    ``lm_head.weight`` in the checkpoint is not read."""
     if quantize not in (None, "int8"):
         raise NotImplementedError(f"quantize={quantize!r}: checkpoints quantise to int8 "
                                   "only, as the reference converter does")
@@ -469,12 +472,15 @@ def llama_rules(keys: Collection[str], cfg: L.LlamaConfig,
         b = f"model.layers.{i}."
         for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
             proj(f"{b}self_attn.{n}", f"{b}self_attn.{n}.weight")
+        if cfg.attention_bias:
+            for n in ("q_proj", "k_proj", "v_proj"):
+                r.add(f"{b}self_attn.{n}.bias", f"{b}self_attn.{n}.bias")
         for n in ("gate_proj", "up_proj", "down_proj"):
             proj(f"{b}mlp.{n}", f"{b}mlp.{n}.weight")
         r.add(f"{b}input_layernorm", f"{b}input_layernorm.weight")
         r.add(f"{b}post_attention_layernorm", f"{b}post_attention_layernorm.weight")
     r.add("model.norm", "model.norm.weight")
-    if "lm_head.weight" in keys:
+    if "lm_head.weight" in keys and not cfg.tie_word_embeddings:
         proj("lm_head", "lm_head.weight")
     return r
 
@@ -486,20 +492,12 @@ def convert_llama_state_dict(sd: Mapping[str, Any], cfg: L.LlamaConfig,
 
 def read_llama_config(path: str, quantize: Optional[str] = None, **overrides) -> L.LlamaConfig:
     """The port's LlamaConfig of the HF ``config.json`` in `path`, field for
-    field as spider_tpu/models/convert.py:117-149 reads it (``rope_type``
-    dropped from ``rope_scaling``). A config asking for what the port's
-    Llama lacks raises: q/k/v biases (``attention_bias``, the Qwen2 family)
-    and tied embeddings (ROADMAP A4)."""
+    field as spider_tpu/models/convert.py:117-149 reads it: ``rope_type``
+    dropped from ``rope_scaling``; q/k/v biases where ``attention_bias`` says
+    so or, without it, where ``model_type`` is 'qwen2'; tied embeddings where
+    ``tie_word_embeddings`` says so."""
     with open(os.path.join(path, "config.json")) as f:
         hf = json.load(f)
-    if hf.get("attention_bias", hf.get("model_type") == "qwen2"):
-        raise NotImplementedError("this checkpoint has q/k/v projection biases "
-                                  "(attention_bias, the Qwen2 family); the port's Llama has "
-                                  "none yet (ROADMAP A4)")
-    if hf.get("tie_word_embeddings", False):
-        raise NotImplementedError("this checkpoint ties the lm_head to the embeddings "
-                                  "(tie_word_embeddings); the port's Llama does not yet "
-                                  "(ROADMAP A4)")
     rope_scaling = hf.get("rope_scaling")
     if rope_scaling and "rope_type" in rope_scaling:
         rope_scaling = {k: v for k, v in rope_scaling.items() if k != "rope_type"}
@@ -514,7 +512,9 @@ def read_llama_config(path: str, quantize: Optional[str] = None, **overrides) ->
         rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
         rope_theta=hf.get("rope_theta", 10000.0),
         rope_scaling=rope_scaling,
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
         quantization=quantize,
+        attention_bias=hf.get("attention_bias", hf.get("model_type") == "qwen2"),
         **overrides)
 
 

@@ -23,8 +23,15 @@ int4 matmul kernel. ``lora.r > 0`` adds the additive LoRA branch to the
 targeted projections; ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), so the flash forward kernel runs twice there.
 The cache-free forward is differentiable: its flash attention carries the
-backward kernels. Left out for now: MoE, mrope, context parallelism,
-projection biases and tied embeddings.
+backward kernels.
+
+The rest of the family, as in the JAX package: ``attention_bias`` (Qwen2:
+a bias on q/k/v, none on o or the MLP); ``tie_word_embeddings`` (no
+``lm_head``; the logits are the hidden state times the embedding matrix);
+``mrope_section`` (Qwen2-VL's 3-D RoPE, taken when positions are
+[3, B, T]); ``num_experts > 0`` (every MLP becomes the capacity-gated MoE
+FFN of parallel/moe.py, ``LlamaMoEMLP``). Context parallelism waits for the
+multi-card slice.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from spider_tpu_torch.ops.attention import flash_attention, mha_reference
 from spider_tpu_torch.ops.norms import rms_norm
 from spider_tpu_torch.ops.paged_attention import paged_decode_attention
 from spider_tpu_torch.ops.quant import int4_matmul
-from spider_tpu_torch.ops.rope import apply_rope, rope_inv_freq
+from spider_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_inv_freq
+from spider_tpu_torch.parallel.moe import MoEConfig, moe_ffn_local
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -66,6 +74,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     rope_scaling: Optional[Dict[str, float]] = None
+    tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     lora: LoraConfig = dataclasses.field(default_factory=LoraConfig)
@@ -73,6 +82,19 @@ class LlamaConfig:
     # 'int8' or 'int4': weight-only per-output-channel quantization of every
     # projection and the lm_head (embeddings and norms stay high precision).
     quantization: Optional[str] = None
+    # Qwen2 family: bias on the q/k/v projections (o and the MLP stay
+    # bias-free).
+    attention_bias: bool = False
+    # Qwen2-VL / Qwen2.5-Omni 3-D RoPE: head_dim/2 frequencies split over
+    # the (temporal, height, width) position streams; taken when positions
+    # are [3, B, T], plain RoPE otherwise.
+    mrope_section: Optional[Tuple[int, ...]] = None
+    # Mixture of experts: > 0 replaces every MLP with num_experts
+    # capacity-gated experts (LlamaMoEMLP).
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
 
     @property
     def head_dim_(self) -> int:
@@ -80,6 +102,10 @@ class LlamaConfig:
 
     def extend_vocab(self, new_vocab_size: int) -> "LlamaConfig":
         return dataclasses.replace(self, vocab_size=new_vocab_size)
+
+
+def llama2_7b() -> LlamaConfig:
+    return LlamaConfig()
 
 
 def llama3_8b() -> LlamaConfig:
@@ -95,6 +121,23 @@ def llama3_8b() -> LlamaConfig:
         rope_theta=500000.0,
         rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
                           original_max_position_embeddings=8192),
+    )
+
+
+def qwen2_7b() -> LlamaConfig:
+    """Qwen2/2.5-7B (the Qwen2.5-Omni thinker's text decoder has this
+    shape)."""
+    return LlamaConfig(
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_hidden_layers=28,
+        num_attention_heads=28,
+        num_key_value_heads=4,
+        max_position_embeddings=32768,
+        rms_norm_eps=1e-6,
+        rope_theta=1000000.0,
+        attention_bias=True,
     )
 
 
@@ -121,16 +164,17 @@ class LoraDense(nn.Module):
     under quantization='int4', ``kernel_q`` int8 [out, in/2] holding two
     signed nibbles a byte (in-rows i and i + in/2) and ``kernel_scale`` fp32
     [out]: y = int4_matmul(x, kernel_q, kernel_scale) in dtype, the scale on
-    the fp32 accumulator. With lora_r > 0 it adds (alpha / r) x A B, ``lora_a``
-    [in, r] ~ N(0, 0.02) and ``lora_b`` [r, out] zeros, both fp32 whatever
-    param_dtype is (they train while a bf16 base stays frozen). The bias of
-    the JAX module is not ported yet."""
+    the fp32 accumulator. With use_bias, ``bias`` [out] in param_dtype is
+    added in dtype after the scale, as the JAX module adds it. With
+    lora_r > 0 it adds (alpha / r) x A B, ``lora_a`` [in, r] ~ N(0, 0.02)
+    and ``lora_b`` [r, out] zeros, both fp32 whatever param_dtype is (they
+    train while a bf16 base stays frozen)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
                  quantization: Optional[str] = None, device=None,
-                 lora_r: int = 0, lora_alpha: float = 21.0):
+                 lora_r: int = 0, lora_alpha: float = 21.0, use_bias: bool = False):
         super().__init__()
         if quantization not in (None, "int8", "int4"):
             raise NotImplementedError(f"quantization={quantization!r} is not ported")
@@ -147,6 +191,8 @@ class LoraDense(nn.Module):
         else:
             self.weight = nn.Parameter(torch.zeros(
                 features, in_features, dtype=param_dtype, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, dtype=param_dtype, device=device))
+                     if use_bias else None)
         self.lora_scale = lora_alpha / lora_r if lora_r > 0 else 0.0
         if lora_r > 0:
             self.lora_a = nn.Parameter(0.02 * torch.randn(
@@ -161,6 +207,8 @@ class LoraDense(nn.Module):
             y = int4_matmul(x, self.kernel_q, self.kernel_scale, out_dtype=self.dtype)
         else:
             y = F.linear(x, self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
         if self.lora_scale:
             y = y + self.lora_scale * ((x @ self.lora_a.to(self.dtype))
                                        @ self.lora_b.to(self.dtype))
@@ -209,14 +257,14 @@ class LlamaAttention(nn.Module):
         D = cfg.head_dim_
         H, Hq, Hkv = cfg.hidden_size, cfg.num_attention_heads, cfg.num_key_value_heads
 
-        def proj(name, i, o):
+        def proj(name, i, o, use_bias=False):
             r = cfg.lora.r if name in cfg.lora.targets else 0
             return LoraDense(i, o, cfg.dtype, cfg.param_dtype, cfg.quantization, device,
-                             lora_r=r, lora_alpha=cfg.lora.alpha)
+                             lora_r=r, lora_alpha=cfg.lora.alpha, use_bias=use_bias)
 
-        self.q_proj = proj("q_proj", H, Hq * D)
-        self.k_proj = proj("k_proj", H, Hkv * D)
-        self.v_proj = proj("v_proj", H, Hkv * D)
+        self.q_proj = proj("q_proj", H, Hq * D, cfg.attention_bias)
+        self.k_proj = proj("k_proj", H, Hkv * D, cfg.attention_bias)
+        self.v_proj = proj("v_proj", H, Hkv * D, cfg.attention_bias)
         self.o_proj = proj("o_proj", Hq * D, H)
         self.register_buffer("inv_freq", rope_inv_freq(D, cfg.rope_theta, cfg.rope_scaling,
                                                        device=device), persistent=False)
@@ -227,9 +275,15 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
         B, T, _ = x.shape
-        q = apply_rope(self.q_proj(x).reshape(B, T, Hq, D), positions, self.inv_freq)
-        k = apply_rope(self.k_proj(x).reshape(B, T, Hkv, D), positions, self.inv_freq)
+        q = self.q_proj(x).reshape(B, T, Hq, D)
+        k = self.k_proj(x).reshape(B, T, Hkv, D)
         v = self.v_proj(x).reshape(B, T, Hkv, D)
+        if cfg.mrope_section is not None and positions.dim() == 3:
+            q = apply_mrope(q, positions, self.inv_freq, cfg.mrope_section)
+            k = apply_mrope(k, positions, self.inv_freq, cfg.mrope_section)
+        else:
+            q = apply_rope(q, positions, self.inv_freq)
+            k = apply_rope(k, positions, self.inv_freq)
         if kv_cache is not None and page_table is not None:
             # Block-paged pool (serving): kv_cache is (pool_k, pool_v), each
             # [N_blocks, page, Hkv, D]; page_table [B, max_pages] maps each
@@ -246,6 +300,7 @@ class LlamaAttention(nn.Module):
             ck, cv = kv_cache                    # [B, S_max, Hkv, D], updated in place
             _write_cache(ck, k, kv_write_index)
             _write_cache(cv, v, kv_write_index)
+            ck, cv = ck.to(q.dtype), cv.to(q.dtype)   # no copy unless the cache's dtype differs
             if T == 1:
                 # Single-token decode: plain attention over the cache.
                 out = mha_reference(q, ck, cv, causal=False, kv_len=kv_len)
@@ -274,6 +329,38 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+class LlamaMoEMLP(nn.Module):
+    """The capacity-gated MoE FFN in place of LlamaMLP (parallel/moe.py's
+    ``moe_ffn_local`` over the call's B*T tokens). Parameters as in the JAX
+    tree: ``wg`` [H, E] fp32, ``w1`` [E, H, I] and ``w2`` [E, I, H] in
+    param_dtype, cast to dtype for the products. Capacity uses
+    ``moe_capacity_factor`` at inference too: the JAX module always calls
+    ``moe_ffn_local`` with train=True.
+
+    Each forward sets ``aux_loss`` (fp32 scalar, the load-balancing term)
+    where the JAX module sows ``losses/moe_aux``;
+    ``LlamaForCausalLM.moe_aux_losses`` stacks them."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, H, I = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.wg = nn.Parameter(torch.zeros(H, E, dtype=torch.float32, device=device))
+        self.w1 = nn.Parameter(torch.zeros(E, H, I, dtype=cfg.param_dtype, device=device))
+        self.w2 = nn.Parameter(torch.zeros(E, I, H, dtype=cfg.param_dtype, device=device))
+        self.aux_loss: Optional[torch.Tensor] = None
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, T, H = x.shape
+        mcfg = MoEConfig(num_experts=cfg.num_experts, d_model=H, d_ff=cfg.intermediate_size,
+                         capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
+                         dtype=cfg.dtype)
+        params = dict(wg=self.wg, w1=self.w1.to(cfg.dtype), w2=self.w2.to(cfg.dtype))
+        out, self.aux_loss = moe_ffn_local(params, x.reshape(B * T, H), mcfg)
+        return out.reshape(B, T, H)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -283,7 +370,7 @@ class LlamaBlock(nn.Module):
         self.self_attn = LlamaAttention(cfg, device)
         self.post_attention_layernorm = nn.Parameter(
             torch.ones(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
-        self.mlp = LlamaMLP(cfg, device)
+        self.mlp = (LlamaMoEMLP if cfg.num_experts > 0 else LlamaMLP)(cfg, device)
 
     def forward(self, x, positions, kv_write_index, kv_cache=None, kv_len=None,
                 page_table=None):
@@ -340,8 +427,9 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=cfg.param_dtype, device=device)
         self.model = LlamaModel(cfg, device)
-        self.lm_head = LoraDense(cfg.hidden_size, cfg.vocab_size, cfg.dtype, cfg.param_dtype,
-                                 cfg.quantization, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = LoraDense(cfg.hidden_size, cfg.vocab_size, cfg.dtype,
+                                     cfg.param_dtype, cfg.quantization, device)
 
     @property
     def device(self) -> torch.device:
@@ -349,6 +437,38 @@ class LlamaForCausalLM(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids).to(self.config.dtype)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[..., H] -> [..., V]: the lm_head, or with tied embeddings the
+        hidden state times the embedding matrix, both in dtype."""
+        if self.config.tie_word_embeddings:
+            dtype = self.config.dtype
+            return hidden.to(dtype) @ self.embed_tokens.weight.to(dtype).T
+        return self.lm_head(hidden)
+
+    def moe_aux_losses(self) -> Optional[torch.Tensor]:
+        """[L] fp32: each MoE layer's load-balancing term from the last
+        forward (the JAX model's sown ``losses/moe_aux``); None without
+        experts."""
+        if self.config.num_experts <= 0:
+            return None
+        return torch.stack([layer.mlp.aux_loss for layer in self.model.layers])
+
+    def _positions(self, inputs_embeds, positions, kv_write_index):
+        if positions is not None:
+            return positions
+        T = inputs_embeds.shape[1]
+        return (torch.arange(T, dtype=torch.int32, device=inputs_embeds.device)[None]
+                + kv_write_index)
+
+    def call_with_final(self, inputs_embeds, positions=None, kv_write_index=0,
+                        kv_cache: Optional[KVCache] = None, kv_len=None):
+        """(logits, final_hidden [B, T, H], kv_cache): the post-final-norm
+        last layer (== hidden_states[-1]) without stacking every layer."""
+        final, _, kv_cache = self.model(
+            inputs_embeds, self._positions(inputs_embeds, positions, kv_write_index),
+            kv_write_index, kv_cache, kv_len)
+        return self.logits(final), final, kv_cache
 
     def forward(self, input_ids=None, inputs_embeds=None, positions=None,
                 kv_write_index=0, kv_cache: Optional[KVCache] = None, kv_len=None,
@@ -359,14 +479,10 @@ class LlamaForCausalLM(nn.Module):
         (pool_k, pool_v), each [L, N_blocks, page, Hkv, D]."""
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
-        T = inputs_embeds.shape[1]
-        if positions is None:
-            positions = (torch.arange(T, dtype=torch.int32, device=inputs_embeds.device)[None]
-                         + kv_write_index)
         final, hidden_states, kv_cache = self.model(
-            inputs_embeds, positions, kv_write_index, kv_cache, kv_len,
-            output_hidden_states, page_table)
-        return self.lm_head(final), hidden_states, kv_cache
+            inputs_embeds, self._positions(inputs_embeds, positions, kv_write_index),
+            kv_write_index, kv_cache, kv_len, output_hidden_states, page_table)
+        return self.logits(final), hidden_states, kv_cache
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -387,12 +503,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
-                  device=None) -> KVCache:
-    """(k, v) each [L, B, max_len, Hkv, D] in cfg.dtype, zero-filled."""
+                  device=None, dtype: Optional[torch.dtype] = None) -> KVCache:
+    """(k, v) each [L, B, max_len, Hkv, D] in `dtype` (cfg.dtype if None),
+    zero-filled."""
     shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads,
              cfg.head_dim_)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    dtype = dtype or cfg.dtype
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, page: int = 128,

@@ -56,3 +56,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     out1 = x1f * cos - x2f * sin
     out2 = x2f * cos + x1f * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                section) -> torch.Tensor:
+    """Multimodal 3-D RoPE (Qwen2-VL / Qwen2.5-Omni), counterpart of
+    spider_tpu/ops/rope.py::apply_mrope.
+
+    Frequency index i of head_dim/2 takes its angle from position stream
+    sel[i] (temporal, height, width), `section` giving each stream's count
+    (e.g. (16, 24, 24) for head_dim 128). Text tokens carry equal t/h/w
+    positions, which is exactly apply_rope.
+
+    x: [B, T, H, D]; positions: [3, B, T] int; section sums to D/2.
+    """
+    d2 = x.shape[-1] // 2
+    if sum(section) != d2:
+        raise ValueError(f"mrope section {tuple(section)} must sum to head_dim/2 = {d2}")
+    angles = positions[..., None].float() * inv_freq                  # [3, B, T, d2]
+    sel = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                  torch.tensor(section, device=x.device))       # [d2]
+    # The JAX form sums the three streams weighted by a one-hot of sel,
+    # which picks one of them exactly; a gather picks the same bits.
+    ang = torch.gather(angles.movedim(0, -1), -1,
+                       sel.expand(*angles.shape[1:])[..., None])[..., 0]   # [B, T, d2]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1f = x[..., :d2].float()
+    x2f = x[..., d2:].float()
+    out1 = x1f * cos - x2f * sin
+    out2 = x2f * cos + x1f * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)

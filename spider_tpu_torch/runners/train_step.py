@@ -162,14 +162,24 @@ def backward_and_step(loss: torch.Tensor, optimizer: Optimizer) -> torch.Tensor:
 
 
 def make_lm_train_step(model: LlamaForCausalLM, optimizer: Optimizer):
-    """Returns step(batch) -> metrics (loss, gen_acc, grad_norm as tensors).
-    batch: input_ids, labels [B, T] (labels -100 outside answer spans)."""
+    """Returns step(batch) -> metrics (loss, gen_acc, grad_norm as tensors;
+    with experts also moe_aux, the mean of the layers' load-balancing
+    terms). batch: input_ids, labels [B, T] (labels -100 outside answer
+    spans). With experts the loss is cross entropy + moe_aux_weight *
+    moe_aux, as the JAX step adds it."""
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         ids = torch.as_tensor(batch["input_ids"]).to(model.device)
         logits, _, _ = model(input_ids=ids)
         loss, acc = cross_entropy_loss(logits, torch.as_tensor(batch["labels"]))
+        aux = model.moe_aux_losses()
+        if aux is not None:
+            aux = aux.mean()
+            loss = loss + model.config.moe_aux_weight * aux
         grad_norm = backward_and_step(loss, optimizer)
-        return dict(loss=loss.detach(), gen_acc=acc, grad_norm=grad_norm)
+        out = dict(loss=loss.detach(), gen_acc=acc, grad_norm=grad_norm)
+        if aux is not None:
+            out["moe_aux"] = aux.detach()
+        return out
 
     return step

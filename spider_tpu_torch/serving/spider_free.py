@@ -152,11 +152,14 @@ class SpiderFree:
 
 
 def make_llama_chat_fn(model, tokenizer, max_new_tokens: int = 512,
-                       temperature: float = 0.0, generator=None):
+                       temperature: float = 0.0, generator=None,
+                       speculative: bool = False):
     """Default chat backbone: greedy or temperature decode on the port's Llama.
     The prompt's tokens and the decode live on the model's device; sampling
-    draws only from `generator`. Prompt-lookup speculative decoding is not
-    ported yet."""
+    draws only from `generator`. speculative=True (greedy only) decodes with
+    prompt-lookup speculation (models/speculative.py, the on-device loop):
+    the greedy stream, several tokens a forward pass where drafts are
+    accepted."""
     import torch
 
     from spider_tpu_torch.models.decode import GenerateConfig, generate
@@ -167,6 +170,16 @@ def make_llama_chat_fn(model, tokenizer, max_new_tokens: int = 512,
 
     def chat_fn(prompt: str) -> str:
         ids = tokenizer(prompt, add_special_tokens=True).input_ids
+        if speculative and temperature <= 0.0:
+            from spider_tpu_torch.models.speculative import (PromptLookupConfig,
+                                                             speculative_generate_ondevice)
+
+            toks = speculative_generate_ondevice(
+                model, ids, PromptLookupConfig(max_new_tokens=max_new_tokens,
+                                               eos_ids=(tokenizer.eos_token_id,),
+                                               pad_id=tokenizer.pad_token_id))
+            toks = [t for t in toks if t != tokenizer.pad_token_id]
+            return tokenizer.decode(toks, skip_special_tokens=True)
         arr = torch.tensor([ids], dtype=torch.long, device=model.device)
         with torch.inference_mode():
             embeds = model.embed(arr)

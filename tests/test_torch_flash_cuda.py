@@ -255,3 +255,31 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         A.flash_attention(q, k, v, route="wgmma")
     with pytest.raises(ValueError):
         A.flash_attention(q, k, v, route="tma")
+
+
+@pytest.mark.parametrize("conv", ["prefill", "suffix"])
+@ROUTES
+def test_kernel_qwen2_heads_group_7(dev, conv, route):
+    # Qwen2-7B's 28 query heads over 4 KV heads: a group of 7, at its prefill
+    # (T 128 over a cache of 160 with kv_len 128) and cache-free.
+    if conv == "prefill":
+        q, k, v = _inputs(1, 128, 160, 28, 4, 128, torch.bfloat16, dev, seed=40)
+        kw = dict(kv_len=torch.tensor([128], dtype=torch.int32, device=dev), q_offset=0)
+    else:
+        q, k, v = _inputs(2, 150, 150, 28, 4, 128, torch.bfloat16, dev, seed=41)
+        kw = {}
+    _check(q, k, v, 2e-2, 1e-3, route, causal=True, **kw)
+
+
+@pytest.mark.parametrize("offsets", [(128,), (128, 200), (0, 255)])
+@pytest.mark.parametrize("heads", [(32, 8), (28, 4)])
+@ROUTES
+def test_kernel_speculative_verify_window(dev, offsets, heads, route):
+    # The verify window of prompt-lookup speculation: T 8 queries at
+    # q_offset = kv_len over a cache of S = T + N + G = 128 + 128 + 8 = 264,
+    # kv_len + 8 keys live, per-batch offsets; 120 of the 128 rows of a
+    # wgmma query tile are empty.
+    B = len(offsets)
+    q, k, v = _inputs(B, 8, 264, *heads, 128, torch.bfloat16, dev, seed=42 + B)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    _check(q, k, v, 2e-2, 1e-3, route, causal=True, kv_len=off + 8, q_offset=off)

@@ -193,3 +193,20 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     wide = torch.zeros(32, 64, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         Q.int4_matmul(x, wide[:, :32], scale)
+
+
+# Qwen2-7B's projections (K in, N out): q/o, k/v, gate/up at hidden 3584, and
+# down from 18944 (K/2 = 9472 > 2048: the first kernel at up to 16 rows).
+QWEN2_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+
+
+@pytest.mark.parametrize("M", [1, 16, 128])
+@pytest.mark.parametrize("K,N", QWEN2_SHAPES)
+def test_qwen2_shapes(dev, M, K, N):
+    x, packed, scale = _inputs(M, K, N, torch.bfloat16, dev, seed=M + N)
+    want = "mma" if M <= 16 and K == 18944 else "stream" if M <= 16 else "wgmma"
+    assert _ruled(x, packed) == want
+    first = _check(x, packed, scale, torch.bfloat16)
+    again = Q.int4_matmul(x, packed, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

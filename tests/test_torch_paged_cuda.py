@@ -205,3 +205,18 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         q, pk, pv, table, lens = _inputs(2, 8, 2, D, 16, 4, 10, [5, 9], torch.bfloat16, dev)
         with pytest.raises(ValueError):
             P.paged_decode_attention(q, pk, pv, table, lens)
+
+
+@ROUTES
+def test_qwen2_group_7(dev, route):
+    # Qwen2-7B: 28 query heads over 4 KV heads, D 128, page 128. The split
+    # kernel pads each group of 7 to its 16 rows; the padded rows must not
+    # reach the output.
+    lens = [1, 127, 128, 129, 300, 512, 5, 200]
+    args = _inputs(8, 28, 4, 128, 128, 4, 40, lens, torch.bfloat16, dev, seed=30)
+    assert _ruled(args) == "split"
+    first = _check(args, 2e-2, route)
+    again = (P.paged_decode_attention(*args) if route == "ruled"
+             else P.paged_decode_kernel(*args, route=route))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

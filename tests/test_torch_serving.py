@@ -1,4 +1,5 @@
-"""The port's continuous batchers against its own greedy ``generate``.
+"""The port's continuous batchers and its wave batcher (``LlmBatcher``)
+against its own greedy ``generate``.
 
 ``generate`` is held to the JAX package's by tests/test_torch_llama.py, so
 every output here is checked against a fresh greedy decode of the same
@@ -18,6 +19,8 @@ from spider_tpu_torch.models import factory
 from spider_tpu_torch.models import llama as tL
 from spider_tpu_torch.models.decode import GenerateConfig, generate
 from spider_tpu_torch.models.tokenizer import TinyTokenizer
+from spider_tpu_torch.serving import batcher as batcher_mod
+from spider_tpu_torch.serving.batcher import LlmBatcher
 from spider_tpu_torch.serving.continuous import ContinuousBatcher, PagedContinuousBatcher
 
 TOK = TinyTokenizer()
@@ -196,3 +199,49 @@ def test_paged_batcher_rejects_a_bucket_that_is_not_whole_pages(model):
     with pytest.raises(ValueError):
         PagedContinuousBatcher(model, TOK, num_slots=1, max_len=32, prefill_bucket=12,
                                page=8)
+
+
+def test_llm_batcher_batches_and_answers(model):
+    # 4 concurrent requests in one wave (the JAX test's case,
+    # tests/test_serving.py:109-137); each answer equals a lone greedy decode,
+    # and a single chat after the wave gives the first answer again.
+    b = LlmBatcher(model, TOK, gen_cfg=GenerateConfig(max_new_tokens=4,
+                                                      eos_ids=(TOK.eos_token_id,),
+                                                      pad_id=TOK.pad_token_id),
+                   max_batch_size=4, max_wait_s=0.2, length_bucket=16)
+    prompts = [f"hello number {i}" + " and more" * i for i in range(4)]
+    futs = [b.submit(p) for p in prompts]
+    outs = [f.result(timeout=120) for f in futs]
+    assert b.n_waves == 1
+    assert outs == [_greedy(model, p, 4) for p in prompts]
+    assert b.chat(prompts[0], timeout=120) == outs[0] and b.n_waves == 2
+    b.close()
+    assert not b._thread.is_alive()
+
+
+def test_llm_batcher_pads_waves_to_the_bucket(model):
+    b = LlmBatcher(model, TOK, max_batch_size=2, length_bucket=16)
+    arr, plen = b.pad_wave([[5, 6, 7], list(range(1, 21))])
+    assert arr.shape == (2, 32) and plen.tolist() == [3, 20]
+    assert (arr[0, 3:] == TOK.pad_token_id).all() and arr[1, :20].tolist() == list(range(1, 21))
+    b.close()
+
+
+def test_llm_batcher_failing_wave_fails_its_futures_and_goes_on(model, monkeypatch):
+    b = LlmBatcher(model, TOK, gen_cfg=GenerateConfig(max_new_tokens=3,
+                                                      eos_ids=(TOK.eos_token_id,),
+                                                      pad_id=TOK.pad_token_id),
+                   max_batch_size=3, max_wait_s=0.2, length_bucket=16)
+    real = batcher_mod.generate
+
+    def boom(*a, **k):
+        raise RuntimeError("wave failed")
+
+    monkeypatch.setattr(batcher_mod, "generate", boom)
+    futs = [b.submit(f"request {i}") for i in range(3)]
+    for f in futs:
+        with pytest.raises(RuntimeError, match="wave failed"):
+            f.result(timeout=60)
+    monkeypatch.setattr(batcher_mod, "generate", real)
+    assert b.chat("request 0", timeout=60) == _greedy(model, "request 0", 3)
+    b.close()
