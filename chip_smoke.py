@@ -45,6 +45,15 @@ Phases, each printing one JSON line:
   any_to_many  SpiderFree.chat requests that render text, image, audio and video:
                the above plus AudioLDM-l (5 s, 40 steps) and ZeroScope (576x320,
                16 frames, 40 steps); the first is a warm-up, both are printed
+  http         the any-to-many request through serving/http_server.py (serve on a
+               free port, the resident models): one streamed POST /chat, server-sent
+               events in the order text, image, video, audio, done, the seconds to each,
+               the PNG, WAV and video frames decoded to their shapes; one POST answered
+               in one JSON body, the same answer; launches as any_to_many's
+  orchestrator the three decoder stages of that request one after another, then through
+               serving/orchestrator.py (StageOrchestrator, run_request_concurrent), each
+               stage on its own thread and CUDA stream: serial and concurrent seconds,
+               overlap_x, the media bit-equal both ways, launches per route exact
   serving      bench_suite.py::bench_paged_serving through the port: 24 mixed-length
                prompts, 48 new tokens each, after 4 warm-up requests, through the
                contiguous batcher (8 slots, int8), the paged batcher (16 slots over
@@ -85,6 +94,14 @@ Phases, each printing one JSON line:
                against the plain backward, make_lm_train_step at [4, 512], profiled
                steps of each (device time and wall time of the same steps), then
                RunnerBase.train() (epoch loop, checkpoint) and a checkpoint round trip
+  spider_generate  serve what train trained: SpiderInference from the train config
+               (preset 'full') with the resident pipelines, the trainable parameters
+               restored bit for bit through load_demo_checkpoint from the checkpoint
+               RunnerBase.train() wrote; Spider.generate on a question with an image
+               input (ImageBind-huge), task [IMAGE], 64 new tokens, twice (the same
+               bits) and once for the prefill alone; then _decode_modality_infer for
+               IMAGE, AUDIO and VIDEO from that run's hidden states with each signal
+               run written into the token row: fused conditioning, media, launches
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -100,12 +117,17 @@ Phases, each printing one JSON line:
                UNet call of SD-1.5 at 512px bit-equal to the in-memory pipeline's; then
                build_full_spider(paths={'llama': ...}): base leaves bit-equal, the
                vocabulary rows past 128256 the reference's extension rows. Load
-               seconds, GB/s, device GB and the peak host RSS (sampled) of each load
+               seconds, GB/s, device GB and the peak host RSS (sampled) of each load;
+               then the r1_llama3_8B twins on that directory through SPIDER_TPU_LLM_CKPT:
+               the infer twin's reply (unquantised, as the reference's serving loader)
+               equal to a model filled in memory from the same tensors, and the gradio
+               twin's server answering one POST /chat
 Then the kernel summary, the card's `nvidia-smi` name and power limit, and
 as the last line {"ok": true, "device": {...}}.
 
-Each main-path phase (chat, request, any_to_many, each serving configuration,
-speculative to moe, the train steps) sets every kernel's launch count to 0 just before it runs and
+Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
+configuration, speculative to moe, the train steps, spider_generate, the checkpoint
+decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
 and the run fails if a main-path launch took a general route: every bf16
@@ -131,6 +153,7 @@ fp32.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -223,6 +246,7 @@ GRAD_COS = 0.999
 # The checkpoint phase: seed of the synthetic weights, shards of the 8B,
 # greedy tokens compared after the loaded model's prefill.
 CKPT_SEED = 11
+GENERATE_TOKENS = 64                  # Spider.generate's new tokens in spider_generate
 CKPT_SHARDS = 4
 CKPT_NEW_TOKENS = 32
 
@@ -336,10 +360,10 @@ def launch_counters():
 
 
 def reset_launches() -> None:
-    for name, fn in launch_counters().items():
-        fn.launches = 0
-        if name in ROUTED:
-            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    from spider_tpu_torch.ops.launch_count import reset_launches as reset
+
+    for fn in launch_counters().values():
+        reset(fn)
 
 
 def read_launches() -> dict:
@@ -1434,34 +1458,21 @@ def phase_request(model, tokenizer, pipe):
     return rows
 
 
-def phase_any_to_many(model, tokenizer, sd, ad, vd):
-    import torch
-
-    from spider_tpu_torch.common.config import Config
-    from spider_tpu_torch.models.vocoder import output_length
-    from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
-
-    llm_chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
-    timing = {}
-    tags = (f" <IMAGE>{SD_CAPTION}</IMAGE> <AUDIO>{AUDIO_CAPTION}</AUDIO>"
+A2M_QUESTION = f"Show me {SD_CAPTION}, let me hear it and film it."
+A2M_TAGS = (f" <IMAGE>{SD_CAPTION}</IMAGE> <AUDIO>{AUDIO_CAPTION}</AUDIO>"
             f" <VIDEO>{VIDEO_CAPTION}</VIDEO>")
+A2M_SEEDS = {"IMAGE": 1, "AUDIO": 2, "VIDEO": 3}
 
-    def chat_fn(prompt):
-        text, s = timed_chat(llm_chat, prompt)
-        timing["chat_s"] = s
-        return text + tags
 
-    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
-    sf = SpiderFree(cfg, chat_fn=chat_fn, decoders={
-        "IMAGE": _timed_decoder(sd, "image", timing, seed=1),
-        "AUDIO": _timed_decoder(ad, "audio", timing, seed=2),
-        "VIDEO": _timed_decoder(vd, "video", timing, seed=3)})
+def any_to_many_want(sd, ad, vd) -> dict:
+    """What the configurations say one any-to-many request's decoders must
+    show: flash and temporal launches per decoder, media shapes."""
+    from spider_tpu_torch.models.vocoder import output_length
 
-    # What the configurations say the request must show.
     h, w, frames = VIDEO_HW_FRAMES
     lat = ad.latent_shape(1, AUDIO_SECONDS)
     mel_frames = lat[1] * 2 ** (len(ad.vae.config.block_out_channels) - 1)
-    want = dict(
+    return dict(
         image_flash=STEPS * flash_launches_per_unet_call(sd.unet.config, 64, 64, 77, 2),
         audio_flash=STEPS * flash_launches_per_unet_call(ad.unet.config, lat[1], lat[2],
                                                            1, 2),
@@ -1471,39 +1482,70 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
                                                          2 * frames),
         audio_shape=[1, output_length(ad.vocoder.config, mel_frames)],
         video_shape=[1, frames, h, w, 3])
+
+
+def any_to_many_spider_free(model, tokenizer, sd, ad, vd, timing: dict):
+    """SpiderFree over the 8B chat backbone, whose answer gets the fixed tag
+    spans appended, and the three timed decoders, recording into `timing`."""
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
+
+    llm_chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
+
+    def chat_fn(prompt):
+        text, s = timed_chat(llm_chat, prompt)
+        timing["chat_s"] = s
+        return text + A2M_TAGS
+
+    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+    return SpiderFree(cfg, chat_fn=chat_fn, decoders={
+        m: _timed_decoder(pipe, m.lower(), timing, seed=A2M_SEEDS[m])
+        for m, pipe in (("IMAGE", sd), ("AUDIO", ad), ("VIDEO", vd))})
+
+
+def any_to_many_decoders_ok(timing: dict, want: dict) -> bool:
+    """Each decoder's output shape, range and launches, and the operating
+    point it was called at."""
+    h, w, frames = VIDEO_HW_FRAMES
+    return bool(
+        timing.get("image_shape") == [1, 512, 512, 3] and timing["image_finite"]
+        and 0.0 <= timing["image_range"][0] and timing["image_range"][1] <= 1.0
+        and timing["image_launches"]["flash_fwd"] == want["image_flash"]
+        and timing.get("audio_shape") == want["audio_shape"] and timing["audio_finite"]
+        and -1.0 <= timing["audio_range"][0] and timing["audio_range"][1] <= 1.0
+        and timing["audio_launches"]["flash_fwd"] == want["audio_flash"]
+        and timing.get("audio_kw") == dict(guidance_scale=GUIDANCE, num_inference_steps=STEPS,
+                                           audio_length_in_s=AUDIO_SECONDS)
+        and timing.get("video_shape") == want["video_shape"]
+        and timing["video_dtype"] == "uint8"
+        and timing["video_launches"]["tattn_fwd"] == want["video_tattn"]
+        and timing["video_launches"]["flash_fwd"] == want["video_flash"]
+        and timing.get("video_kw") == dict(guidance_scale=GUIDANCE, num_inference_steps=STEPS,
+                                           height=h, width=w, num_frames=frames))
+
+
+def phase_any_to_many(model, tokenizer, sd, ad, vd):
+    import torch
+
+    timing = {}
+    sf = any_to_many_spider_free(model, tokenizer, sd, ad, vd, timing)
+    want = any_to_many_want(sd, ad, vd)
     rows = []
     for r in range(ANY_TO_MANY_REQUESTS):
         timing.clear()
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        events = sf.chat(f"Show me {SD_CAPTION}, let me hear it and film it.",
-                         task_prompt="SMARTMULTIMODAL")[0]
+        events = sf.chat(A2M_QUESTION, task_prompt="SMARTMULTIMODAL")[0]
         total = time.perf_counter() - t0
         launches, routes = read_launches(), read_route_launches()
         kinds = [k for k, _ in events]
         media = {k: p["media"] for k, p in events if k != "text"}
-        ok = (
-            on_ruled_route(routes) and
-            # the controller dispatches in its key order: IMAGE, VIDEO, AUDIO
-            kinds == ["text", "image", "video", "audio"]
-            and timing.get("image_shape") == [1, 512, 512, 3]
-            and media["image"].shape == (512, 512, 3) and timing["image_finite"]
-            and 0.0 <= timing["image_range"][0] and timing["image_range"][1] <= 1.0
-            and timing["image_launches"]["flash_fwd"] == want["image_flash"]
-            and timing.get("audio_shape") == want["audio_shape"] and timing["audio_finite"]
-            and -1.0 <= timing["audio_range"][0] and timing["audio_range"][1] <= 1.0
-            and timing["audio_launches"]["flash_fwd"] == want["audio_flash"]
-            and timing.get("audio_kw") == dict(guidance_scale=GUIDANCE,
-                                               num_inference_steps=STEPS,
-                                               audio_length_in_s=AUDIO_SECONDS)
-            and timing.get("video_shape") == want["video_shape"]
-            and timing["video_dtype"] == "uint8"
-            and timing["video_launches"]["tattn_fwd"] == want["video_tattn"]
-            and timing["video_launches"]["flash_fwd"] == want["video_flash"]
-            and timing.get("video_kw") == dict(guidance_scale=GUIDANCE,
-                                               num_inference_steps=STEPS, height=h, width=w,
-                                               num_frames=frames))
+        ok = (on_ruled_route(routes)
+              # the controller dispatches in its key order: IMAGE, VIDEO, AUDIO
+              and kinds == ["text", "image", "video", "audio"]
+              and media["image"].shape == (512, 512, 3)
+              and any_to_many_decoders_ok(timing, want))
         rows.append(dict(
             phase="any_to_many", request=r, warm_up=r == 0, events=kinds, seconds=total,
             chat_s=timing.get("chat_s"), image_s=timing.get("image_s"),
@@ -1515,6 +1557,176 @@ def phase_any_to_many(model, tokenizer, sd, ad, vd):
             video_shape=timing.get("video_shape"), video_dtype=timing.get("video_dtype"),
             launches=launches, route_launches=routes, ok=ok))
     return rows
+
+
+def _read_sse(resp, t0: float):
+    """(events, seconds from t0 at which each arrived) of a server-sent
+    event stream, up to its 'done' event."""
+    events, at = [], []
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            events.append(json.loads(line[len(b"data: "):]))
+            at.append(time.perf_counter() - t0)
+            if events[-1]["kind"] == "done":
+                break
+    return events, at
+
+
+def _decoded_media(events) -> dict:
+    """Shapes of the media of serialized events, decoded: PNG images and
+    video frames through PIL, the WAV through the wave module."""
+    import base64
+    import io
+    import wave
+
+    import numpy as np
+    from PIL import Image
+
+    def png(b64):
+        return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+    out = {}
+    for ev in events:
+        if ev["kind"] == "image":
+            out["image"] = list(png(ev["data"]).shape)
+        elif ev["kind"] == "video":
+            frames = [png(f) for f in ev["data"]]
+            out["video"] = [len(frames)] + list(frames[0].shape)
+        elif ev["kind"] == "audio":
+            with wave.open(io.BytesIO(base64.b64decode(ev["data"]))) as w:
+                out["audio"] = [w.getnframes()]
+    return out
+
+
+def phase_http(model, tokenizer, sd, ad, vd):
+    """The any-to-many request through serving/http_server.py: one streamed
+    POST /chat (server-sent events, the seconds to each event) and one
+    answered in one JSON body, on the resident models."""
+    import http.client
+
+    import PIL
+    import torch
+
+    from spider_tpu_torch.serving.http_server import serve
+
+    timing = {}
+    sf = any_to_many_spider_free(model, tokenizer, sd, ad, vd, timing)
+    want = any_to_many_want(sd, ad, vd)
+    L = model.config.num_hidden_layers
+    want_flash = L + want["image_flash"] + want["audio_flash"] + want["video_flash"]
+    h, w, frames = VIDEO_HW_FRAMES
+    want_media = dict(image=[512, 512, 3], video=[frames, h, w, 3],
+                      audio=[want["audio_shape"][1]])
+    server = serve(sf, port=0, background=True)
+    rows = []
+    try:
+        for stream in (True, False):
+            body = json.dumps(dict(text=A2M_QUESTION, task="SMARTMULTIMODAL", stream=stream))
+            timing.clear()
+            reset_launches()
+            torch.cuda.synchronize()
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=600)
+            t0 = time.perf_counter()
+            conn.request("POST", "/chat", body, {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            if stream:
+                events, at = _read_sse(resp, t0)
+                answer = next((e["answer"] for e in events if e["kind"] == "text"), None)
+            else:
+                out = json.loads(resp.read())
+                events, answer = out["events"], out["answer"]
+            total = time.perf_counter() - t0
+            conn.close()
+            launches, routes = read_launches(), read_route_launches()
+            kinds = [e["kind"] for e in events]
+            media = _decoded_media(events)
+            row = dict(phase="http", stream=stream, status=resp.status, events=kinds,
+                       seconds=total, chat_s=timing.get("chat_s"),
+                       image_s=timing.get("image_s"), audio_s=timing.get("audio_s"),
+                       video_s=timing.get("video_s"), media=media, media_expected=want_media,
+                       pil=PIL.__version__, launches=launches, route_launches=routes,
+                       flash_expected=want_flash, answer_chars=len(answer or ""))
+            ok = (resp.status == 200 and media == want_media and on_ruled_route(routes)
+                  and any_to_many_decoders_ok(timing, want)
+                  and launches["flash_fwd"] == want_flash
+                  and launches["tattn_fwd"] == want["video_tattn"])
+            if stream:
+                row["seconds_to"] = dict(zip(kinds, at))
+                ok &= kinds == ["text", "image", "video", "audio", "done"]
+                first = dict(answer=answer, media={e["kind"]: e.get("data") for e in events})
+            else:
+                ok &= kinds == ["image", "video", "audio"] and answer == first["answer"]
+                row["same_media_as_stream"] = {e["kind"]: e["data"] == first["media"][e["kind"]]
+                                               for e in events}
+            row["ok"] = bool(ok)
+            rows.append(row)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return rows
+
+
+def phase_orchestrator(sd, ad, vd, dev):
+    """The three decoder stages of one any-to-many request, one after another
+    and then through serving/orchestrator.py (StageOrchestrator,
+    run_request_concurrent), each stage on its own thread and CUDA stream:
+    the same seeds, so the same media bit for bit (cuDNN on its deterministic
+    algorithms for this phase)."""
+    import numpy as np
+    import torch
+
+    from spider_tpu_torch.serving.orchestrator import dryrun_concurrent
+
+    h, w, frames = VIDEO_HW_FRAMES
+    want = any_to_many_want(sd, ad, vd)
+
+    def stage(pipe, seed, **kw):
+        def fn(s):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return pipe(prompt=s["llm_text_res"], generator=g, guidance_scale=GUIDANCE,
+                        num_inference_steps=STEPS, **kw)
+        return fn
+
+    pipes = {"IMAGE": stage(sd, A2M_SEEDS["IMAGE"]),
+             "VIDEO": stage(vd, A2M_SEEDS["VIDEO"], height=h, width=w, num_frames=frames),
+             "AUDIO": stage(ad, A2M_SEEDS["AUDIO"], audio_length_in_s=AUDIO_SECONDS)}
+    # The HiFi-GAN's transposed convolutions run on cuDNN algorithms that may
+    # sum in any order: two serial clips, before cuDNN is held to its
+    # deterministic algorithms for the bit comparison below.
+    probe = {"llm_text_res": [AUDIO_CAPTION]}
+    audio_twice_equal = bool(np.array_equal(pipes["AUDIO"](probe), pipes["AUDIO"](probe)))
+    runs = 2                      # the serial run, the concurrent run (all warm here)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        stats = dryrun_concurrent(pipes, device=dev, repeats=1,
+                                  samples={"llm_text_all": ["Here." + A2M_TAGS]})
+        launches, routes = read_launches(), read_route_launches()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want_flash = runs * (want["image_flash"] + want["audio_flash"] + want["video_flash"])
+    same = [m1 == m2 and c1 == c2 and np.array_equal(a, b) for (m1, c1, a), (m2, c2, b)
+            in zip(stats["serial_events"], stats["events"])]
+    shapes = {m: list(a.shape) for m, _, a in stats["events"]}
+    ok = (len(same) == 3 and all(same) and on_ruled_route(routes)
+          and launches["flash_fwd"] == want_flash
+          and launches["tattn_fwd"] == runs * want["video_tattn"]
+          and all(sum(routes[n].values()) == launches[n] for n in ROUTED)
+          and shapes == dict(IMAGE=[1, 512, 512, 3], AUDIO=want["audio_shape"],
+                             VIDEO=want["video_shape"]))
+    return dict(phase="orchestrator", stages=list(pipes), runs=runs,
+                serial_s=stats["serial_s"], concurrent_s=stats["concurrent_s"],
+                overlap_x=stats["overlap_x"], stage_done_s=stats["stage_s"],
+                cudnn_deterministic=True, audio_twice_equal_by_default=audio_twice_equal,
+                media_bit_equal=same, shapes=shapes, launches=launches,
+                route_launches=routes, flash_expected=want_flash,
+                tattn_expected=runs * want["video_tattn"], ok=bool(ok))
 
 
 def serving_prompts(n: int):
@@ -1746,9 +1958,11 @@ def phase_train(sd, ad, vd, dev, smi: str):
     """The training path at full width, through the train entry's own
     build_runner (task -> datasets -> build_spider_from_config(preset='full')
     -> the registered runner) and RunnerBase.train_epoch / train. Returns
-    (rows, launches): the JSON rows and the main path's launch counts (the
-    epochs and the timed and checked train steps; launches made while
-    profiling or routed to the plain backward are left out)."""
+    (rows, launches, handoff): the JSON rows, the main path's launch counts
+    (the epochs and the timed and checked train steps; launches made while
+    profiling or routed to the plain backward are left out) and what
+    phase_spider_generate serves: the config, the checkpoint RunnerBase.train()
+    wrote and its directory, which the caller removes."""
     import logging
     import shutil
     import signal
@@ -2091,11 +2305,184 @@ def phase_train(sd, ad, vd, dev, smi: str):
                          route_launches=routes,
                          ok=on_ruled_route(routes)
                          and all(sum(routes[n].values()) == launches[n] for n in ROUTED)))
+    except BaseException:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        raise
     finally:
         signal.signal(signal.SIGTERM, sigterm)            # train() installed its own
-        shutil.rmtree(out_dir, ignore_errors=True)
     for row in rows:
         row["nvidia_smi"] = smi
+    return rows, launches, dict(cfg=cfg, checkpoint=path, out_dir=out_dir)
+
+
+class _RecordingPipe:
+    """A pipeline passed through, recording the prompt embeddings each
+    generation call gets."""
+
+    def __init__(self, pipe):
+        self.pipe, self.prompt_embeds = pipe, []
+
+    def __call__(self, **kw):
+        if kw.get("prompt_embeds") is not None:
+            self.prompt_embeds.append(kw["prompt_embeds"])
+        return self.pipe(**kw)
+
+
+def phase_spider_generate(handoff: dict, sd, ad, vd, dev, smi: str):
+    """Serve what the train phase trained: SpiderInference built from the
+    train phase's config (preset 'full') on the card, its trainable
+    parameters restored through load_demo_checkpoint from the checkpoint
+    RunnerBase.train() wrote, the resident pipelines attached. One request
+    with an image input (ImageBind-huge through encode_modalities, task
+    [IMAGE], 64 new tokens) twice, and once with one new token (the
+    prefill); then _decode_modality_infer for IMAGE, AUDIO and VIDEO on that
+    run's hidden states, with each modality's signal tokens written into its
+    token row (a random model never emits them)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from spider_tpu_torch.models import spider as S
+    from spider_tpu_torch.processors.vision import image_to_imagebind
+    from spider_tpu_torch.serving.inference_api import SpiderInference
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    demo = os.path.join(handoff["out_dir"], "demo_config.json")
+    with open(demo, "w") as f:
+        json.dump({"type": "pt", "checkpoints": [handoff["checkpoint"]]}, f)
+    t0 = time.perf_counter()
+    inf = SpiderInference(handoff["cfg"], demo_config=demo, device=dev,
+                          diffusion_pipes=dict(IMAGE=sd, AUDIO=ad, VIDEO=vd))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spider = inf.model
+    saved = torch.load(handoff["checkpoint"], map_location=dev, weights_only=True)["params"]
+    named = dict(spider.named_parameters())
+    restored = all(torch.equal(named[n], t) for n, t in saved.items())
+    n_saved = len(saved)
+    del saved
+    rows = [dict(phase="spider_generate", part="build", seconds=build_s,
+                 restored_tensors=n_saved, restored_bit_equal=restored,
+                 resident_before_gb=resident_gb, allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                 ok=bool(restored and spider.encoder is not None
+                         and spider.moe_aligner is not None
+                         and spider.llm.config.num_hidden_layers == 32))]
+
+    rng = np.random.default_rng(21)
+    image = rng.integers(0, 255, (480, 640, 3), dtype=np.uint8)
+    samples = {"Question": ["What is in <IMAGE><IMAGE-Placeholder></IMAGE>? Draw it again."],
+               "TaskPrompt": ["[IMAGE]"],
+               "IMAGE": [image_to_imagebind(image, TRAIN_IMAGE_SIZE)]}
+    runs = []
+    decode = S.generate
+
+    def recorded(model, embeds, prompt_len, cfg, generator=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(model, embeds, prompt_len, cfg, generator)
+        torch.cuda.synchronize()
+        runs[-1].update(decode_s=time.perf_counter() - t, T=embeds.shape[1],
+                        prompt_len=int(prompt_len[0]), tokens=out["tokens"].cpu().numpy(),
+                        step_hidden=out["step_hidden"])
+        return out
+
+    S.generate = recorded
+    try:
+        for new_tokens in (GENERATE_TOKENS, GENERATE_TOKENS, 1):
+            runs.append({})
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers, preds, texts = inf(samples, max_new_tokens=new_tokens)
+            torch.cuda.synchronize()
+            runs[-1].update(seconds=time.perf_counter() - t0, answers=answers,
+                            launches=read_launches(), routes=read_route_launches())
+    finally:
+        S.generate = decode
+    a, b, prefill = runs
+    L = spider.llm.config.num_hidden_layers
+    same_bits = bool(np.array_equal(a["tokens"], b["tokens"])
+                     and torch.equal(a["step_hidden"], b["step_hidden"])
+                     and a["answers"] == b["answers"])
+    for r in runs:
+        r["flash_on_wgmma"] = (r["launches"]["flash_fwd"] == L
+                               and r["routes"]["flash_fwd"]["wgmma"] == L
+                               and on_ruled_route(r["routes"]))
+    rows.append(dict(
+        phase="spider_generate", part="generate", new_tokens=GENERATE_TOKENS,
+        prompt_bucket=a["T"], prompt_len=a["prompt_len"], seconds=[a["seconds"], b["seconds"]],
+        decode_s=[a["decode_s"], b["decode_s"]],
+        prepare_and_encode_s=a["seconds"] - a["decode_s"],
+        prefill_s=prefill["decode_s"], prefill_request_s=prefill["seconds"],
+        decode_tok_s=(GENERATE_TOKENS - 1) / max(a["decode_s"] - prefill["decode_s"], 1e-9),
+        tokens=int(a["tokens"].shape[1]), step_hidden=list(a["step_hidden"].shape),
+        step_hidden_dtype=str(a["step_hidden"].dtype), answer_chars=len(a["answers"][0]),
+        same_bits_twice=same_bits, launches=a["launches"], route_launches=a["routes"],
+        ok=bool(same_bits and a["T"] % 32 == 0 and a["prompt_len"] < a["T"]
+                and a["tokens"].shape == (1, GENERATE_TOKENS)
+                and tuple(a["step_hidden"].shape) == (GENERATE_TOKENS - 1, 1, 1, 4096)
+                and prefill["tokens"][0, 0] == a["tokens"][0, 0]
+                and all(r["flash_on_wgmma"] for r in runs))))
+
+    # the decoders, driven from the signal tokens' hidden states
+    want = any_to_many_want(sd, ad, vd)
+    launches = {name: sum(r["launches"][name] for r in runs) for name in KERNELS}
+    at = 10                                       # where the signal run is written
+    captions = {"IMAGE": SD_CAPTION, "AUDIO": AUDIO_CAPTION, "VIDEO": VIDEO_CAPTION}
+    checks = dict(IMAGE=(lambda x: x.shape == (512, 512, 3) and x.min() >= 0 and x.max() <= 1,
+                         {"flash_fwd": want["image_flash"]}),
+                  AUDIO=(lambda x: list(x.shape) == want["audio_shape"][1:]
+                         and x.min() >= -1 and x.max() <= 1, {"flash_fwd": want["audio_flash"]}),
+                  VIDEO=(lambda x: list(x.shape) == want["video_shape"] and x.dtype == np.uint8,
+                         {"flash_fwd": want["video_flash"], "tattn_fwd": want["video_tattn"]}))
+    pipes = dict(spider.diffusion_pipes)
+    try:
+        for m, (media_ok, want_launches) in checks.items():
+            tokens = a["tokens"].copy()
+            sig = spider._signal_ids[m]
+            tokens[0, at:at + len(sig)] = sig
+            rec = _RecordingPipe(pipes[m])
+            spider.diffusion_pipes[m] = rec
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spider._decode_modality_infer(m, 0, captions[m], tokens, a["step_hidden"],
+                                                samples, GUIDANCE, STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got, routes = read_launches(), read_route_launches()
+            for name in KERNELS:
+                launches[name] += got[name]
+            cond = rec.prompt_embeds[0] if rec.prompt_embeds else None
+            cond_ok = (cond is not None and cond.dtype == torch.float32
+                       and bool(torch.isfinite(cond).all())
+                       and list(cond.shape) == ([1, 77, 768] if m == "IMAGE" else
+                                                [1, 77, 1024] if m == "VIDEO" else [1, 512]))
+            out = np.asarray(out)
+            rows.append(dict(
+                phase="spider_generate", part=f"decode_{m.lower()}", seconds=seconds,
+                fused_shape=None if cond is None else list(cond.shape),
+                fused_dtype=None if cond is None else str(cond.dtype), media_shape=list(out.shape),
+                media_dtype=str(out.dtype),
+                media_range=[float(out.min()), float(out.max())], launches=got,
+                launches_expected=want_launches, route_launches=routes,
+                ok=bool(cond_ok and media_ok(out) and on_ruled_route(routes)
+                        and np.isfinite(out.astype(np.float32)).all()
+                        and all(got[k] == v for k, v in want_launches.items()))))
+    finally:
+        spider.diffusion_pipes.update(pipes)
+    rows.append(dict(phase="spider_generate", part="total",
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+                     ok=all(r["ok"] for r in rows)))
+    for row in rows:
+        row["nvidia_smi"] = smi
+    del inf, spider, named, runs, a, b, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows, launches
 
 
@@ -2487,6 +2874,108 @@ def checkpoint_spider(directory: str, dev, src, hf):
     return row
 
 
+R1_PROMPT = "Hello, who are you?"    # the infer twin's default question
+R1_GRADIO_TOKENS = 32
+
+
+def checkpoint_r1_twins(directory: str, dev, src, hf):
+    """The r1_llama3_8B twins on the synthetic 8B directory through
+    SPIDER_TPU_LLM_CKPT. The infer twin's build_r1 loads it unquantised (fp32
+    parameters, bf16 arithmetic), as the reference's serving loader does: its
+    reply must equal make_llama_chat_fn's on a model filled in memory from
+    the same tensors, and so must the tokens behind it (TinyTokenizer decodes
+    most of the 8B's ids to nothing). The gradio twin's server stack
+    (speculative chat, no decoders) answers one POST /chat. Returns (row,
+    the launches of the twin's reply)."""
+    import dataclasses
+    import gc
+    import http.client
+
+    import torch
+
+    from spider_tpu_torch import r1_llama3_8B_gradio, r1_llama3_8B_infer
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import decode
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.models.tokenizer import TinyTokenizer
+    from spider_tpu_torch.serving.spider_free import make_llama_chat_fn
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tokens = []
+    generate = decode.generate
+
+    def recorded(*args, **kw):
+        out = generate(*args, **kw)
+        tokens.append(out["tokens"][0].tolist())
+        return out
+
+    before = os.environ.get("SPIDER_TPU_LLM_CKPT")
+    os.environ["SPIDER_TPU_LLM_CKPT"] = directory
+    decode.generate = recorded
+    try:
+        t0 = time.perf_counter()
+        chat = r1_llama3_8B_infer.build_r1(device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        reply = chat(R1_PROMPT)
+        torch.cuda.synchronize()
+        reply_s = time.perf_counter() - t0
+        launches, routes = read_launches(), read_route_launches()
+        del chat
+        free()
+        cfg = dataclasses.replace(src.config, param_dtype=torch.float32)
+        ref = L.LlamaForCausalLM(cfg, dev).eval()
+        ref.load_state_dict(C.convert_llama_state_dict(hf, cfg), strict=True)
+        want = make_llama_chat_fn(ref, TinyTokenizer(), max_new_tokens=64)(R1_PROMPT)
+        del ref
+        free()
+
+        t0 = time.perf_counter()
+        server = r1_llama3_8B_gradio.main(
+            ["--port", "0", "--max-new-tokens", str(R1_GRADIO_TOKENS)], background=True)
+        boot_s = time.perf_counter() - t0
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=600)
+            t0 = time.perf_counter()
+            conn.request("POST", "/chat", json.dumps({"text": R1_PROMPT}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out = json.loads(resp.read())
+            post_s = time.perf_counter() - t0
+            conn.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+        del server
+        free()
+    finally:
+        decode.generate = generate
+        if before is None:
+            os.environ.pop("SPIDER_TPU_LLM_CKPT", None)
+        else:
+            os.environ["SPIDER_TPU_LLM_CKPT"] = before
+    layers = src.config.num_hidden_layers
+    twin_tokens, want_tokens = tokens[:2]
+    row = dict(phase="checkpoint", model="r1_twins", infer_load_s=load_s, infer_reply_s=reply_s,
+               infer_reply_chars=len(reply), infer_equal_in_memory=reply == want,
+               infer_tokens=len(twin_tokens), infer_tokens_equal=twin_tokens == want_tokens,
+               gradio_boot_s=boot_s, gradio_post_s=post_s, gradio_status=resp.status,
+               gradio_answer_chars=len(out.get("answer", "")), gradio_events=out.get("events"),
+               launches=launches, route_launches=routes)
+    row["ok"] = bool(reply == want and twin_tokens == want_tokens and len(tokens) == 2
+                     and len(twin_tokens) == 64 and resp.status == 200
+                     and isinstance(out.get("answer"), str) and out.get("events") == []
+                     and launches["flash_fwd"] == layers and routes["flash_fwd"]["wgmma"] == layers
+                     and on_ruled_route(routes))
+    return row, launches
+
+
 def phase_checkpoint(dev, smi: str):
     """The checkpoint slice: the rows above, each emitted when done, each
     family written, loaded, checked and deleted before the next; the 8B
@@ -2522,12 +3011,14 @@ def phase_checkpoint(dev, smi: str):
         done(checkpoint_imagebind(d, dev))
         shutil.rmtree(d)
         done(checkpoint_spider(llama_dir, dev, src, hf))
+        twins, twin_launches = checkpoint_r1_twins(llama_dir, dev, src, hf)
+        done(twins)
         del src, hf
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     done(dict(phase="checkpoint", model="total", seconds=time.perf_counter() - t_phase, ok=ok))
-    return ok, row["launches"]
+    return ok, _add_launches(dict(row["launches"]), twin_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3423,6 +3914,8 @@ def main() -> int:
     phases = [phase_chat(model, tokenizer, spider_free_T)]
     phases += phase_request(model, tokenizer, sd)
     phases += phase_any_to_many(model, tokenizer, sd, ad, vd)
+    phases += phase_http(model, tokenizer, sd, ad, vd)
+    phases += [phase_orchestrator(sd, ad, vd, dev)]
     phases += phase_serving(model, model4, tokenizer)
     for row in phases:
         emit(row)
@@ -3439,12 +3932,23 @@ def main() -> int:
     # The trainer needs the card's memory: the two chat models go first.
     del model, model4
     torch.cuda.empty_cache()
-    train_rows, train_launches = phase_train(sd, ad, vd, dev, smi)
+    train_rows, train_launches, handoff = phase_train(sd, ad, vd, dev, smi)
     for row in train_rows:
         emit(row)
         ok &= row["ok"]
-    for name in KERNELS:
-        main_launches[name] += train_launches[name]
+    _add_launches(main_launches, train_launches)
+    del train_rows
+
+    # Serve what was trained: SpiderInference restores the checkpoint the
+    # train phase wrote, then Spider.generate and the decoders.
+    try:
+        gen_rows, gen_launches = phase_spider_generate(handoff, sd, ad, vd, dev, smi)
+    finally:
+        shutil.rmtree(handoff["out_dir"], ignore_errors=True)
+    for row in gen_rows:
+        emit(row)
+        ok &= row["ok"]
+    _add_launches(main_launches, gen_launches)
 
     # The checkpoint slice: real layouts written at full size and loaded;
     # the card's memory goes to the 8B checkpoint and the Spider built on it.

@@ -16,14 +16,21 @@ here the submodules own them (``llm``, ``llama_proj``, ``aligners`` or
 ``trainable_params()`` lists those an optimizer may move. The frozen encoder
 runs under ``torch.no_grad()``.
 
-Not ported yet: ``generate`` and its decoders (the next slice), and the MASK
-branch's SAM decoder: without SAM, MASK degrades to the text loss exactly as
-in the reference; with ``sam`` given the constructor raises.
+Inference is ``generate``: one request's prompt through the same host
+preparation, a greedy decode that keeps each step's hidden states
+(``decode.generate``), the tag parse of the answer, and for each tag span the
+decoder it names (``_decode_modality_infer``): the signal tokens' hidden
+states through the aligner, fused 0.1 / 0.9 with the decoder's own text
+conditioning. BOX goes to a ``box_decoder`` callable. Not ported: the MASK
+branch's SAM decoder. Without SAM, MASK trains the text loss exactly as in
+the reference and decodes to nothing; with ``sam`` given the constructor
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -34,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.common.registry import registry
+from spider_tpu_torch.models import tags
+from spider_tpu_torch.models.decode import GenerateConfig, generate
 from spider_tpu_torch.models.llama import LlamaForCausalLM, cross_entropy_loss
 from spider_tpu_torch.models.tokenizer import DEFAULT_MODALITY_TOKENS
 
@@ -132,6 +141,8 @@ class Spider(nn.Module):
       aligners: {modality: TextFcLayer} or moe_aligner: TextFcLayerMoE
       diffusion_pipes: {IMAGE/VIDEO/AUDIO: pipeline}, the frozen decoders
         whose text conditioning is the alignment target (not submodules)
+      box_decoder: callable (image, caption) -> {bboxes, label_names,
+        scores}, or None (Grounding DINO inference)
     """
 
     @classmethod
@@ -146,7 +157,7 @@ class Spider(nn.Module):
                  aligners: Optional[Dict[str, nn.Module]] = None,
                  moe_aligner: Optional[nn.Module] = None,
                  diffusion_pipes: Optional[Dict[str, Any]] = None,
-                 sam=None,
+                 sam=None, box_decoder=None,
                  modality_tokens: Optional[Dict[str, int]] = None,
                  max_context_len: int = 100,
                  use_embed_align_loss: bool = False,
@@ -170,6 +181,7 @@ class Spider(nn.Module):
         self.moe_aligner = moe_aligner
         self.diffusion_pipes = dict(diffusion_pipes or {})
         self.sam = None
+        self.box_decoder = box_decoder
         self.modality_tokens = dict(modality_tokens or DEFAULT_MODALITY_TOKENS)
         self.max_context_len = max_context_len
         self.use_embed_align_loss = use_embed_align_loss
@@ -185,7 +197,7 @@ class Spider(nn.Module):
             m: [self._one_id(f"[{m}{i}]") for i in range(n)]
             for m, n in self.modality_tokens.items()
         }
-        self._one_id("[END]")      # the answer grammar needs it as one token
+        self._end_id = self._one_id("[END]")
 
     @property
     def device(self) -> torch.device:
@@ -471,3 +483,143 @@ class Spider(nn.Module):
         cond = pipe(prompt=list(captions), return_prompts_only=True)
         cond = self._frozen_target(cond)
         return l2_loss(proj, cond) + clip_align_loss(proj, cond, self.logit_scale)
+
+    # -------------------------------------------------------------- generate
+    @torch.inference_mode()
+    def generate(self, samples: Dict[str, Any], answers: List[str],
+                 predictions: Dict[str, Any], predictions_text: Dict[str, List],
+                 max_new_tokens: Optional[int] = None,
+                 guidance_scale: float = 7.5, num_inference_steps: int = 40,
+                 generator: Optional[torch.Generator] = None):
+        """Inference on one sample: decode the answer keeping each step's
+        hidden states, parse its '<X>cap[X0..]</X>' spans, fuse the projected
+        hidden states 0.1 / 0.9 with each decoder's own text conditioning and
+        run the decoder. Appends to answers, predictions and predictions_text
+        and returns the three. `generator` is the decode's only source of
+        randomness (None: seeded with 0)."""
+        # The tag parse and the dispatch below read sample 0's answer and
+        # hidden states; a batch would silently return only sample 0's media.
+        if len(samples["Question"]) != 1:
+            raise ValueError(
+                f"Spider.generate is single-sample (got batch "
+                f"{len(samples['Question'])}); loop over samples or use "
+                "serving/continuous.py for batched text decode")
+        pad_id = self.tokenizer.pad_token_id
+        infer_samples = dict(samples)
+        infer_samples["Answer"] = [""] * len(samples["Question"])
+        batch = self.prepare_batch(infer_samples)
+        # strip the empty answer ([OUTPUT][END]): decode begins at [OUTPUT]
+        output_ids = self._ids("[OUTPUT]")
+        trim = len(output_ids) + len(self._ids("[END]"))
+        prompt_ids = batch.input_ids[:, :-trim] if trim else batch.input_ids
+        prompt_ids = np.concatenate(
+            [prompt_ids, np.tile(np.asarray(output_ids)[None], (prompt_ids.shape[0], 1))],
+            axis=1)
+        # right-pad to a 32-token bucket: prompt_len below masks the pad
+        bucket = 32
+        L = prompt_ids.shape[1]
+        target = ((L + bucket - 1) // bucket) * bucket
+        if target != L:
+            prompt_ids = np.concatenate(
+                [prompt_ids, np.full((prompt_ids.shape[0], target - L), pad_id,
+                                     prompt_ids.dtype)], axis=1)
+        # The slot rows cut or padded to the bucket. The reference only cuts
+        # them, and a prompt with a modality slot that needs padding then
+        # fails in its splice (ROADMAP C10).
+        width = prompt_ids.shape[1]
+
+        def fit(v, fill):
+            v = v[:, :width]
+            return np.pad(v, ((0, 0), (0, width - v.shape[1])), constant_values=fill)
+
+        batch_p = dataclasses.replace(
+            batch, input_ids=prompt_ids,
+            slot_mask={m: fit(v, False) for m, v in batch.slot_mask.items()},
+            slot_index={m: fit(v, 0) for m, v in batch.slot_index.items()})
+        modality_embeds = self.encode_modalities(batch_p)
+        embeds = (self._splice_embeds(batch_p, modality_embeds)
+                  if self.llama_proj is not None else
+                  self.llm.embed(self._tensor(prompt_ids)))
+        # true prompt length = 1 + the last real position; modality slots
+        # hold pad_id but are real (their embeddings were spliced in)
+        real = prompt_ids != pad_id
+        for mask in batch_p.slot_mask.values():
+            real = real | mask
+        last = real.shape[1] - 1 - np.argmax(real[:, ::-1], axis=1)
+        prompt_len = torch.as_tensor(np.maximum(last + 1, 1), dtype=torch.int32)
+        gen_cfg = GenerateConfig(
+            max_new_tokens=max_new_tokens or self.max_context_len,
+            eos_ids=(self._end_id, self.tokenizer.eos_token_id), pad_id=pad_id,
+            collect_layers=self.alignment_layer)
+        out = generate(self.llm, embeds, prompt_len, gen_cfg, generator)
+        tokens = out["tokens"].cpu().numpy()          # [B, N]
+        step_hidden = out["step_hidden"]              # [N-1, K, B, H], on the device
+        text = self.tokenizer.decode([t for t in tokens[0] if t != pad_id],
+                                     skip_special_tokens=False)
+        output_texts = text.split("[END]")[0]
+        answers.append(output_texts)
+
+        for modality in tags.get_llm_text_modality(output_texts, list(self.modality_tokens)):
+            caps = (get_llm_text_res_train(output_texts, modality)
+                    or tags.get_llm_text_res(output_texts, modality))
+            for mi, cap in enumerate(caps):
+                predictions_text[modality].append(cap)
+                pred = self._decode_modality_infer(modality, mi, cap, tokens, step_hidden,
+                                                   samples, guidance_scale,
+                                                   num_inference_steps)
+                if pred is None:
+                    continue
+                if modality == "BOX":
+                    predictions["BOX"]["bboxes"].append(pred["outputs_bboxes"][0])
+                    predictions["BOX"]["label_names"].append(pred["outputs_label_names"][0])
+                    predictions["BOX"]["scores"].append(pred["outputs_scores"][0])
+                else:
+                    predictions[modality].append(pred)
+        return answers, predictions, predictions_text
+
+    @torch.inference_mode()
+    def _decode_modality_infer(self, modality: str, occurrence: int, cap: str,
+                               tokens: np.ndarray, step_hidden, samples,
+                               guidance_scale: float, num_inference_steps: int):
+        """Project the generated signal tokens' hidden states and drive the
+        decoder with 0.1 * projected + 0.9 * its text conditioning. tokens:
+        [B, N] numpy; step_hidden: [N-1, K, B, H] (a tensor or numpy)."""
+        pipe = self.diffusion_pipes.get(modality)
+        if modality in ("IMAGE", "VIDEO", "AUDIO") and pipe is None:
+            logging.info("no %s generation model.", modality)
+            return None
+        if modality == "BOX":
+            if self.box_decoder is None or "Image_ori_array" not in samples:
+                return None
+            res = self.box_decoder(samples["Image_ori_array"][0], cap)
+            return dict(outputs_bboxes=[res["bboxes"]],
+                        outputs_label_names=[res["label_names"]],
+                        outputs_scores=[res["scores"]])
+        if modality == "MASK":
+            return None          # the SAM decoder is not ported (self.sam is None)
+
+        # the occurrence-th run of [X0..Xn] among the generated tokens
+        sig_ids = self._signal_ids[modality]
+        pos = np.where(tokens[0] == sig_ids[0])[0]
+        proj = None
+        if len(pos) > occurrence:
+            step_hidden = torch.as_tensor(step_hidden)
+            start = int(pos[occurrence])
+            idx = np.arange(start, start + len(sig_ids))
+            idx = idx[idx < step_hidden.shape[0]]
+            if len(idx):
+                taps = step_hidden[torch.as_tensor(idx, device=step_hidden.device), :, 0]
+                fused = taps.sum(dim=1)[None]                    # [1, n, H]
+                proj = self._apply_aligner(modality, fused.to(self.device))
+
+        cond = pipe(prompt=[cap], return_prompts_only=True)
+        if proj is not None:
+            cond = torch.as_tensor(cond).to(proj.device)
+            if cond.ndim == 2:          # a pooled conditioning (AudioLDM's CLAP)
+                proj = proj[:, 0]
+            prompt_embeds = 0.1 * proj.float() + 0.9 * cond.float()
+        else:
+            prompt_embeds = cond
+        result = pipe(prompt_embeds=prompt_embeds, guidance_scale=guidance_scale,
+                      num_inference_steps=num_inference_steps)
+        return result[0] if modality in ("IMAGE", "AUDIO") else result

@@ -40,6 +40,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from spider_tpu_torch.ops.launch_count import count_launch
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 IntLike = Union[int, torch.Tensor]
@@ -49,9 +51,14 @@ IntLike = Union[int, torch.Tensor]
 def _default_live_and_offset(B: int, T: int, S: int, device):
     """The two vectors of a call that gives neither kv_len nor q_offset
     (every UNet call): read-only, so one pair serves every such call of a
-    shape and the wrapper launches no fill kernels for them."""
-    return (torch.full((B,), S, dtype=torch.int32, device=device),
+    shape and the wrapper launches no fill kernels for them. They are handed
+    to every stream, so the fills are finished before the pair is returned:
+    another stream reading them orders nothing after this one's fills."""
+    pair = (torch.full((B,), S, dtype=torch.int32, device=device),
             torch.full((B,), S - T, dtype=torch.int32, device=device))
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return pair
 
 
 def _live_and_offset(B: int, T: int, S: int, kv_len: Optional[torch.Tensor],
@@ -255,8 +262,7 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset, route=None):
             err = _library().spider_flash_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"flash forward ({route}) launch failed with error {err}")
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    count_launch(flash_attention, route)
     return out, lse
 
 
@@ -332,8 +338,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=None
             err = _bwd_library().spider_flash_bwd_dq(*pointers, *scalars)
     if err != 0:
         raise RuntimeError(f"flash backward dq ({route}) launch failed with error {err}")
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.route_launches[route] += 1
+    count_launch(flash_bwd_dq, route)
     return dq
 
 
@@ -356,8 +361,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=Non
             err = _bwd_library().spider_flash_bwd_dkv(*pointers, *scalars)
     if err != 0:
         raise RuntimeError(f"flash backward dk/dv ({route}) launch failed with error {err}")
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.route_launches[route] += 1
+    count_launch(flash_bwd_dkv, route)
     return dk, dv
 
 

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from spider_tpu_torch.ops.attention import mha_reference
+from spider_tpu_torch.ops.launch_count import count_launch
 from spider_tpu_torch.ops.quant import current_stream_handle, sm_count, stream_buffers
 
 MAX_HEAD_DIM = 256
@@ -256,8 +257,7 @@ def paged_decode_kernel(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Ten
             torch.cuda.set_device(current)
     if err != 0:
         raise RuntimeError(f"paged decode ({route}) launch failed with cudaError_t {err}")
-    paged_decode_attention.launches += 1
-    paged_decode_attention.route_launches[route] += 1
+    count_launch(paged_decode_attention, route)
     return out
 
 

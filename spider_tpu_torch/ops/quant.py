@@ -45,6 +45,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from spider_tpu_torch.ops.launch_count import count_launch
+
 # Rows of x up to which the kernel runs (the JAX wrapper's M <= 4 * block_m).
 MAX_KERNEL_M = 1024
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -288,8 +290,7 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
             torch.cuda.set_device(current)
     if err != 0:
         raise RuntimeError(f"int4 matmul ({route}) launch failed with error {err}")
-    int4_matmul.launches += 1
-    int4_matmul.route_launches[route] += 1
+    count_launch(int4_matmul, route)
     return out
 
 

@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from spider_tpu_torch.ops.launch_count import count_launch
+
 LAYOUTS = ("bfpc", "bpfc")
 MAX_FRAMES = 32
 MAX_HEAD_DIM = 256
@@ -167,8 +169,7 @@ def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = _library().spider_tattn_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"temporal attention ({route}) launch failed with cudaError_t {err}")
-    temporal_attention.launches += 1
-    temporal_attention.route_launches[route] += 1
+    count_launch(temporal_attention, route)
     return out
 
 

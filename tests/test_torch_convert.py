@@ -372,13 +372,23 @@ def test_convert_llama_checkpoint_streams_each_tensor_once(llama_dir, monkeypatc
     _assert_same_state(model, want)
 
 
-def test_load_or_init_llm(llama_dir, monkeypatch):
+def test_load_or_init_llm(llama_dir, tmp_path, monkeypatch):
+    import shutil
+
     from spider_tpu_torch.models import serving_utils
 
     seen = []
-    monkeypatch.setattr(ttok, "load_tokenizer", lambda p: seen.append(p) or "hf-tokenizer")
+    monkeypatch.setattr(factory, "load_tokenizer", lambda p: seen.append(p) or "hf-tokenizer")
+    # A directory without tokenizer files is never handed to transformers,
+    # which builds an empty tokenizer from one (ROADMAP C9): TinyTokenizer.
     model, tok = serving_utils.load_or_init_llm(llama_dir, device="cpu")
-    assert tok == "hf-tokenizer" and seen == [llama_dir]
+    assert isinstance(tok, ttok.TinyTokenizer) and seen == []
+    with_files = str(tmp_path / "with_tokenizer")
+    shutil.copytree(llama_dir, with_files)
+    with open(os.path.join(with_files, "tokenizer.json"), "w") as f:
+        f.write("{}")
+    _, tok = serving_utils.load_or_init_llm(with_files, device="cpu")
+    assert tok == "hf-tokenizer" and seen == [os.path.join(with_files, "")]
     assert model.config.quantization is None and model.config.param_dtype == torch.float32
     _, ref = TC.convert_llama_checkpoint(llama_dir, device="cpu")
     _assert_same_state(model, ref)
