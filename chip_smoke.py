@@ -25,10 +25,17 @@ Phases, each printing one JSON line:
   wrapper_us   host microseconds a call of the two serving wrappers over 1000 queued
                calls, no synchronise inside
   floors       the redesigned routes against the ones they replaced, on device time
-  unet_routing every self- and cross-attention shape of SD-1.5 512px, AudioLDM 5 s and
-               ZeroScope 576x320x16 (CFG batch) through the flash kernel and through
-               unet2d's plain einsum: the rows unet2d.spatial_flash_predicate is set
-               from, and a check that it agrees with them
+  tattn_grad   gradients through temporal_attention's kernel call (its autograd.Function,
+               whose backward is the plain form's) at ZeroScope's four levels, bf16 on
+               "ring" and fp32 on "simple", against autograd through the plain form
+  unet_routing every self- and cross-attention shape of SD-1.5 512px, AudioLDM 5 s,
+               ZeroScope 576x320x16 and the SDXL story (768px, 4 frames, batched CFG)
+               through the flash kernel and through unet2d's plain einsum, with bounds
+               (the SDXL rows also with an SDPA call): the rows
+               unet2d.spatial_flash_predicate is set from, and a check that it agrees
+               with them; then the story's bank attention at up_0 and up_1
+               (_attention_lse, [2, 4 T] queries over the sampled bank) on the kernel
+               and in its plain form
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
   video_step_profile  device time by kernel of that UNet3D call (one denoise step)
@@ -102,6 +109,19 @@ Phases, each printing one JSON line:
                bits) and once for the prefill alone; then _decode_modality_infer for
                IMAGE, AUDIO and VIDEO from that run's hidden states with each signal
                run written into the token row: fused conditioning, media, launches
+  story_check  one SDXL story UNet call at 768px (4 frames, id_length 4, batched CFG,
+               consistent self-attention on the up blocks) routed through the kernel,
+               with plain attention, and in fp32; 176 flash launches, all wgmma
+  story_step_profile  device time by kernel of that UNet call (one denoise step)
+  story        from_pretrained('sdxl_story') (random, bf16) and story_generation through
+               the serving wiring at StoryDiffusion's point: 768px, 4 frames, id_length
+               4, sa_ratio 0.5, 50 Euler steps, CFG 5.0: seconds of encoding, denoise
+               and VAE, steps/s (and 5 steps batched against split CFG), peak GB,
+               frames, 8800 flash launches
+  story_http   SpiderFree.chat through the HTTP server, the 8B reply with a fixed
+               IMAGESTORY span appended, the story_fn wired in: a story event of 4 PNGs
+  story_photomaker  the ref-image mode: PhotoMaker at photomaker_v1 width, two seeded
+               224px id images, the same story
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -122,11 +142,11 @@ Phases, each printing one JSON line:
                the infer twin's reply (unquantised, as the reference's serving loader)
                equal to a model filled in memory from the same tensors, and the gradio
                twin's server answering one POST /chat
-Then the kernel summary, the card's `nvidia-smi` name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+Then the run's total seconds, the kernel summary, the card's `nvidia-smi` name
+and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
-configuration, speculative to moe, the train steps, spider_generate, the checkpoint
+configuration, speculative to moe, story, story_http, story_photomaker, the train steps, spider_generate, the checkpoint
 decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
@@ -138,8 +158,9 @@ form and the paged split form; the int4 launches are held route by route
 `python3 chip_smoke.py kernels` stops after the kernel and routing rows (no
 models are built); `python3 chip_smoke.py checkpoint` runs the build, the
 wgmma probe and the checkpoint phase only; `python3 chip_smoke.py family` the
-build, the wgmma probe and the phases speculative to moe. None prints the
-final line.
+build, the wgmma probe and the phases speculative to moe; `python3 chip_smoke.py
+story` the build, the wgmma probe, tattn_grad, the routing rows and the story
+phases (on the 8B int8 model it builds). None prints the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -420,8 +441,10 @@ def unet_attention_shapes(cfg, lat_h: int, lat_w: int):
     for lvl in range(n):
         if cfg.cross_attn_blocks[lvl] and depth[lvl] > 0:
             shapes.append((f"L{lvl}", (2 * cfg.layers_per_block + 1) * depth[lvl], *level(lvl)))
-    if cfg.cross_attn_blocks[-1] or not hasattr(cfg, "transformer_layers_per_block"):
-        shapes.append(("mid", max(depth[-1], 1), *level(n - 1)))     # the UNet3D always has one
+    if (cfg.cross_attn_blocks[-1] or not hasattr(cfg, "transformer_layers_per_block")
+            or getattr(cfg, "addition_embed_type", None) == "text_time"):
+        # the UNet3D always has one, as the SDXL UNet does
+        shapes.append(("mid", max(depth[-1], 1), *level(n - 1)))
     return shapes
 
 
@@ -727,57 +750,99 @@ def phase_wgmma_probe(dev):
                 ok=all(e <= 1e-3 for e in errs.values()))
 
 
+# The routing rows scale q so that each row's logits have this standard
+# deviation (keys and values N(0, 1), D <= 128): the softmax is peaked and a
+# typical |out| is 0.5-0.7 at every key count here, where with unscaled q it
+# falls as 1/sqrt(keys), to about 0.02 over 4608 keys, under OUT_ATOL itself.
+ROUTING_LOGIT_STD = 8.0
+
+
+def routing_qkv(dev, seed: int, B: int, T: int, S: int, C: int):
+    """bf16 q [B, T, C], k and v [B, S, C] for the routing rows: k, v N(0, 1),
+    q N(0, 1) times ROUTING_LOGIT_STD, so the scaled logits q.k / sqrt(D)
+    have that standard deviation."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda L: torch.randn((B, L, C), generator=g, device=dev, dtype=torch.bfloat16)
+    q, k, v = mk(T), mk(S), mk(S)
+    return q * ROUTING_LOGIT_STD, k, v
+
+
+def routing_excess(got, want) -> float:
+    """How far a bf16 attention output passes OUT_ATOL + BF16_EPS * |want|
+    against the fp32 plain form (<= 0 holds): OUT_ATOL for the kernel's bf16
+    probabilities, BF16_EPS * |want| for rounding an output of size |want|
+    to bf16."""
+    diff = (got.float() - want).abs()
+    return (diff - (OUT_ATOL + BF16_EPS * want.abs())).max().item()
+
+
 def phase_unet_routing(dev):
-    """Every self- and cross-attention shape of the three UNets at the sizes
+    """Every self- and cross-attention shape of the four UNets at the sizes
     the main path runs them (CFG batch 2; ZeroScope's 16 frames fold into the
-    batch), through the flash kernel and through unet2d's plain einsum, both
-    timed on the device (calls queued behind a sleeping kernel) and as single
-    calls. unet2d.spatial_flash_predicate is set from these rows; the row
-    fails if the rule sends a shape to the slower side by more than
-    ROUTING_SLACK, or to a kernel that does not take it."""
+    batch; the SDXL story's 4 frames and batched CFG make a batch of 8),
+    through the flash kernel and through unet2d's plain einsum, both timed on
+    the device (calls queued behind a sleeping kernel) and as single calls,
+    each with its bound; the SDXL rows also with one SDPA call's device time.
+    Inputs as routing_qkv makes them; the kernel's output is held to the
+    fp32 plain form by routing_excess, the bf16 plain form is only timed.
+    unet2d.spatial_flash_predicate is set from these rows; the row fails if
+    the rule sends a shape to the slower side by more than ROUTING_SLACK, or
+    to a kernel that does not take it."""
     import torch
 
     from spider_tpu_torch.models.unet2d import (_attention, spatial_flash_config,
                                                 spatial_flash_predicate, unet_audioldm,
-                                                unet_sd15)
+                                                unet_sd15, unet_sdxl)
     from spider_tpu_torch.models.unet3d import UNet3DConfig
     from spider_tpu_torch.ops import attention as A
 
     h, w, frames = VIDEO_HW_FRAMES
     models = [("sd15_512px", unet_sd15(), 64, 64, 77, 2),
               ("audioldm_5s", unet_audioldm(), *AUDIO_LATENT_HW, 1, 2),
-              ("zeroscope_576x320x16", UNet3DConfig(), h // 8, w // 8, 77, 2 * frames)]
+              ("zeroscope_576x320x16", UNet3DConfig(), h // 8, w // 8, 77, 2 * frames),
+              ("sdxl_story_768px", unet_sdxl(), STORY_HW // 8, STORY_HW // 8, 77,
+               2 * len(STORY_PROMPTS))]
     rows = []
     for model, cfg, lat_h, lat_w, ctx_len, B in models:
         for level, blocks, T, H, D in unet_attention_shapes(cfg, lat_h, lat_w):
             for kind, S in (("self", T), ("cross", ctx_len)):
-                g = torch.Generator(device=dev).manual_seed(700 + len(rows))
-                mk = lambda L: torch.randn((B, L, H * D), generator=g, device=dev,
-                                           dtype=torch.bfloat16)
-                q, k, v = mk(T), mk(S), mk(S)
+                q, k, v = routing_qkv(dev, 700 + len(rows), B, T, S, H * D)
                 with spatial_flash_config("einsum"):
                     plain = lambda: _attention(q, k, v, H)
-                    want = plain()
                     einsum_ms, einsum_dev = cuda_ms(plain), device_ms(plain)
-                flash_ms = flash_dev = err = None
+                    want = _attention(q.float(), k.float(), v.float(), H)
+                flash_ms = flash_dev = err = excess = None
                 if D <= A.MAX_HEAD_DIM:
                     flash = lambda: A.flash_attention(
                         q.reshape(B, T, H, D), k.reshape(B, S, H, D), v.reshape(B, S, H, D),
                         causal=False).reshape(B, T, H * D)
-                    err = (flash().float() - want.float()).abs().max().item()
+                    got = flash()
+                    err = (got.float() - want).abs().max().item()
+                    excess = routing_excess(got, want)
+                    del got
                     flash_ms, flash_dev = cuda_ms(flash), device_ms(flash)
+                extra = bound_ms(2 * (2 * B * T + 2 * B * S) * H * D, 4 * B * H * T * S * D)
+                if model.startswith("sdxl"):
+                    qs, ks, vs = (x.reshape(B, -1, H, D).transpose(1, 2) for x in (q, k, v))
+                    extra["sdpa_device_ms"] = device_ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+                    del qs, ks, vs
                 routed = bool(spatial_flash_predicate(B, T, S, H, D))
                 if flash_dev is None:
                     ok = not routed
                 elif routed:
-                    ok = err <= OUT_ATOL and flash_dev <= ROUTING_SLACK * einsum_dev
+                    ok = excess <= 0 and flash_dev <= ROUTING_SLACK * einsum_dev
                 else:
                     ok = einsum_dev <= ROUTING_SLACK * flash_dev
                 rows.append(dict(phase="unet_routing", model=model, level=level, kind=kind,
                                  blocks_per_unet_call=blocks, B=B, T=T, S=S, heads=H, D=D,
                                  flash_device_ms=flash_dev, einsum_device_ms=einsum_dev,
                                  flash_ms=flash_ms, einsum_ms=einsum_ms, max_abs_err=err,
-                                 predicate_routes_to_flash=routed, ok=ok))
+                                 mean_abs_out=want.abs().mean().item(),
+                                 tolerance_excess=excess,
+                                 predicate_routes_to_flash=routed, **extra, ok=ok))
                 del q, k, v, want
                 torch.cuda.empty_cache()
     return rows
@@ -3721,6 +3786,449 @@ def family_phases(model, tokenizer, dev, smi: str):
     yield from phase_moe(dev, smi)
 
 
+# ---------------------------------------------------------------------------
+# The SDXL story path (pipelines/sdxl_story.py): StoryDiffusion's consistent
+# self-attention at the reference's operating point
+# ---------------------------------------------------------------------------
+
+STORY_HW = 768
+STORY_GENERAL = "a fox explorer"
+STORY_PROMPTS = ["wakes up in a forest", "finds a map", "sails a river", "reaches home"]
+STORY_STYLE = "Comic book"
+STORY_ID_LENGTH = 4
+STORY_SA_RATIO = 0.5
+STORY_STEPS = 50
+STORY_TIMED_STEPS = 5                 # denoise steps a batched-vs-split timing takes
+STORY_SPAN = (f" <IMAGESTORY><GENERALPROMPT>{STORY_GENERAL}</GENERALPROMPT>"
+              f"<PROMPTARRAY>{json.dumps(STORY_PROMPTS)}</PROMPTARRAY>"
+              f"<STYLENAME>{STORY_STYLE}</STYLENAME></IMAGESTORY>")
+PHOTOMAKER_SEED = 5
+
+
+def story_bank_shapes(cfg, lat_h: int, lat_w: int):
+    """(up level, transformer blocks per UNet call, T, heads, D, bank keys)
+    of every up level whose blocks take a story bank at STORY_ID_LENGTH and
+    STORY_SA_RATIO: each block runs one bank attention of [2 groups,
+    frames x T] queries over the bank keys (batched CFG)."""
+    n = len(cfg.block_out_channels)
+    shapes = []
+    for i in range(n):
+        lvl = n - 1 - i
+        depth = cfg.transformer_layers_per_block[lvl]
+        if cfg.cross_attn_blocks[lvl] and depth > 0:
+            T = (lat_h >> lvl) * (lat_w >> lvl)
+            H = cfg.num_attention_heads[lvl]
+            keys = max(1, int(STORY_ID_LENGTH * T * STORY_SA_RATIO))
+            shapes.append((f"up_{i}", (cfg.layers_per_block + 1) * depth, T, H,
+                           cfg.block_out_channels[lvl] // H, keys))
+    return shapes
+
+
+def story_flash_launches_per_unet_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
+                                       batch: int) -> int:
+    """Flash launches in one story UNet call: each transformer block's self-
+    and cross-attention where unet2d.spatial_flash_predicate holds (a story
+    block's self-attention goes through _attention_lse by the same rule),
+    plus one bank attention in each transformer block of the up blocks where
+    the same predicate holds for the bank's shape."""
+    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+
+    groups = 2
+    bank = sum(blocks for _, blocks, T, H, D, K in story_bank_shapes(cfg, lat_h, lat_w)
+               if spatial_flash_predicate(groups, len(STORY_PROMPTS) * T, K, H, D))
+    return flash_launches_per_unet_call(cfg, lat_h, lat_w, ctx_len, batch) + bank
+
+
+def phase_story_bank_routing(dev):
+    """The story bank attention at the SDXL story point (768 px, 4 frames,
+    id_length 4, sa_ratio 0.5, batched CFG: 2 groups): [2, 4 T] queries over
+    the bank keys through unet2d._attention_lse on the flash kernel and in
+    its plain form, device ms, with the bound and one SDPA call on the same
+    q, k, v (which returns no lse). Inputs as routing_qkv makes them. Output
+    (by routing_excess) and lse are held to the plain form on the same inputs
+    in fp32 (the bf16 plain form's own errors are reported beside). The row
+    fails if the predicate does not route the shape to the kernel, if the
+    kernel is slower than the bf16 plain form by more than ROUTING_SLACK, or
+    if it disagrees with the fp32 form."""
+    import torch
+
+    from spider_tpu_torch.models.unet2d import (_attention_lse, spatial_flash_config,
+                                                spatial_flash_predicate, unet_sdxl)
+
+    lat = STORY_HW // 8
+    rows = []
+    for level, blocks, T, H, D, K in story_bank_shapes(unet_sdxl(), lat, lat):
+        B, Tq = 2, len(STORY_PROMPTS) * T
+        q, k, v = routing_qkv(dev, 900 + len(rows), B, Tq, K, H * D)
+        flash = lambda: _attention_lse(q, k, v, H)
+        reset_launches()
+        out, lse = flash()
+        routed = read_launches()["flash_fwd"] == 1
+        with spatial_flash_config("einsum"):
+            plain = lambda: _attention_lse(q, k, v, H)
+            got_plain, plain_lse = plain()
+            plain_dev = device_ms(plain, calls=5)
+            # held as the kernel rows are, to the same inputs in fp32: the bf16
+            # plain form rounds its logits to bf16 before the softmax
+            want, want_lse = _attention_lse(q.float(), k.float(), v.float(), H)
+        err = (out.float() - want).abs().max().item()
+        excess = routing_excess(out, want)
+        typical = want.abs().mean().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        plain_err = (got_plain.float() - want).abs().max().item()
+        plain_lse_err = (plain_lse - want_lse).abs().max().item()
+        del want, want_lse, out, lse, got_plain, plain_lse
+        torch.cuda.empty_cache()
+        flash_dev, flash_ms = device_ms(flash), cuda_ms(flash)
+        qs, ks, vs = (x.reshape(B, -1, H, D).transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+        library_dev = device_ms(sdpa)
+        moved = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * Tq   # bf16; lse fp32
+        bound = bound_ms(moved, 4 * B * H * Tq * K * D)
+        rows.append(dict(phase="unet_routing", model="sdxl_story_768px", level=level,
+                         kind="bank", blocks_per_unet_call=blocks, B=B, T=Tq, S=K, heads=H,
+                         D=D, flash_device_ms=flash_dev, einsum_device_ms=plain_dev,
+                         flash_ms=flash_ms, sdpa_device_ms=library_dev, max_abs_err=err,
+                         mean_abs_out=typical, tolerance_excess=excess,
+                         lse_max_abs_err=lse_err, plain_bf16_max_abs_err=plain_err,
+                         plain_bf16_lse_max_abs_err=plain_lse_err, **bound,
+                         share_of_bound=bound["bound_ms"] / flash_dev,
+                         predicate_routes_to_flash=bool(
+                             spatial_flash_predicate(B, Tq, K, H, D)),
+                         ok=routed and excess <= 0 and lse_err <= LSE_ATOL
+                         and flash_dev <= ROUTING_SLACK * plain_dev))
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tattn_grad(dev):
+    """Gradients through temporal_attention's kernel call (a
+    torch.autograd.Function whose backward is the plain form's vjp) at
+    ZeroScope's four levels, bf16 on the "ring" route and fp32 on "simple",
+    against autograd through temporal_attention_reference, at the kernel
+    rows' tolerances; one kernel launch a call, none in the backward."""
+    import torch
+
+    from spider_tpu_torch.ops import temporal_attention as TA
+
+    levels = [("L0", 2880, 320), ("L1", 720, 640), ("L2", 180, 1280), ("mid", 45, 1280)]
+    rows = []
+    for dtype, atol, rtol in ((torch.bfloat16, OUT_ATOL, BF16_EPS), (torch.float32, 1e-4, 0.0)):
+        for name, P, C in levels:
+            g = torch.Generator(device=dev).manual_seed(300 + len(rows))
+            q, k, v, dout = (torch.randn((2, 16, P, C), generator=g, device=dev, dtype=dtype)
+                             for _ in range(4))
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = TA.temporal_attention.launches
+            out = TA.temporal_attention(*leaves, 8)
+            grads = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            launched = TA.temporal_attention.launches - before
+            plain = [x.clone().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(TA.temporal_attention_reference(*plain, 8), plain, dout)
+            excess = max(((a.float() - b.float()).abs() - (atol + rtol * b.float().abs()))
+                         .max().item() for a, b in zip(grads, want))
+            errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, want)]
+            rows.append(dict(level=name, D=C // 8, route=TA.tattn_route(dtype),
+                             dtype=str(dtype), max_abs_err_dq_dk_dv=errs,
+                             excess_over_bound=excess, launches=launched,
+                             ok=excess <= 0 and launched == 1
+                             and all(bool(torch.isfinite(a).all()) for a in grads)))
+            del q, k, v, dout, leaves, plain, out, grads, want
+    return dict(phase="tattn_grad", rows=rows, ok=all(r["ok"] for r in rows))
+
+
+def _story_unet_inputs(pipe, dev):
+    """One batched-CFG UNet call of the story at its operating point: latents
+    [8, 96, 96, 4], the encoded prompts, the time ids and the story dict."""
+    import numpy as np
+    import torch
+
+    B, lat = len(STORY_PROMPTS), STORY_HW // 8
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((B, lat, lat, 4), generator=g, device=dev)
+    ctx, pooled = pipe.encode_prompt(STORY_PROMPTS)
+    un_ctx, un_pooled = pipe.encode_prompt([""] * B)
+    time_ids = torch.tensor([[STORY_HW, STORY_HW, 0, 0, STORY_HW, STORY_HW]],
+                            dtype=torch.float32, device=dev).repeat(2 * B, 1)
+    idx = pipe._story_indices(STORY_ID_LENGTH, (lat, lat), STORY_SA_RATIO,
+                              np.random.default_rng(0))
+    story = {p: dict(id_length=STORY_ID_LENGTH, indices=i, num_groups=2)
+             for p, i in idx.items()}
+    return (torch.cat([x, x]), torch.full((2 * B,), 981, dtype=torch.int32, device=dev),
+            torch.cat([un_ctx, ctx]),
+            dict(text_embeds=torch.cat([un_pooled, pooled]), time_ids=time_ids), story)
+
+
+def phase_story_check(pipe, dev):
+    """One full-size story UNet call (SDXL 768 px, 4 frames with id_length 4,
+    batched CFG, consistent self-attention on the up blocks) in bf16 routed
+    as the story path routes it (self-, cross- and bank attention where
+    spatial_flash_predicate holds), the same
+    call with plain bf16 attention everywhere, and an fp32 copy of the UNet
+    with plain attention: the kernel may be at most UNET_REL_SLACK (plus
+    1e-3) less accurate against fp32 than the plain path, and the routed call
+    launches exactly the derived count, all on the wgmma route."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.models.unet2d import UNet2DConditionModel, spatial_flash_config
+
+    x, t, ctx, cond, story = _story_unet_inputs(pipe, dev)
+    lat = STORY_HW // 8
+    want = story_flash_launches_per_unet_call(pipe.unet.config, lat, lat, 77, x.shape[0])
+    with torch.inference_mode():
+        reset_launches()
+        routed = pipe.unet(x, t, ctx, added_cond=cond, story=story).float()
+        torch.cuda.synchronize()
+        launches, routes = read_launches(), read_route_launches()
+        with spatial_flash_config("einsum"):
+            plain = pipe.unet(x, t, ctx, added_cond=cond, story=story).float()
+            torch.cuda.synchronize()
+            plain_launches = read_launches()["flash_fwd"] - launches["flash_fwd"]
+            ref_unet = UNet2DConditionModel(
+                dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
+            ref_unet.load_state_dict(pipe.unet.state_dict())
+            ref = ref_unet(x, t, ctx.float(), added_cond={k: v.float() for k, v in cond.items()},
+                           story=story)
+    del ref_unet
+    torch.cuda.empty_cache()
+    err_kernel, err_plain = _rel_errors(routed, plain, ref)
+    return dict(phase="story_check", batch=x.shape[0], latent_hw=[lat, lat],
+                rel_err_kernel_vs_fp32=err_kernel, rel_err_plain_vs_fp32=err_plain,
+                flash_launches=launches["flash_fwd"], flash_launches_expected=want,
+                flash_route_launches=routes["flash_fwd"], plain_form_flash_launches=plain_launches,
+                ok=bool(torch.isfinite(routed).all())
+                and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3
+                and launches["flash_fwd"] == want == routes["flash_fwd"]["wgmma"]
+                and plain_launches == 0)
+
+
+def phase_story_profile(pipe, dev):
+    """Where a story denoise step's device time goes: one torch.profiler pass
+    over three full-size story UNet calls (batch 8: 4 frames with batched
+    CFG, 768px, consistent self-attention on the up blocks); a batched
+    denoise step is one such call."""
+    import torch
+
+    x, t, ctx, cond, story = _story_unet_inputs(pipe, dev)
+
+    def call():
+        with torch.inference_mode():
+            pipe.unet(x, t, ctx, added_cond=cond, story=story)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / 3
+    return dict(phase="story_step_profile", model="SDXL story UNet 768px, 4 frames, batched CFG",
+                **_device_profile(call, seconds, top=12), ok=True)
+
+
+def _timed_story_pipe(pipe, timing: dict):
+    """Record the seconds of `pipe`'s prompt encoding, denoise loop and VAE
+    decode into `timing` (instance attributes over the methods, each call
+    ended by a synchronise); _untimed_story_pipe takes them away."""
+    import torch
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timing[key] = timing.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    cls = type(pipe)
+    pipe.encode_prompt = timed("encode_s", cls.encode_prompt.__get__(pipe))
+    pipe.encode_prompt_photomaker = timed("encode_s",
+                                          cls.encode_prompt_photomaker.__get__(pipe))
+    pipe._decode_latents = timed("vae_s", cls._decode_latents.__get__(pipe))
+    pipe._denoise_fn = lambda *a: timed("denoise_s", cls._denoise_fn(pipe, *a))
+
+
+def _untimed_story_pipe(pipe):
+    for name in ("encode_prompt", "encode_prompt_photomaker", "_decode_latents", "_denoise_fn"):
+        pipe.__dict__.pop(name, None)
+
+
+def _frames_ok(frames, n: int, hw: int) -> dict:
+    import numpy as np
+
+    arr = np.stack([np.asarray(f, np.float32) for f in frames]) if frames else np.zeros(0)
+    return dict(frames=len(frames), shape=list(arr.shape[1:]),
+                range=[float(arr.min()), float(arr.max())] if arr.size else None,
+                ok=bool(len(frames) == n and list(arr.shape[1:]) == [hw, hw, 3]
+                        and np.isfinite(arr).all() and arr.min() >= 0.0 and arr.max() <= 1.0))
+
+
+def _story_cfg_timing(pipe, dev) -> dict:
+    """Steps/s and peak GB of STORY_TIMED_STEPS denoise steps with batched CFG
+    (one [8] UNet call a step, two consistency groups) and with split CFG
+    (two [4] calls a step, one group each), in turns batched, split, split,
+    batched; each form's better run. The pipeline's rule is put back after."""
+    import numpy as np
+    import torch
+
+    lat = STORY_HW // 8
+    B = len(STORY_PROMPTS)
+    ctx, pooled = pipe.encode_prompt(STORY_PROMPTS)
+    un_ctx, un_pooled = pipe.encode_prompt([""] * B)
+    time_ids = torch.tensor([[STORY_HW, STORY_HW, 0, 0, STORY_HW, STORY_HW]],
+                            dtype=torch.float32, device=dev).repeat(B, 1)
+    idx = pipe._story_indices(STORY_ID_LENGTH, (lat, lat), STORY_SA_RATIO,
+                              np.random.default_rng(0))
+    key = tuple(sorted((p, int(v.shape[0])) for p, v in idx.items()))
+    shape = (B, lat, lat, 4)
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(17), device=dev)
+    rule = pipe.batched_cfg
+    out = {}
+    for batched in (True, False, False, True):
+        pipe.batched_cfg = batched
+        run = pipe._denoise_fn(STORY_TIMED_STEPS, 5.0, shape, STORY_ID_LENGTH, key)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run(x, ctx, pooled, un_ctx, un_pooled, time_ids, idx)
+        torch.cuda.synchronize()
+        rate = STORY_TIMED_STEPS / (time.perf_counter() - t0)
+        name = "batched" if batched else "split"
+        out[f"{name}_steps_per_s"] = max(out.get(f"{name}_steps_per_s", 0.0), rate)
+        out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    pipe.batched_cfg = rule
+    return out
+
+
+def phase_story(model, tokenizer, dev, smi: str):
+    """The SDXL story path at full width (768 px, 4 frames with id_length 4,
+    sa_ratio 0.5, 50 Euler steps, CFG 5.0, bf16, random weights from a seed):
+    from_pretrained('sdxl_story'), then story_check, the batched-vs-split CFG
+    timing, one story_generation through the serving wiring (the
+    functools.partial of it that SpiderFree takes as its story_fn), one
+    SpiderFree.chat through the HTTP server whose chat function appends a
+    fixed IMAGESTORY span to the 8B model's reply, and one PhotoMaker run
+    (photomaker_v1 width, two seeded 224 px id images). Yields each row as it
+    is done; the main-path rows carry their launches."""
+    import base64
+    import functools
+    import http.client
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models.photomaker import build_full_photomaker
+    from spider_tpu_torch.models.pipelines.sdxl_story import story_generation
+    from spider_tpu_torch.serving.http_server import serve
+    from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
+
+    t0 = time.perf_counter()
+    pipe = factory.from_pretrained("sdxl_story", device=dev, seed=4)
+    build_s = time.perf_counter() - t0
+    assert pipe.batched_cfg and (pipe.height, pipe.width) == (STORY_HW, STORY_HW)
+    yield dict(nvidia_smi=smi, build_s=build_s, **phase_story_check(pipe, dev))
+    yield dict(nvidia_smi=smi, **phase_story_profile(pipe, dev))
+    cfg_timing = _story_cfg_timing(pipe, dev)
+
+    lat = STORY_HW // 8
+    per_call = story_flash_launches_per_unet_call(pipe.unet.config, lat, lat, 77,
+                                                  2 * len(STORY_PROMPTS))
+    want_flash = STORY_STEPS * per_call
+    story_fn = functools.partial(story_generation, pipe, id_length=STORY_ID_LENGTH,
+                                 sa_ratio=STORY_SA_RATIO, num_inference_steps=STORY_STEPS,
+                                 height=STORY_HW, width=STORY_HW)
+    timing = {}
+    _timed_story_pipe(pipe, timing)
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = story_fn(general_prompt=STORY_GENERAL, prompt_array=STORY_PROMPTS,
+                          style_name=STORY_STYLE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, routes = read_launches(), read_route_launches()
+        media = _frames_ok(frames, len(STORY_PROMPTS), STORY_HW)
+        yield dict(phase="story", nvidia_smi=smi, steps=STORY_STEPS,
+                   frames=len(STORY_PROMPTS), id_length=STORY_ID_LENGTH,
+                   sa_ratio=STORY_SA_RATIO, hw=STORY_HW, seconds=seconds,
+                   encode_s=timing.get("encode_s"), denoise_s=timing.get("denoise_s"),
+                   vae_s=timing.get("vae_s"), steps_per_s=STORY_STEPS / timing["denoise_s"],
+                   **cfg_timing, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   media=media, flash_launches_per_unet_call=per_call,
+                   flash_expected=want_flash, launches=launches, route_launches=routes,
+                   ok=media["ok"] and launches["flash_fwd"] == want_flash
+                   and on_ruled_route(routes) and launches["tattn_fwd"] == 0)
+
+        # SpiderFree through the HTTP server, with the story_fn wired in
+        llm_chat = make_llama_chat_fn(model, tokenizer, max_new_tokens=NEW_TOKENS)
+        cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+        sf = SpiderFree(cfg, chat_fn=lambda p: llm_chat(p) + STORY_SPAN, story_fn=story_fn)
+        server = serve(sf, port=0, background=True)
+        try:
+            timing.clear()
+            reset_launches()
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=600)
+            t0 = time.perf_counter()
+            conn.request("POST", "/chat", json.dumps(dict(text="Tell me a story of a fox.",
+                                                          stream=False)),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out = json.loads(resp.read())
+            seconds = time.perf_counter() - t0
+            conn.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+        launches, routes = read_launches(), read_route_launches()
+        kinds = [e["kind"] for e in out["events"]]
+        pngs = [np.asarray(Image.open(io.BytesIO(base64.b64decode(b))), np.float32) / 255.0
+                for e in out["events"] if e["kind"] == "story" for b in e["data"]]
+        media = _frames_ok(pngs, len(STORY_PROMPTS), STORY_HW)
+        want_http = model.config.num_hidden_layers + want_flash
+        yield dict(phase="story_http", status=resp.status, events=kinds, seconds=seconds,
+                   denoise_s=timing.get("denoise_s"), media=media, launches=launches,
+                   route_launches=routes, flash_expected=want_http,
+                   ok=resp.status == 200 and kinds == ["story"] and media["ok"]
+                   and launches["flash_fwd"] == want_http and on_ruled_route(routes))
+
+        # PhotoMaker: the ref-image story mode at photomaker_v1 width
+        free_gb = torch.cuda.mem_get_info(dev)[0] / 1e9
+        pm = build_full_photomaker(device=dev, seed=PHOTOMAKER_SEED)
+        rng = np.random.default_rng(PHOTOMAKER_SEED)
+        refs = [(rng.random((224, 224, 3)) * 255).astype(np.uint8) for _ in range(2)]
+        timing.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = story_fn(general_prompt="a man img", prompt_array=STORY_PROMPTS,
+                          style_name=STORY_STYLE, ref_images=refs, id_encoder=pm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, routes = read_launches(), read_route_launches()
+        media = _frames_ok(frames, len(STORY_PROMPTS), STORY_HW)
+        yield dict(phase="story_photomaker", free_gb_before=free_gb, id_images=len(refs),
+                   seconds=seconds, encode_s=timing.get("encode_s"),
+                   denoise_s=timing.get("denoise_s"), vae_s=timing.get("vae_s"), media=media,
+                   launches=launches, route_launches=routes, flash_expected=want_flash,
+                   ok=media["ok"] and launches["flash_fwd"] == want_flash
+                   and on_ruled_route(routes))
+    finally:
+        _untimed_story_pipe(pipe)
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -3799,11 +4307,13 @@ def phase_floors(rows, spider_free_T: int) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     kernels_only = sys.argv[1:] == ["kernels"]
     checkpoint_only = sys.argv[1:] == ["checkpoint"]
     family_only = sys.argv[1:] == ["family"]
-    if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only):
-        print("usage: chip_smoke.py [kernels | checkpoint | family]", file=sys.stderr)
+    story_only = sys.argv[1:] == ["story"]
+    if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only):
+        print("usage: chip_smoke.py [kernels | checkpoint | family | story]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -3860,6 +4370,21 @@ def main() -> int:
                   file=sys.stderr)
         return 0 if ok else 1
 
+    if story_only:
+        checks = phase_unet_routing(dev) + phase_story_bank_routing(dev) + [phase_tattn_grad(dev)]
+        for check in checks:
+            emit(dict(nvidia_smi=smi, **check))
+            ok &= check["ok"]
+        model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
+        for row in phase_story(model, tokenizer, dev, smi):
+            emit(row)
+            ok &= row["ok"]
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a story row failed (see the JSON lines above)", file=sys.stderr)
+        return 0 if ok else 1
+
     if family_only:
         model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
         for row in family_phases(model, tokenizer, dev, smi):
@@ -3879,7 +4404,8 @@ def main() -> int:
         emit(dict(phase="kernel", nvidia_smi=smi, **row))
         ok &= row["ok"]
     for check in ([phase_floors(rows, spider_free_T), phase_int4_crossover(dev),
-                   phase_wrapper_us(dev)] + phase_unet_routing(dev)):
+                   phase_wrapper_us(dev), phase_tattn_grad(dev)] + phase_unet_routing(dev)
+                  + phase_story_bank_routing(dev)):
         emit(dict(nvidia_smi=smi, **check))
         ok &= check["ok"]
     if kernels_only:
@@ -3928,6 +4454,14 @@ def main() -> int:
         emit(row)
         ok &= row["ok"]
         _add_launches(main_launches, row["launches"])
+    # the SDXL story path: story_check (no main-path launches), then the
+    # story, the story through SpiderFree and HTTP, and PhotoMaker
+    for row in phase_story(model, tokenizer, dev, smi):
+        emit(row)
+        ok &= row["ok"]
+        if "launches" in row:
+            _add_launches(main_launches, row["launches"])
+    torch.cuda.empty_cache()
 
     # The trainer needs the card's memory: the two chat models go first.
     del model, model4
@@ -3987,6 +4521,7 @@ def main() -> int:
                          max_abs_err=max(max(r["max_abs_err"], r["max_abs_err_previous"])
                                          for r in mine))
         kernels.append(entry)
+    emit(dict(phase="total", seconds=time.perf_counter() - started))
     emit({"kernels": kernels})
     print(smi, flush=True)
     if not ok:

@@ -8,3 +8,14 @@ import datetime
 def now() -> str:
     """Job-id timestamp."""
     return datetime.datetime.now().strftime("%Y%m%d%H%M")[:-1]
+
+
+def resolve_device(name: str, entry: str):
+    """torch.device for an entry script's --device: cuda:0, or the CPU when
+    asked for; without a CUDA device 'cuda' exits with a message, never
+    running on the CPU."""
+    import torch
+
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{entry}: no CUDA device; pass --device cpu to run on the CPU")
+    return torch.device("cuda", 0) if name == "cuda" else torch.device("cpu")

@@ -1,6 +1,7 @@
 """CLIP-family text encoders in PyTorch (counterpart of
 spider_tpu/models/clip_text.py): SD-1.5 conditions on CLIP ViT-L/14 (768-d),
-ZeroScope on CLIP ViT-H (1024-d), AudioLDM on the CLAP text branch (512-d
+ZeroScope on CLIP ViT-H (1024-d), SDXL on CLIP-L and OpenCLIP bigG (1280-d,
+penultimate layer and the projected pooled output), AudioLDM on the CLAP text branch (512-d
 pooled projection). Submodule names follow the JAX parameter tree
 (``layers_<i>.q_proj``, ``l<i>_q``, ...). The attention is plain torch, as
 the reference keeps it an XLA einsum. "gelu" is the tanh form, which is
@@ -39,6 +40,12 @@ def clip_vit_l14() -> CLIPTextConfig:
 def clip_vit_h14() -> CLIPTextConfig:
     return CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_hidden_layers=23,
                           num_attention_heads=16)
+
+
+def open_clip_bigg() -> CLIPTextConfig:
+    """SDXL's second text encoder: tanh GELU and a 1280-d text_projection."""
+    return CLIPTextConfig(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                          num_attention_heads=20, hidden_act="gelu", projection_dim=1280)
 
 
 def clip_tiny(vocab_size: int = 1000) -> CLIPTextConfig:

@@ -692,8 +692,8 @@ def _unet_attn(r: _Rules, name: str, key: str, depth: int) -> None:
 
 
 def unet2d_rules(keys: Collection[str], cfg) -> List[Rule]:
-    """diffusers UNet2DConditionModel names, SD-1.5 and AudioLDM layouts
-    (spider_tpu/models/convert.py:373-417)."""
+    """diffusers UNet2DConditionModel names, SD-1.5, SDXL (text_time) and
+    AudioLDM layouts (spider_tpu/models/convert.py:373-417)."""
     r = _Rules(keys)
     n = len(cfg.block_out_channels)
     r.conv("conv_in", "conv_in")
@@ -883,3 +883,39 @@ def imagebind_rules(keys: Collection[str], cfg) -> List[Rule]:
 
 def convert_imagebind_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return convert_state_dict(imagebind_rules(sd, cfg), sd)
+
+
+# ---- PhotoMaker ID encoder (photomaker-v1.bin's "id_encoder") -------------
+
+def photomaker_rules(keys: Collection[str], cfg) -> List[Rule]:
+    """StoryDiffusion utils/model.py PhotoMakerIDEncoder names
+    (spider_tpu/models/convert.py:1202-1252). Pass the inner dict of the
+    checkpoint's "id_encoder" key (the file also carries "lora_weights" for
+    the UNet, applied separately)."""
+    r = _Rules(keys)
+    vm, p = "vision_model.", "vision_model."
+    r.add(p + "patch_embedding.weight", vm + "embeddings.patch_embedding.weight")
+    r.add(p + "class_embedding", vm + "embeddings.class_embedding")
+    r.add(p + "position_embedding", vm + "embeddings.position_embedding.weight")
+    r.norm(p + "pre_layrnorm", vm + "pre_layrnorm")
+    r.norm(p + "post_layernorm", vm + "post_layernorm")
+    for i in range(cfg.num_hidden_layers):
+        b, q = f"{vm}encoder.layers.{i}.", f"{p}layers_{i}."
+        r.norm(q + "layer_norm1", b + "layer_norm1")
+        r.norm(q + "layer_norm2", b + "layer_norm2")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            r.dense(q + n, f"{b}self_attn.{n}")
+        r.dense(q + "fc1", b + "mlp.fc1")
+        r.dense(q + "fc2", b + "mlp.fc2")
+    r.dense("visual_projection", "visual_projection")
+    r.dense("visual_projection_2", "visual_projection_2")
+    for m in ("mlp1", "mlp2"):
+        r.norm(f"fuse_module.{m}.layernorm", f"fuse_module.{m}.layernorm")
+        r.dense(f"fuse_module.{m}.fc1", f"fuse_module.{m}.fc1")
+        r.dense(f"fuse_module.{m}.fc2", f"fuse_module.{m}.fc2")
+    r.norm("fuse_module.layer_norm", "fuse_module.layer_norm")
+    return r
+
+
+def convert_photomaker_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return convert_state_dict(photomaker_rules(sd, cfg), sd)

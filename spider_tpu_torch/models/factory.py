@@ -117,14 +117,16 @@ def pipeline_parts(kind: str, *, device, dtype: torch.dtype = torch.bfloat16):
     'sd15' (CLIP ViT-L/14 text, the SD-1.5 UNet, the SD VAE), 'zeroscope'
     (CLIP ViT-H/14, the 1.4B UNet3D, the SD VAE), 'audioldm' (CLAP text, the
     AudioLDM-l UNet with its class embedding, the mel VAE, and the HiFi-GAN
-    vocoder, in fp32 as the reference computes it). Modules in `dtype`,
+    vocoder, in fp32 as the reference computes it), 'sdxl_story' (CLIP ViT-L/14
+    and OpenCLIP bigG text, the SDXL UNet, the SDXL VAE). Modules in `dtype`,
     their weights as constructed."""
     from spider_tpu_torch.models.clip_text import (ClapTextConfig, ClapTextModel,
-                                                   CLIPTextModel, clip_vit_h14, clip_vit_l14)
+                                                   CLIPTextModel, clip_vit_h14, clip_vit_l14,
+                                                   open_clip_bigg)
     from spider_tpu_torch.models.unet2d import (UNet2DConditionModel, unet_audioldm,
-                                                unet_sd15)
+                                                unet_sd15, unet_sdxl)
     from spider_tpu_torch.models.unet3d import UNet3DConditionModel, unet3d_zeroscope
-    from spider_tpu_torch.models.vae import AutoencoderKL, vae_audioldm, vae_sd
+    from spider_tpu_torch.models.vae import AutoencoderKL, vae_audioldm, vae_sd, vae_sdxl
     from spider_tpu_torch.models.vocoder import HifiGan, hifigan_audioldm
 
     def rep(cfg):
@@ -150,7 +152,14 @@ def pipeline_parts(kind: str, *, device, dtype: torch.dtype = torch.bfloat16):
                 "unet": (UNet2DConditionModel(ucfg, device), C.unet2d_rules),
                 "vae": (AutoencoderKL(rep(vae_audioldm()), device), C.vae_rules),
                 "vocoder": (HifiGan(hifigan_audioldm(), device), C.hifigan_rules)}
-    raise ValueError(f"no pipeline kind {kind!r} (expected 'sd15', 'zeroscope' or 'audioldm')")
+    if kind == "sdxl_story":
+        return {"text_encoder": (CLIPTextModel(rep(clip_vit_l14()), device), C.clip_text_rules),
+                "text_encoder_2": (CLIPTextModel(rep(open_clip_bigg()), device),
+                                   C.clip_text_rules),
+                "unet": (UNet2DConditionModel(rep(unet_sdxl()), device), C.unet2d_rules),
+                "vae": (AutoencoderKL(rep(vae_sdxl()), device), C.vae_rules)}
+    raise ValueError(f"no pipeline kind {kind!r} (expected 'sd15', 'zeroscope', 'audioldm' "
+                     f"or 'sdxl_story')")
 
 
 def from_pretrained(kind: str, path: Optional[str] = None, *, device,
@@ -161,10 +170,11 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
     directory or a single .safetensors/.bin/.pth file).
 
     kinds: 'sd15' -> StableDiffusionPipeline at 512px, 'zeroscope' ->
-    TextToVideoSDPipeline at 576x320, 'audioldm' -> AudioLDMPipeline
-    (``pipeline_parts`` has their modules; a checkpoint is read from its
-    ``text_encoder``, ``unet``, ``vae`` and ``vocoder`` subfolders, the
-    tokenizer from ``tokenizer``); 'llama' -> (LlamaForCausalLM 8B with
+    TextToVideoSDPipeline at 576x320, 'audioldm' -> AudioLDMPipeline,
+    'sdxl_story' -> StoryXLPipeline at 768px (``pipeline_parts`` has their
+    modules; a checkpoint is read from its ``text_encoder``,
+    ``text_encoder_2``, ``unet``, ``vae`` and ``vocoder`` subfolders, the
+    tokenizers from ``tokenizer`` and ``tokenizer_2``); 'llama' -> (LlamaForCausalLM 8B with
     `quantization` 'int8' or 'int4' projections, tokenizer): from a
     checkpoint, its config.json gives the shape and the projections quantise
     to int8, as the reference's from_pretrained does; 'imagebind' ->
@@ -193,9 +203,9 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
         if path is None:
             return random_init_(model, torch.Generator(device=device).manual_seed(seed))
         return C.load_checkpoint(model, C.imagebind_rules, path)
-    if kind not in ("sd15", "zeroscope", "audioldm"):
+    if kind not in ("sd15", "zeroscope", "audioldm", "sdxl_story"):
         raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', "
-                         f"'audioldm', 'imagebind' or 'llama')")
+                         f"'audioldm', 'sdxl_story', 'imagebind' or 'llama')")
     parts = pipeline_parts(kind, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     for sub, (module, rules) in parts.items():
@@ -210,6 +220,11 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
         from spider_tpu_torch.models.pipelines.sd import StableDiffusionPipeline
 
         return StableDiffusionPipeline(tok, *mods, height=512, width=512)
+    if kind == "sdxl_story":
+        from spider_tpu_torch.models.pipelines.sdxl_story import StoryXLPipeline
+
+        tok2 = _hf_tokenizer(path, "tokenizer_2") if path is not None else tok
+        return StoryXLPipeline(tok, tok2, *mods, height=768, width=768)
     if kind == "zeroscope":
         from spider_tpu_torch.models.pipelines.vd import TextToVideoSDPipeline
 

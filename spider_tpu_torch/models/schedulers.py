@@ -1,13 +1,13 @@
-"""Diffusion noise schedule and DDIM step (counterpart of
-spider_tpu/models/schedulers.py). DDIM covers SD-1.5 with 40 steps; the
-Euler-discrete scheduler of the SDXL story path is not ported yet."""
+"""Diffusion noise schedules (counterpart of spider_tpu/models/schedulers.py).
+DDIM covers SD-1.5, ZeroScope and AudioLDM with 40 steps; Euler-discrete
+covers the SDXL story path with 50 (pipelines/sdxl_story.py)."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -82,6 +82,59 @@ class DDIMScheduler:
         else:
             prev = torch.sqrt(alpha_prev) * pred_x0 + torch.sqrt(1 - alpha_prev) * eps
         return prev.to(sample.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerDiscreteScheduler:
+    """Euler method over the karras sigma parameterization (SDXL default).
+    Sigmas are fp32 tensors on the CPU; the step is taken in fp32 and cast
+    back to the sample's dtype."""
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    steps_offset: int = 1
+    prediction_type: str = "epsilon"    # or "v_prediction"
+    timestep_spacing: str = "leading"   # or "linspace"
+
+    def sigmas_and_timesteps(self, num_inference_steps: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sigmas [steps + 1] fp32 ending in 0, timesteps [steps] int32)."""
+        betas = make_betas(self.num_train_timesteps, self.beta_start, self.beta_end,
+                           self.beta_schedule)
+        acp = torch.cumprod(1.0 - betas, dim=0)
+        all_sigmas = torch.sqrt((1 - acp) / acp)
+        if self.timestep_spacing == "leading":
+            step = self.num_train_timesteps // num_inference_steps
+            t = (torch.arange(num_inference_steps, dtype=torch.float32) * step).round()
+            t = t.flip(0) + self.steps_offset
+        else:
+            t = torch.linspace(0, self.num_train_timesteps - 1, num_inference_steps,
+                               dtype=torch.float32).flip(0).round()
+        t = t.to(torch.int32)
+        sigmas = torch.cat([all_sigmas[t.long()], torch.zeros(1, dtype=torch.float32)])
+        return sigmas, t
+
+    def init_noise_sigma(self, sigmas: torch.Tensor) -> torch.Tensor:
+        if self.timestep_spacing == "linspace":
+            return sigmas.max()
+        return torch.sqrt(sigmas.max() ** 2 + 1)
+
+    def scale_model_input(self, sample: torch.Tensor, sigma) -> torch.Tensor:
+        return sample / torch.sqrt(torch.as_tensor(sigma, dtype=torch.float32) ** 2 + 1)
+
+    def step(self, model_output: torch.Tensor, sigma, sigma_next,
+             sample: torch.Tensor) -> torch.Tensor:
+        x = sample.float()
+        eps = model_output.float()
+        sigma = torch.as_tensor(sigma, dtype=torch.float32)
+        sigma_next = torch.as_tensor(sigma_next, dtype=torch.float32)
+        if self.prediction_type == "epsilon":
+            pred_x0 = x - sigma * eps
+        else:
+            pred_x0 = eps * (-sigma / torch.sqrt(sigma ** 2 + 1)) + x / (sigma ** 2 + 1)
+        d = (x - pred_x0) / sigma
+        return (x + d * (sigma_next - sigma)).to(sample.dtype)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0,

@@ -1,6 +1,8 @@
 """Conditional 2-D UNet in PyTorch (counterpart of
-spider_tpu/models/unet2d.py): the denoiser of SD-1.5 and, in 8-channel mel
-form with the CLAP class embedding, of AudioLDM.
+spider_tpu/models/unet2d.py): the denoiser of SD-1.5, of SDXL (with the
+text_time additional embedding and StoryDiffusion's consistent
+self-attention) and, in 8-channel mel form with the CLAP class embedding, of
+AudioLDM.
 
 ``forward`` takes and returns NHWC latents, as the JAX module does; inside,
 the convolutions run in NCHW. Submodule names follow the JAX parameter tree
@@ -11,8 +13,14 @@ default eps=1e-6; GroupNorm eps is 1e-5 in the resnets and 1e-6 in
 Transformer2D; the GEGLU feed-forward uses the tanh form of GELU, which is
 jax.nn.gelu's default.
 
-Left out for now: the story paths (story_kv / story, _attention_lse, the
-group bank) and the text_time additional embedding of SDXL.
+Consistent self-attention (StoryDiffusion, the SDXL story path): a
+self-attention block may take extra keys and values (``story_kv``, by block
+path) or sample them from the first ``id_length`` rows of each consistency
+group (``story``, on the up blocks). A bank shared by a group runs as two
+partial attentions, over the row's own keys and over the bank, merged
+exactly through their logsumexps (``_attention_lse``); ``story_bank_config``
+picks that form ("split"), one attention over the bank broadcast to every
+row ("concat") or the ablation without the bank ("self_only").
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.models.schedulers import timestep_embedding
-from spider_tpu_torch.ops.attention import flash_attention
+from spider_tpu_torch.ops.attention import flash_attention, flash_attention_with_lse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +49,22 @@ class UNet2DConfig:
     num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
-    addition_embed_type: Optional[str] = None           # "class_embed" for AudioLDM
-    projection_class_embeddings_input_dim: int = 2816
+    addition_embed_type: Optional[str] = None    # "text_time" (SDXL), "class_embed" (AudioLDM)
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816   # SDXL
     dtype: torch.dtype = torch.float32
 
 
 def unet_sd15() -> UNet2DConfig:
     return UNet2DConfig()
+
+
+def unet_sdxl() -> UNet2DConfig:
+    return UNet2DConfig(block_out_channels=(320, 640, 1280),
+                        cross_attn_blocks=(False, True, True),
+                        transformer_layers_per_block=(0, 2, 10),
+                        num_attention_heads=(5, 10, 20), cross_attention_dim=2048,
+                        addition_embed_type="text_time")
 
 
 def unet_audioldm() -> UNet2DConfig:
@@ -67,6 +84,7 @@ def unet_tiny(cross_attention_dim: int = 32, addition_embed_type: Optional[str] 
                         layers_per_block=1, transformer_layers_per_block=(1, 1),
                         num_attention_heads=(2, 2), cross_attention_dim=cross_attention_dim,
                         norm_num_groups=4, addition_embed_type=addition_embed_type,
+                        addition_time_embed_dim=8,
                         projection_class_embeddings_input_dim=projection_dim)
 
 
@@ -106,6 +124,9 @@ def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
                        L3, mid T 128 D 80: self 0.007 / 0.034, cross 0.006 / 0.024
       ZeroScope 576x320x16  L0 T 2880 D 40 (B 32): self 1.39 / 27.7, cross 0.156 / 1.13
                        L1 T 720 D 80: self 0.165 / 1.88, cross 0.059 / 0.389
+      SDXL story 768px (B 8: 4 frames, batched CFG; chip_smoke.py story, same card)
+                       L1 T 2304 D 64: self 0.289 / 5.92, cross 0.048 / 0.349
+                       L2, mid T 576 D 64: self 0.069 / 0.766, cross 0.030 / 0.183
 
     As single calls with the host's time in them, the large shapes rank the
     same way and the small ones are host-bound on either side (0.07-0.2 ms
@@ -157,6 +178,91 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) ->
     return plain_attention(q, k, v, heads)
 
 
+def _attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
+    """``_attention`` that also returns the logsumexp of each row's scaled
+    logits, lse [B, heads, T] fp32, so that two partial attentions over
+    disjoint key sets merge exactly (the story bank).
+
+    On CUDA tensors it calls ``flash_attention_with_lse`` where
+    ``spatial_flash_predicate`` holds, as ``_attention`` routes; the kernel
+    masks the ragged edges itself, so none of the reference's padding is
+    needed. Elsewhere (CPU tensors, the "einsum" override): the reference's
+    plain form, fp32 logits with m + log(l)."""
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda
+                 and spatial_flash_predicate(B, T, S, heads, D))
+    if use_flash:
+        out, lse = flash_attention_with_lse(
+            q.reshape(B, T, heads, D), k.reshape(B, S, heads, D), v.reshape(B, S, heads, D),
+            causal=False, sm_scale=1.0 / (D ** 0.5))
+        return out.reshape(B, T, C), lse
+    qt = q.reshape(B, T, heads, D).transpose(1, 2)
+    kt = k.reshape(B, S, heads, D).transpose(1, 2)
+    vt = v.reshape(B, S, heads, D).transpose(1, 2)
+    logits = torch.einsum("bhtd,bhsd->bhts", qt, kt).float() / (D ** 0.5)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bhsd->bhtd", (p / l).to(vt.dtype), vt)
+    return out.transpose(1, 2).reshape(B, T, C), (m + torch.log(l))[..., 0]
+
+
+# The story bank's form: "split" runs self and bank attention separately and
+# merges them by logsumexp; "concat" broadcasts the group's bank to every row
+# and runs one attention over the concatenated keys; "self_only" drops the
+# bank (an ablation). The bank call routes as every other call does, by
+# spatial_flash_predicate. At the story point (SDXL 768px, 4 frames,
+# id_length 4, batched CFG) the kernel takes the up_1 bank, [2, 9216]
+# queries over 4608 keys, in 0.555 ms of device time against 18.1 ms for the
+# plain form, and the up_0 bank ([2, 2304] over 1152) in 0.089 against 2.40
+# (chip_smoke.py's unet_routing bank rows; NVIDIA H100 80GB HBM3, 700 W).
+# A ContextVar, so an override stays inside its scope and its thread.
+BANK_IMPLS = ("split", "concat", "self_only")
+_STORY_BANK_IMPL = ContextVar("story_bank_impl", default="split")
+
+
+@contextlib.contextmanager
+def story_bank_config(impl: str):
+    """Scoped override of the story bank attention (split | concat |
+    self_only)."""
+    if impl not in BANK_IMPLS:
+        raise ValueError(f"impl must be one of {BANK_IMPLS}, got {impl!r}")
+    tok = _STORY_BANK_IMPL.set(impl)
+    try:
+        yield
+    finally:
+        _STORY_BANK_IMPL.reset(tok)
+
+
+def _bank_attention(q, k, v, ek, ev, heads: int) -> torch.Tensor:
+    """Self-attention of B rows over their own keys and a bank shared by
+    each of g groups of B // g consecutive rows: q, k, v [B, T, C]; ek, ev
+    [g, K, C]. The softmax runs over the union of both key sets."""
+    g, K, C = ek.shape
+    B, T, _ = q.shape
+    rows, D = B // g, C // heads
+    impl = _STORY_BANK_IMPL.get()
+    if impl == "self_only":
+        return _attention(q, k, v, heads)
+    if impl == "concat":
+        ekb = ek[:, None].expand(g, rows, K, C).reshape(B, K, C)
+        evb = ev[:, None].expand(g, rows, K, C).reshape(B, K, C)
+        return _attention(q, torch.cat([ekb, k], dim=1), torch.cat([evb, v], dim=1), heads)
+    # split: the bank side folds each group's rows into one call
+    # ([g, rows * T] queries over [g, K] keys), so the bank stays at group size.
+    o_self, l_self = _attention_lse(q, k, v, heads)
+    o_bank, l_bank = _attention_lse(q.reshape(g, rows * T, C), ek, ev, heads)
+    l_bank = l_bank.reshape(g, heads, rows, T).transpose(1, 2).reshape(B, heads, T)
+    l_tot = torch.logaddexp(l_self, l_bank)
+    w_self = torch.exp(l_self - l_tot).transpose(1, 2)[..., None]      # [B, T, heads, 1]
+    w_bank = torch.exp(l_bank - l_tot).transpose(1, 2)[..., None]
+    out = (o_self.reshape(B, T, heads, D).float() * w_self
+           + o_bank.reshape(B, T, heads, D).float() * w_bank)
+    return out.reshape(B, T, C).to(o_self.dtype)
+
+
 class ResnetBlock2D(nn.Module):
     def __init__(self, cin: int, cout: int, groups: int, temb_dim: int, dt, device=None):
         super().__init__()
@@ -186,10 +292,20 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, ch, bias=False, dtype=dt, device=device)
         self.to_out = nn.Linear(ch, ch, dtype=dt, device=device)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, extra_kv=None):
+        """extra_kv [B or g, K, C]: extra keys and values for self-attention,
+        projected by to_k and to_v. With the batch's own leading dim they go
+        in front of each row's keys; with a smaller one (g groups) each group
+        of B // g rows shares them (``_bank_attention``)."""
         ctx = x if context is None else context
-        out = _attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads)
-        return self.to_out(out)
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if extra_kv is None:
+            return self.to_out(_attention(q, k, v, self.heads))
+        ek, ev = self.to_k(extra_kv), self.to_v(extra_kv)
+        if ek.shape[0] != k.shape[0]:
+            return self.to_out(_bank_attention(q, k, v, ek, ev, self.heads))
+        return self.to_out(_attention(q, torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1),
+                                      self.heads))
 
 
 class FeedForward(nn.Module):
@@ -213,8 +329,19 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(ch, eps=1e-6, dtype=dt, device=device)
         self.ff = FeedForward(ch, dt, device)
 
-    def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, story_kv=None, story=None):
+        """story: dict(id_length, indices [K] int64, num_groups) activating
+        consistent self-attention: each of num_groups groups of rows takes as
+        extra keys the K tokens `indices` picks from its first id_length rows'
+        self-attention inputs (StoryDiffusion's consistent self-attention)."""
+        h = self.norm1(x)
+        extra = story_kv
+        if story is not None:
+            idl, groups = story["id_length"], story.get("num_groups", 1)
+            BT, T, C = h.shape
+            bank = h.reshape(groups, BT // groups, T, C)[:, :idl].reshape(groups, idl * T, C)
+            extra = bank.index_select(1, story["indices"])
+        x = x + self.attn1(h, extra_kv=extra)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -231,12 +358,12 @@ class Transformer2D(nn.Module):
                                                                 device))
         self.proj_out = nn.Linear(ch, ch, dtype=dt, device=device)
 
-    def forward(self, x, context):
+    def forward(self, x, context, story_kv=None, story=None):
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context)
+            h = getattr(self, f"block_{i}")(h, context, story_kv, story)
         h = self.proj_out(h)
         return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
@@ -251,8 +378,12 @@ class UNet2DConditionModel(nn.Module):
         tdim = chs[0] * 4
         self.time_embed_1 = nn.Linear(chs[0], tdim, dtype=dt, device=device)
         self.time_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
-        if cfg.addition_embed_type not in (None, "class_embed"):
+        if cfg.addition_embed_type not in (None, "text_time", "class_embed"):
             raise NotImplementedError(f"addition_embed_type={cfg.addition_embed_type!r}")
+        if cfg.addition_embed_type == "text_time":
+            self.add_embed_1 = nn.Linear(cfg.projection_class_embeddings_input_dim, tdim,
+                                         dtype=dt, device=device)
+            self.add_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
         if cfg.addition_embed_type == "class_embed":
             self.class_embed_1 = nn.Linear(cfg.projection_class_embeddings_input_dim, tdim,
                                            dtype=dt, device=device)
@@ -278,7 +409,8 @@ class UNet2DConditionModel(nn.Module):
         self.mid_attn = (Transformer2D(cur, ctx, cfg.num_attention_heads[-1],
                                        max(cfg.transformer_layers_per_block[-1], 1), g, dt,
                                        device)
-                         if cfg.cross_attn_blocks[-1] else None)
+                         if cfg.cross_attn_blocks[-1] or cfg.addition_embed_type == "text_time"
+                         else None)
         self.mid_res_1 = ResnetBlock2D(cur, cur, g, tdim, dt, device)
         n = len(chs)
         for i, ch in enumerate(reversed(chs)):
@@ -306,42 +438,62 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                story_kv: Optional[Dict[str, torch.Tensor]] = None,
+                story: Optional[Dict[str, Dict]] = None) -> torch.Tensor:
         """sample [B,H,W,Cin] NHWC; timesteps [B]; encoder_hidden_states
-        [B,S,Dctx]; added_cond {"class_embeds": [B, Dcls]} for the
-        class_embed configuration -> [B,H,W,Cout] in the model's dtype."""
+        [B,S,Dctx]; added_cond {"text_embeds": [B, pooled], "time_ids": [B, 6]}
+        for text_time (SDXL), {"class_embeds": [B, Dcls]} for class_embed
+        -> [B,H,W,Cout] in the model's dtype.
+
+        story_kv: {block path: [B or g, K, C]} extra self-attention keys for
+        any transformer block (``down_1_attn_0``, ``mid_attn``, ...).
+        story: {up block path: dict(id_length, indices, num_groups)}
+        activating consistent self-attention in those up blocks."""
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt)
         temb = self.time_embed_2(F.silu(self.time_embed_1(temb)))
-        if cfg.addition_embed_type == "class_embed":
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("the text_time UNet needs added_cond['text_embeds', 'time_ids']")
+            text_embeds = added_cond["text_embeds"]
+            tid = timestep_embedding(added_cond["time_ids"].reshape(-1),
+                                     cfg.addition_time_embed_dim)
+            add = torch.cat([text_embeds.float(), tid.reshape(text_embeds.shape[0], -1)],
+                            dim=-1).to(dt)
+            temb = temb + self.add_embed_2(F.silu(self.add_embed_1(add)))
+        elif cfg.addition_embed_type == "class_embed":
             # AudioLDM: the CLAP embedding projected into the time embedding.
             if added_cond is None:
                 raise ValueError("the class_embed UNet needs added_cond['class_embeds']")
             cls = added_cond["class_embeds"].to(dt)
             temb = temb + self.class_embed_2(F.silu(self.class_embed_1(cls)))
         ctx = encoder_hidden_states.to(dt)
+        story_kv, story = story_kv or {}, story or {}
         x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2).contiguous())
         skips = [x]
         for i in range(n):
             for j in range(cfg.layers_per_block):
                 x = getattr(self, f"down_{i}_res_{j}")(x, temb)
                 if self._has_attn_down(i):
-                    x = getattr(self, f"down_{i}_attn_{j}")(x, ctx)
+                    path = f"down_{i}_attn_{j}"
+                    x = getattr(self, path)(x, ctx, story_kv.get(path))
                 skips.append(x)
             if i < n - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
                 skips.append(x)
         x = self.mid_res_0(x, temb)
         if self.mid_attn is not None:
-            x = self.mid_attn(x, ctx)
+            x = self.mid_attn(x, ctx, story_kv.get("mid_attn"))
         x = self.mid_res_1(x, temb)
         for i in range(n):
             for j in range(cfg.layers_per_block + 1):
                 x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1), temb)
                 if self._has_attn_up(i):
-                    x = getattr(self, f"up_{i}_attn_{j}")(x, ctx)
+                    path = f"up_{i}_attn_{j}"
+                    x = getattr(self, path)(x, ctx, story_kv.get(path), story.get(path))
             if i < n - 1:
                 x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
                                                                     mode="nearest"))

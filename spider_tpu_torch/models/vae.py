@@ -1,5 +1,5 @@
 """AutoencoderKL in PyTorch (counterpart of spider_tpu/models/vae.py): the
-latent codec of SD-1.5, of ZeroScope (frame by frame) and, in 1-channel mel
+latent codec of SD-1.5 and SDXL, of ZeroScope (frame by frame) and, in 1-channel mel
 form, of AudioLDM.
 
 The public methods take and return NHWC tensors, as the JAX module does;
@@ -32,6 +32,10 @@ class VAEConfig:
 
 def vae_sd() -> VAEConfig:
     return VAEConfig()
+
+
+def vae_sdxl() -> VAEConfig:
+    return VAEConfig(scaling_factor=0.13025)
 
 
 def vae_audioldm() -> VAEConfig:

@@ -5,7 +5,10 @@ launches the hand-written CUDA kernel (csrc/tattn_fwd.cu) on CUDA tensors
 exactly where the reference launches its Pallas kernel (its predicate, with
 "on CUDA" for "on a TPU") and takes the plain einsum form,
 ``temporal_attention_reference``, everywhere else. On a CUDA tensor inside
-the predicate it launches the kernel or raises; it never falls back.
+the predicate it launches the kernel or raises; it never falls back. The
+kernel call is differentiable: its backward recomputes the einsum form and
+takes that form's vector-Jacobian product, as the reference's custom_vjp does
+(spider_tpu/ops/temporal_attention.py:126-146), and launches no kernel.
 
 Layouts: q, k, v [B, F, P, C] ("bfpc", what UNet3D uses) or [B, P, F, C]
 ("bpfc"), C = heads * head_dim; attention runs over F independently at every
@@ -181,18 +184,43 @@ def kernel_predicate(heads: int, F: int, P: int, C: int) -> bool:
             and (H * F) % 8 == 0 and (C // H) % 8 == 0)
 
 
+class TemporalAttentionFunction(torch.autograd.Function):
+    """The kernel's forward with the einsum form's gradient: the forward
+    launches ``temporal_attention_kernel`` on the route ``tattn_route``
+    names; the backward recomputes ``temporal_attention_reference`` on the
+    saved q, k, v and returns its vector-Jacobian product (the reference's
+    ``_tattn_pallas_vjp_bwd``), launching no temporal kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale, layout):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(heads=heads, scale=scale, layout=layout)
+        return temporal_attention_kernel(q, k, v, heads, scale=scale, layout=layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        kw = ctx.kw
+        with torch.enable_grad():
+            out = temporal_attention_reference(q, k, v, kw["heads"], scale=kw["scale"],
+                                               layout=kw["layout"])
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
                        scale: Optional[float] = None, layout: str = "bfpc") -> torch.Tensor:
     """Frame-axis attention at every pixel. CPU tensors, and CUDA tensors
     outside the reference's predicate, take the einsum form; CUDA tensors
-    inside it launch the kernel and add one to
+    inside it launch the kernel through ``TemporalAttentionFunction``
+    (differentiable in q, k and v) and add one to
     ``temporal_attention.launches``."""
     B, F, P, C = _dims(q, layout)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"temporal_attention runs on cpu or cuda tensors, got {q.device}")
     if (q.device.type == "cuda" and _MODE.get() == "auto"
             and kernel_predicate(heads, F, P, C)):
-        return temporal_attention_kernel(q, k, v, heads, scale=scale, layout=layout)
+        return TemporalAttentionFunction.apply(q, k, v, heads, scale, layout)
     return temporal_attention_reference(q, k, v, heads, scale=scale, layout=layout)
 
 

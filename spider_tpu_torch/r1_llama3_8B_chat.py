@@ -20,9 +20,9 @@ def main(argv=None) -> str:
     """Run the REPL on standard input; returns the conversation's history."""
     import torch
 
+    from spider_tpu_torch.common.utils import resolve_device
     from spider_tpu_torch.models.decode import GenerateConfig, stream_generate
     from spider_tpu_torch.models.serving_utils import load_or_init_llm
-    from spider_tpu_torch.r1_llama3_8B_infer import resolve_device
 
     parser = argparse.ArgumentParser(description="streaming chat REPL (PyTorch port)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

@@ -19,8 +19,8 @@ def main(argv=None, background: bool = False):
     """Serve until interrupted; with background=True start the server on a
     daemon thread and return it (``server.server_address`` has the port)."""
     from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.common.utils import resolve_device
     from spider_tpu_torch.models.serving_utils import load_or_init_llm
-    from spider_tpu_torch.r1_llama3_8B_infer import resolve_device
     from spider_tpu_torch.serving.http_server import serve
     from spider_tpu_torch.serving.spider_free import SpiderFree, make_llama_chat_fn
 

@@ -14,15 +14,7 @@ import argparse
 import os
 from typing import Optional
 
-
-def resolve_device(name: str, entry: str):
-    """torch.device for --device: cuda:0, or the CPU when asked for; without
-    a CUDA device 'cuda' exits with a message, never running on the CPU."""
-    import torch
-
-    if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{entry}: no CUDA device; pass --device cpu to run on the CPU")
-    return torch.device("cuda", 0) if name == "cuda" else torch.device("cpu")
+from spider_tpu_torch.common.utils import resolve_device
 
 
 def build_r1(tiny: Optional[bool] = None, *, device="cuda"):

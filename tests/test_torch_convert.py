@@ -31,6 +31,7 @@ from spider_tpu.models import clip_text as jclip
 from spider_tpu.models import convert as JC
 from spider_tpu.models import imagebind as jib
 from spider_tpu.models import llama as jL
+from spider_tpu.models import photomaker as jpm
 from spider_tpu.models import tokenizer as jtok
 from spider_tpu.models import unet2d as junet
 from spider_tpu.models import unet3d as junet3d
@@ -42,6 +43,7 @@ from spider_tpu_torch.models import convert as TC
 from spider_tpu_torch.models import factory
 from spider_tpu_torch.models import imagebind as tib
 from spider_tpu_torch.models import llama as tL
+from spider_tpu_torch.models import photomaker as tpm
 from spider_tpu_torch.models import tokenizer as ttok
 from spider_tpu_torch.models import unet2d as tunet
 from spider_tpu_torch.models import unet3d as tunet3d
@@ -50,7 +52,8 @@ from spider_tpu_torch.models import vocoder as tvoc
 from spider_tpu_torch.models.convert import load_jax_params
 from test_convert import _fake_llama_sd, make_clip_sd
 from test_convert_diffusion import (make_clap_sd, make_hifigan_sd, make_imagebind_sd,
-                                    make_unet2d_sd, make_unet3d_sd, make_vae_sd)
+                                    make_photomaker_sd, make_unet2d_sd, make_unet3d_sd,
+                                    make_vae_sd)
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "convert_keys")
 
@@ -98,6 +101,11 @@ def _llama_case(quantize):
             lambda: tL.LlamaForCausalLM(tcfg, "cpu"))
 
 
+# The tiny text_time UNet of build_tiny_sdxl: a context of 32 + 48 and the
+# pooled 48 beside six time ids of 8.
+TINY_SDXL_UNET = dict(cross_attention_dim=80, addition_embed_type="text_time", projection_dim=96)
+
+
 @functools.lru_cache(maxsize=None)
 def _family_case(name):
     """(state dict, reference tree, port state dict, a function making an
@@ -108,6 +116,14 @@ def _family_case(name):
         return sd, ref(), port(), make
     if name == "clip":
         jcfg, tcfg = jclip.clip_tiny(100), tclip.clip_tiny(100)
+        sd = make_clip_sd(jcfg)
+        return (sd, JC.convert_clip_text_state_dict(sd, jcfg),
+                TC.convert_clip_text_state_dict(sd, tcfg),
+                lambda: tclip.CLIPTextModel(tcfg, "cpu"))
+    if name == "clip_bigg":          # a projected tanh-GELU encoder, SDXL's second's form
+        wide = dict(hidden_size=48, intermediate_size=96, projection_dim=48, hidden_act="gelu")
+        jcfg = dataclasses.replace(jclip.clip_tiny(100), **wide)
+        tcfg = dataclasses.replace(tclip.clip_tiny(100), **wide)
         sd = make_clip_sd(jcfg)
         return (sd, JC.convert_clip_text_state_dict(sd, jcfg),
                 TC.convert_clip_text_state_dict(sd, tcfg),
@@ -123,9 +139,10 @@ def _family_case(name):
         sd = make_vae_sd(jcfg)[0]
         return (sd, JC.convert_vae_state_dict(sd, jcfg), TC.convert_vae_state_dict(sd, tcfg),
                 lambda: tvae.AutoencoderKL(tcfg, "cpu"))
-    if name in ("unet_sd", "unet_audioldm"):
-        kw = dict(cross_attention_dim=16, addition_embed_type="class_embed",
-                  projection_dim=16) if name == "unet_audioldm" else {}
+    if name in ("unet_sd", "unet_audioldm", "unet_sdxl"):
+        kw = {"unet_sd": {}, "unet_audioldm": dict(
+            cross_attention_dim=16, addition_embed_type="class_embed", projection_dim=16),
+            "unet_sdxl": TINY_SDXL_UNET}[name]
         jcfg, tcfg = junet.unet_tiny(**kw), tunet.unet_tiny(**kw)
         sd = make_unet2d_sd(jcfg)[0]
         return (sd, JC.convert_unet2d_state_dict(sd, jcfg),
@@ -144,6 +161,12 @@ def _family_case(name):
             sd = _hifigan_weight_normed(sd)
         return (sd, JC.convert_hifigan_state_dict(sd, jcfg),
                 TC.convert_hifigan_state_dict(sd, tcfg), lambda: tvoc.HifiGan(tcfg, "cpu"))
+    if name == "photomaker":
+        jcfg, tcfg = jpm.photomaker_tiny(), tpm.photomaker_tiny()
+        sd = make_photomaker_sd(jcfg)[0]
+        return (sd, JC.convert_photomaker_state_dict(sd, jcfg),
+                TC.convert_photomaker_state_dict(sd, tcfg),
+                lambda: tpm.PhotoMakerIDEncoder(tcfg, "cpu"))
     if name == "imagebind":
         jcfg, tcfg = jib.imagebind_tiny(), tib.imagebind_tiny()
         sd = make_imagebind_sd(jcfg)[0]
@@ -153,8 +176,9 @@ def _family_case(name):
     raise KeyError(name)
 
 
-FAMILIES = ("llama", "llama_int8", "clip", "clap", "vae", "unet_sd", "unet_audioldm", "unet3d",
-            "hifigan", "hifigan_weight_norm", "imagebind")
+FAMILIES = ("llama", "llama_int8", "clip", "clip_bigg", "clap", "vae", "unet_sd",
+            "unet_audioldm", "unet_sdxl", "unet3d", "hifigan", "hifigan_weight_norm",
+            "imagebind", "photomaker")
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -236,8 +260,8 @@ def _full_case(name):
     if name == "llama3_8b":
         cfg = tL.llama3_8b()
         return TC.llama_rules, cfg, tL.LlamaForCausalLM(cfg, "meta")
-    if name in ("clip_vit_l14", "clip_vit_h14"):
-        cfg = getattr(tclip, name)()
+    if name in ("clip_vit_l14", "clip_vit_h14", "clip_bigg"):
+        cfg = tclip.open_clip_bigg() if name == "clip_bigg" else getattr(tclip, name)()
         return TC.clip_text_rules, cfg, tclip.CLIPTextModel(cfg, "meta")
     if name == "clap_text":
         cfg = tclip.ClapTextConfig()
@@ -245,7 +269,7 @@ def _full_case(name):
     if name in ("vae_sd", "vae_audioldm"):
         cfg = getattr(tvae, name)()
         return TC.vae_rules, cfg, tvae.AutoencoderKL(cfg, "meta")
-    if name in ("unet_sd15", "unet_audioldm"):
+    if name in ("unet_sd15", "unet_audioldm", "unet_sdxl"):
         cfg = getattr(tunet, name)()
         return TC.unet2d_rules, cfg, tunet.UNet2DConditionModel(cfg, "meta")
     if name == "unet3d_zeroscope":
@@ -257,6 +281,9 @@ def _full_case(name):
     if name == "imagebind_huge":
         cfg = tib.imagebind_huge()
         return TC.imagebind_rules, cfg, tib.ImageBindEncoder(cfg, "meta")
+    if name == "photomaker_v1":
+        cfg = tpm.photomaker_v1()
+        return TC.photomaker_rules, cfg, tpm.PhotoMakerIDEncoder(cfg, "meta")
     raise KeyError(name)
 
 
@@ -266,9 +293,9 @@ def _full_case(name):
 KNOWN_EXTRAS = ("model.layers.0.self_attn.rotary_emb.inv_freq",
                 "text_model.embeddings.position_ids", "embeddings.position_ids")
 
-MANIFESTS = ("llama3_8b", "clip_vit_l14", "clip_vit_h14", "clap_text", "vae_sd", "vae_audioldm",
-             "unet_sd15", "unet_audioldm", "unet3d_zeroscope", "hifigan_audioldm",
-             "imagebind_huge")
+MANIFESTS = ("llama3_8b", "clip_vit_l14", "clip_vit_h14", "clip_bigg", "clap_text", "vae_sd",
+             "vae_audioldm", "unet_sd15", "unet_audioldm", "unet_sdxl", "unet3d_zeroscope",
+             "hifigan_audioldm", "imagebind_huge", "photomaker_v1")
 
 
 @pytest.mark.parametrize("name", MANIFESTS)
@@ -287,6 +314,11 @@ def test_full_preset_reads_exactly_the_manifest(name):
         qrules = TC.llama_rules(keys, dataclasses.replace(cfg, quantization="int8"), "int8")
         qmod = tL.LlamaForCausalLM(dataclasses.replace(cfg, quantization="int8"), "meta")
         assert {n for r in qrules for n in r.names} == set(qmod.state_dict())
+    if name == "unet_sdxl":             # text_time, and the mid block's 10 blocks
+        assert tuple(state["add_embed_1.weight"].shape) == (1280, 2816)
+        assert "mid_attn.block_9.attn1.to_q.weight" in state
+    if name == "photomaker_v1":
+        assert tuple(state["vision_model.position_embedding"].shape) == (257, 1024)
     if name == "hifigan_audioldm":      # the weight-normed form reads the pairs
         normed = {k[:-7] + s for k in keys if k.endswith(".weight")
                   for s in (".weight_g", ".weight_v")}
@@ -469,6 +501,11 @@ def tiny_presets(monkeypatch):
     pipelines/ad.py and the emitters have them)."""
     monkeypatch.setattr(tclip, "clip_vit_l14", lambda: tclip.clip_tiny(100))
     monkeypatch.setattr(tclip, "clip_vit_h14", lambda: tclip.clip_tiny(100))
+    monkeypatch.setattr(tclip, "open_clip_bigg", lambda: dataclasses.replace(
+        tclip.clip_tiny(100), hidden_size=48, intermediate_size=96, projection_dim=48,
+        hidden_act="gelu"))
+    monkeypatch.setattr(tunet, "unet_sdxl", lambda: tunet.unet_tiny(**TINY_SDXL_UNET))
+    monkeypatch.setattr(tvae, "vae_sdxl", lambda: tvae.vae_tiny())
     clap, full = tclip.clap_tiny(300), tclip.ClapTextConfig
     monkeypatch.setattr(tclip, "ClapTextConfig", lambda **kw: full(**kw) if kw else clap)
     monkeypatch.setattr(tunet, "unet_sd15", lambda: tunet.unet_tiny())
@@ -489,12 +526,14 @@ def _write(sd, path, name="diffusion_pytorch_model.safetensors"):
         torch.save(tensors, os.path.join(path, name))
 
 
-@pytest.mark.parametrize("kind", ["sd15", "zeroscope", "audioldm"])
+@pytest.mark.parametrize("kind", ["sd15", "zeroscope", "audioldm", "sdxl_story"])
 def test_pipeline_from_diffusers_directory(tmp_path, tiny_presets, kind):
     root = str(tmp_path)
     cases = {"sd15": ("clip", "unet_sd", "vae"), "zeroscope": ("clip", "unet3d", "vae"),
-             "audioldm": ("clap", "unet_audioldm", "vae", "hifigan_weight_norm")}[kind]
-    subs = ("text_encoder", "unet", "vae", "vocoder")
+             "audioldm": ("clap", "unet_audioldm", "vae", "hifigan_weight_norm"),
+             "sdxl_story": ("clip", "clip_bigg", "unet_sdxl", "vae")}[kind]
+    subs = (("text_encoder", "text_encoder_2", "unet", "vae") if kind == "sdxl_story"
+            else ("text_encoder", "unet", "vae", "vocoder"))
     wants = {}
     for sub, case in zip(subs, cases):
         sd, ref_tree, _, make = _family_case(case)
@@ -506,6 +545,10 @@ def test_pipeline_from_diffusers_directory(tmp_path, tiny_presets, kind):
     got = {"text_encoder": pipe.text_encoder, "unet": pipe.unet, "vae": pipe.vae}
     if kind == "audioldm":
         got["vocoder"] = pipe.vocoder
+    if kind == "sdxl_story":
+        got["text_encoder_2"] = pipe.text_encoder_2
+        assert isinstance(pipe.tokenizer_2, ttok.TinyTokenizer)
+        assert (pipe.height, pipe.width, pipe.batched_cfg) == (768, 768, True)
     assert sorted(got) == sorted(wants)
     for sub in got:
         _assert_same_state(got[sub], wants[sub])

@@ -160,6 +160,36 @@ def test_named_tattn_route_raises_and_never_falls_back():
     assert TA.temporal_attention.launches == before
 
 
+@pytest.mark.parametrize("layout,scale", [("bfpc", None), ("bpfc", 0.3)])
+def test_tattn_function_takes_the_plain_forms_gradient(monkeypatch, layout, scale):
+    # On CUDA tensors temporal_attention launches the kernel through
+    # TemporalAttentionFunction. Here its launcher is the plain form, so the
+    # Function runs on CPU tensors: q, k and v get gradients, equal to
+    # autograd's through the plain form, and the backward launches nothing.
+    launched = []
+
+    def launcher(q, k, v, heads, *, scale=None, layout="bfpc", route=None):
+        launched.append(route)
+        return TA.temporal_attention_reference(q, k, v, heads, scale=scale, layout=layout)
+
+    monkeypatch.setattr(TA, "temporal_attention_kernel", launcher)
+    g = torch.Generator().manual_seed(5)
+    shape = (2, 40, 8, 64) if layout == "bpfc" else (2, 8, 40, 64)
+    q, k, v, dout = (torch.randn(shape, generator=g) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = TA.TemporalAttentionFunction.apply(*leaves, 8, scale, layout)
+    assert out.grad_fn is not None and launched == [None]
+    grads = torch.autograd.grad(out, leaves, dout)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want_out = TA.temporal_attention_reference(*plain, 8, scale=scale, layout=layout)
+    want = torch.autograd.grad(want_out, plain, dout)
+    assert torch.equal(out, want_out.detach())
+    for got, exp in zip(grads, want):
+        assert got.shape == exp.shape and got.abs().max() > 0
+        torch.testing.assert_close(got, exp, atol=1e-6, rtol=1e-6)
+    assert launched == [None]                  # the backward launched no kernel
+
+
 # ---------------------------------------------------------------------------
 # spatial_flash_predicate at every UNet shape the H100 run times: (model,
 # level, B, T, cross-attention S, heads, D, self routed, cross routed), B the

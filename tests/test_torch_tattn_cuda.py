@@ -92,6 +92,34 @@ def test_kernel_zeroscope_levels(dev, level, route):
     _check(*_inputs((2, 16, P, C), torch.bfloat16, dev, seed=2), 8, "bfpc", 2e-2, route=route)
 
 
+@pytest.mark.parametrize("level", list(LEVELS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["ring", "simple"])
+def test_gradients_through_the_kernel_match_plain(dev, level, dtype):
+    # temporal_attention on CUDA tensors inside the predicate is
+    # differentiable: the kernel's forward ("ring" for bf16, "simple" for
+    # fp32), the plain form's gradient, and no kernel in the backward.
+    P, C = LEVELS[level]
+    q, k, v = _inputs((2, 16, P, C), dtype, dev, seed=8)
+    dout = _inputs((2, 16, P, C), dtype, dev, seed=9)[0]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = TA.temporal_attention.launches, dict(TA.temporal_attention.route_launches)
+    out = TA.temporal_attention(*leaves, 8)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    took = TA.tattn_route(dtype)
+    assert TA.temporal_attention.launches == before[0] + 1
+    assert TA.temporal_attention.route_launches == {r: n + (r == took)
+                                                    for r, n in before[1].items()}
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(TA.temporal_attention_reference(*plain, 8), plain, dout)
+    atol, rtol = (2e-2, BF16_EPS) if dtype == torch.bfloat16 else (1e-4, 0.0)
+    for got, exp in zip(grads, want):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        excess = (got.float() - exp.float()).abs() - (atol + rtol * exp.float().abs())
+        assert excess.max().item() <= 0
+
+
 @pytest.mark.parametrize("P", [1001, 33, 1])
 @pytest.mark.parametrize("layout", ["bfpc", "bpfc"])
 @ROUTES
