@@ -100,7 +100,11 @@ Phases, each printing one JSON line:
                batch, one step's loss and LoRA gradients through the backward kernels
                against the plain backward, make_lm_train_step at [4, 512], profiled
                steps of each (device time and wall time of the same steps), then
-               RunnerBase.train() (epoch loop, checkpoint) and a checkpoint round trip
+               RunnerBase.train() (epoch loop, checkpoint) and a checkpoint round trip; its
+               Spider holds SAM ViT-H (bf16, frozen), and part mask_step takes three MASK
+               steps (1024 px IMAGE_SAM, a binary MASK_GT), the mask decoder's gradients
+               through the backward kernels against the plain backward, SAM's encoders
+               bit-equal after them
   spider_generate  serve what train trained: SpiderInference from the train config
                (preset 'full') with the resident pipelines, the trainable parameters
                restored bit for bit through load_demo_checkpoint from the checkpoint
@@ -122,6 +126,19 @@ Phases, each printing one JSON line:
                IMAGESTORY span appended, the story_fn wired in: a story event of 4 PNGs
   story_photomaker  the ref-image mode: PhotoMaker at photomaker_v1 width, two seeded
                224px id images, the same story
+  grounding    BOX through the spider_decoder_infer twin's build_default_decoders(tiny=False):
+               Grounding DINO (Swin-T + BERT-base, 900 queries, 512 px; bf16, random from a
+               seed) on a seeded 480x640 image and a caption: seconds a
+               GroundingDINOInference call (median of 3 after a warm-up), boxes, top scores,
+               device busy share, 6 flash launches a call, all wgmma
+  grounding_check  its raw boxes and scores in bf16 on the kernel and with plain attention,
+               each against an fp32 copy with plain attention (the unet_check rule)
+  mask         MASK through the same twin behind SpiderDecoderInfer: DINO's top box, rescaled,
+               prompts SAM ViT-H (1024 px, bf16); the low-res mask brought to the image's size;
+               encoder and decoder seconds, peak GB, flash launches a decode, all wgmma
+  mask_check   SAM's box decode in bf16 on the kernel and plain, against fp32
+  grounding_profile  device time by kernel of one DINO call and one SAM encode, with the
+               share of the deformable attention (ops/msda.py) and of the ViT attention
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -141,12 +158,14 @@ Phases, each printing one JSON line:
                then the r1_llama3_8B twins on that directory through SPIDER_TPU_LLM_CKPT:
                the infer twin's reply (unquantised, as the reference's serving loader)
                equal to a model filled in memory from the same tensors, and the gradio
-               twin's server answering one POST /chat
+               twin's server answering one POST /chat; SAM ViT-H and Grounding DINO as one
+               fp32 .pth each, loaded with from_pretrained(kind, path=...)
 Then the run's total seconds, the kernel summary, the card's `nvidia-smi` name
 and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
-configuration, speculative to moe, story, story_http, story_photomaker, the train steps, spider_generate, the checkpoint
+configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, the
+train steps (the MASK step among them), spider_generate, the checkpoint
 decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
@@ -160,7 +179,11 @@ models are built); `python3 chip_smoke.py checkpoint` runs the build, the
 wgmma probe and the checkpoint phase only; `python3 chip_smoke.py family` the
 build, the wgmma probe and the phases speculative to moe; `python3 chip_smoke.py
 story` the build, the wgmma probe, tattn_grad, the routing rows and the story
-phases (on the 8B int8 model it builds). None prints the final line.
+phases (on the 8B int8 model it builds); `python3 chip_smoke.py grounding` the
+build, the wgmma probe, the backward rows at SAM's shapes, the routing rows, the
+grounding phases, the train phase's mask_step alone (the 8B Spider with SAM,
+built through the train entry) and the two grounding checkpoints. None prints
+the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -245,6 +268,9 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn_fwd", "paged_dec
 # second products, sum in another order and round the gradients to bf16.
 BWD_ATOL = 2e-2
 BWD_REL = 2.0 ** -7
+# Below this many keys a query (ROADMAP C6) a backward row is held to the
+# plain form on fp32 inputs: both routes miss the bf16 plain form alike there.
+C6_MIN_KEYS = 40
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): a kernel's
 # bound is the larger of bytes / HBM rate and operations / bf16 tensor rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -586,7 +612,7 @@ def phase_kernel_flash(dev, spider_free_T: int):
     return rows
 
 
-def phase_kernel_flash_bwd(dev):
+def phase_kernel_flash_bwd(dev, prefix: str = ""):
     """The two backward kernels against flash_backward_reference on the
     forward kernel's out and lse: one row per kernel and case, each kernel on
     both routes on the same inputs. `ms` is that kernel alone; `plain_ms` the
@@ -594,7 +620,9 @@ def phase_kernel_flash_bwd(dev):
     backward of F.scaled_dot_product_attention (all three gradients too; with
     a mask where the case has a ragged `kv_len`), null only with a cotangent
     of lse, which SDPA does not return. The dq rows also run the kernel twice
-    for the same bits."""
+    for the same bits. The last three cases are SAM's mask decoder in the MASK
+    train step (head dims 32 and 16, 6 prompt tokens); `prefix` keeps the
+    cases whose name starts with it."""
     import torch
     import torch.nn.functional as F
 
@@ -615,6 +643,12 @@ def phase_kernel_flash_bwd(dev):
         ("ragged_full_D40", (2, 333, 1000, 8, 8, 40), dict(causal=False), False),
         ("with_g_lse", (2, 256, 256, 32, 8, 128), dict(causal=True), True),
     ]
+    # SAM's mask decoder in the MASK train step: its three attention shapes
+    cases += [(f"sam_{kind}_B{Bc}_T{Tc}_S{S}_D{D}", (Bc, Tc, S, H, H, D), dict(causal=False),
+               False)
+              for model, _, kind, _, Bc, Tc, S, H, D in grounding_attention_shapes()
+              if model == "sam_vit_h_mask_step"]
+    cases = [c for c in cases if c[0].startswith(prefix)]
     rows = []
     for i, (name, shape, kw, with_lse) in enumerate(cases):
         Bc, Tc, S, Hq, Hkv, D = shape
@@ -624,7 +658,13 @@ def phase_kernel_flash_bwd(dev):
         g_lse = (torch.randn((Bc, Hq, Tc), generator=g, device=dev) if with_lse else None)
         route = A.flash_route(q.dtype, D)
         out, lse = A.flash_attention_with_lse(q, k, v, **kw)
-        want = A.flash_backward_reference(q, k, v, out, lse, do, g_lse=g_lse, **kw)
+        # ROADMAP C6: with few keys a query, each dk, dv sums thousands of rows
+        # and the bf16 plain form's own rounding is as large as the kernel's
+        # error; such a row is held to the plain form on the inputs in fp32
+        few_keys = S < C6_MIN_KEYS
+        want = A.flash_backward_reference(
+            *((x.float() for x in (q, k, v, out)) if few_keys else (q, k, v, out)), lse,
+            do.float() if few_keys else do, g_lse=g_lse, **kw)
 
         def against_plain(got):
             """(max abs error, excess over the bound, finite) per gradient."""
@@ -679,7 +719,8 @@ def phase_kernel_flash_bwd(dev):
         rows_bytes = 2 * 4 * Bc * Hq * Tc                           # lse and delta, fp32
         common = dict(name=name, B=Bc, T=Tc, S=S, Hq=Hq, Hkv=Hkv, D=D, causal=kw["causal"],
                       g_lse=with_lse, plain_ms=plain_ms, library_ms=library_ms,
-                      library_device_ms=library_dev)
+                      library_device_ms=library_dev,
+                      held_to="plain form in fp32 (C6)" if few_keys else "plain form")
         # dq: q, dO read and dq written, live k, v read; S, dP and dS K
         rows.append(dict(kernel="flash_bwd_dq", **common, route=route, max_abs_err=errs[0],
                          ms=dq_ms, device_ms=dq_dev, previous_route="mma",
@@ -789,14 +830,11 @@ def phase_unet_routing(dev):
     fp32 plain form by routing_excess, the bf16 plain form is only timed.
     unet2d.spatial_flash_predicate is set from these rows; the row fails if
     the rule sends a shape to the slower side by more than ROUTING_SLACK, or
-    to a kernel that does not take it."""
-    import torch
-
-    from spider_tpu_torch.models.unet2d import (_attention, spatial_flash_config,
-                                                spatial_flash_predicate, unet_audioldm,
-                                                unet_sd15, unet_sdxl)
+    to a kernel that does not take it. Then the same rows for the attention
+    shapes of Grounding DINO's decoder and SAM's mask decoder
+    (grounding_attention_shapes), with an SDPA call each."""
+    from spider_tpu_torch.models.unet2d import unet_audioldm, unet_sd15, unet_sdxl
     from spider_tpu_torch.models.unet3d import UNet3DConfig
-    from spider_tpu_torch.ops import attention as A
 
     h, w, frames = VIDEO_HW_FRAMES
     models = [("sd15_512px", unet_sd15(), 64, 64, 77, 2),
@@ -808,44 +846,63 @@ def phase_unet_routing(dev):
     for model, cfg, lat_h, lat_w, ctx_len, B in models:
         for level, blocks, T, H, D in unet_attention_shapes(cfg, lat_h, lat_w):
             for kind, S in (("self", T), ("cross", ctx_len)):
-                q, k, v = routing_qkv(dev, 700 + len(rows), B, T, S, H * D)
-                with spatial_flash_config("einsum"):
-                    plain = lambda: _attention(q, k, v, H)
-                    einsum_ms, einsum_dev = cuda_ms(plain), device_ms(plain)
-                    want = _attention(q.float(), k.float(), v.float(), H)
-                flash_ms = flash_dev = err = excess = None
-                if D <= A.MAX_HEAD_DIM:
-                    flash = lambda: A.flash_attention(
-                        q.reshape(B, T, H, D), k.reshape(B, S, H, D), v.reshape(B, S, H, D),
-                        causal=False).reshape(B, T, H * D)
-                    got = flash()
-                    err = (got.float() - want).abs().max().item()
-                    excess = routing_excess(got, want)
-                    del got
-                    flash_ms, flash_dev = cuda_ms(flash), device_ms(flash)
-                extra = bound_ms(2 * (2 * B * T + 2 * B * S) * H * D, 4 * B * H * T * S * D)
-                if model.startswith("sdxl"):
-                    qs, ks, vs = (x.reshape(B, -1, H, D).transpose(1, 2) for x in (q, k, v))
-                    extra["sdpa_device_ms"] = device_ms(
-                        lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
-                    del qs, ks, vs
-                routed = bool(spatial_flash_predicate(B, T, S, H, D))
-                if flash_dev is None:
-                    ok = not routed
-                elif routed:
-                    ok = excess <= 0 and flash_dev <= ROUTING_SLACK * einsum_dev
-                else:
-                    ok = einsum_dev <= ROUTING_SLACK * flash_dev
-                rows.append(dict(phase="unet_routing", model=model, level=level, kind=kind,
-                                 blocks_per_unet_call=blocks, B=B, T=T, S=S, heads=H, D=D,
-                                 flash_device_ms=flash_dev, einsum_device_ms=einsum_dev,
-                                 flash_ms=flash_ms, einsum_ms=einsum_ms, max_abs_err=err,
-                                 mean_abs_out=want.abs().mean().item(),
-                                 tolerance_excess=excess,
-                                 predicate_routes_to_flash=routed, **extra, ok=ok))
-                del q, k, v, want
-                torch.cuda.empty_cache()
+                rows.append(routing_row(dev, 700 + len(rows), model, level, kind, blocks,
+                                        B, T, S, H, D, sdpa=model.startswith("sdxl")))
+    # Grounding DINO's decoder and SAM's mask decoder call the same helper
+    for model, level, kind, calls, B, T, S, H, D in grounding_attention_shapes():
+        rows.append(routing_row(dev, 700 + len(rows), model, level, kind, calls, B, T, S, H,
+                                D, sdpa=True))
     return rows
+
+
+def routing_row(dev, seed: int, model: str, level: str, kind: str, blocks: int, B: int,
+                T: int, S: int, H: int, D: int, sdpa: bool) -> dict:
+    """One unet_routing row: the shape through the flash kernel and through
+    unet2d's plain einsum (and, with `sdpa`, one SDPA call), device times and
+    the bound, the kernel held to the fp32 plain form by routing_excess."""
+    import torch
+
+    from spider_tpu_torch.models.unet2d import (_attention, spatial_flash_config,
+                                                spatial_flash_predicate)
+    from spider_tpu_torch.ops import attention as A
+
+    q, k, v = routing_qkv(dev, seed, B, T, S, H * D)
+    with spatial_flash_config("einsum"):
+        plain = lambda: _attention(q, k, v, H)
+        einsum_ms, einsum_dev = cuda_ms(plain), device_ms(plain)
+        want = _attention(q.float(), k.float(), v.float(), H)
+    flash_ms = flash_dev = err = excess = None
+    if D <= A.MAX_HEAD_DIM:
+        flash = lambda: A.flash_attention(
+            q.reshape(B, T, H, D), k.reshape(B, S, H, D), v.reshape(B, S, H, D),
+            causal=False).reshape(B, T, H * D)
+        got = flash()
+        err = (got.float() - want).abs().max().item()
+        excess = routing_excess(got, want)
+        del got
+        flash_ms, flash_dev = cuda_ms(flash), device_ms(flash)
+    extra = bound_ms(2 * (2 * B * T + 2 * B * S) * H * D, 4 * B * H * T * S * D)
+    if sdpa:
+        qs, ks, vs = (x.reshape(B, -1, H, D).transpose(1, 2) for x in (q, k, v))
+        extra["sdpa_device_ms"] = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+        del qs, ks, vs
+    routed = bool(spatial_flash_predicate(B, T, S, H, D))
+    if flash_dev is None:
+        ok = not routed
+    elif routed:
+        ok = excess <= 0 and flash_dev <= ROUTING_SLACK * einsum_dev
+    else:
+        ok = einsum_dev <= ROUTING_SLACK * flash_dev
+    row = dict(phase="unet_routing", model=model, level=level, kind=kind,
+               blocks_per_unet_call=blocks, B=B, T=T, S=S, heads=H, D=D,
+               flash_device_ms=flash_dev, einsum_device_ms=einsum_dev,
+               flash_ms=flash_ms, einsum_ms=einsum_ms, max_abs_err=err,
+               mean_abs_out=want.abs().mean().item(), tolerance_excess=excess,
+               predicate_routes_to_flash=routed, **extra, ok=ok)
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernel_tattn(dev):
@@ -2019,6 +2076,32 @@ def _device_profile(fn, unprofiled_s: float, steps: int = 3, top: int = 8,
                      for k, ms, n in rows[:top]])
 
 
+def train_config(out_dir: str):
+    """What `python -m spider_tpu_torch.train <config>` reads from a recipe
+    file: the full preset of train_configs/spider_demo_train_full.py with
+    SAM ViT-H for the MASK branch, on the three synthetic dataset twins at
+    batch 4. The rate stays at init_lr (decay 1.0), so the later steps still
+    move the weights."""
+    from spider_tpu_torch.common.config import Config
+
+    return Config.fromdict(dict(
+        model=dict(type="spider", preset="full", lora_r=32, with_sam=True),
+        datasets=dict(
+            t2i_cc_sbu=dict(batch_size=TRAIN_BATCH,
+                            build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=1)),
+            i2t_cc_sbu=dict(batch_size=TRAIN_BATCH,
+                            build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=2)),
+            t2a_audiocap=dict(batch_size=TRAIN_BATCH,
+                              build_info=dict(num_mels=TRAIN_MEL_BINS,
+                                              target_length=TRAIN_MEL_FRAMES, seed=3))),
+        run=dict(task="image_text_pretrain", runner="runner_base",
+                 lr_sched="linear_warmup_step_lr", init_lr=3e-4, lr_decay_rate=1.0,
+                 warmup_steps=0, max_epoch=1, iters_per_epoch=TRAIN_EPOCH_ITERS,
+                 log_freq=TRAIN_EPOCH_ITERS, seed=42, weight_decay=0.01, max_grad_norm=1.0,
+                 accum_grad_iters=1, num_frozen_embed_rows=FROZEN_ROWS,
+                 length_bucket=TRAIN_BUCKET, output_dir=out_dir)))
+
+
 def phase_train(sd, ad, vd, dev, smi: str):
     """The training path at full width, through the train entry's own
     build_runner (task -> datasets -> build_spider_from_config(preset='full')
@@ -2069,26 +2152,7 @@ def phase_train(sd, ad, vd, dev, smi: str):
         torch.cuda.reset_peak_memory_stats()
         resident_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
-        # What `python -m spider_tpu_torch.train <config>` reads from a recipe
-        # file: the full preset of train_configs/spider_demo_train_full.py on
-        # the three synthetic dataset twins at batch 4. The rate stays at
-        # init_lr (decay 1.0), so the later steps still move the weights.
-        cfg = Config.fromdict(dict(
-            model=dict(type="spider", preset="full", lora_r=32),
-            datasets=dict(
-                t2i_cc_sbu=dict(batch_size=TRAIN_BATCH,
-                                build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=1)),
-                i2t_cc_sbu=dict(batch_size=TRAIN_BATCH,
-                                build_info=dict(image_size=TRAIN_IMAGE_SIZE, seed=2)),
-                t2a_audiocap=dict(batch_size=TRAIN_BATCH,
-                                  build_info=dict(num_mels=TRAIN_MEL_BINS,
-                                                  target_length=TRAIN_MEL_FRAMES, seed=3))),
-            run=dict(task="image_text_pretrain", runner="runner_base",
-                     lr_sched="linear_warmup_step_lr", init_lr=3e-4, lr_decay_rate=1.0,
-                     warmup_steps=0, max_epoch=1, iters_per_epoch=TRAIN_EPOCH_ITERS,
-                     log_freq=TRAIN_EPOCH_ITERS, seed=42, weight_decay=0.01, max_grad_norm=1.0,
-                     accum_grad_iters=1, num_frozen_embed_rows=FROZEN_ROWS,
-                     length_bucket=TRAIN_BUCKET, output_dir=out_dir)))
+        cfg = train_config(out_dir)
         runner = T.build_runner(cfg, dev, "chip_smoke")
         # the entry logs to the standard output, which here carries the JSON lines
         for handler in logging.getLogger().handlers:
@@ -2115,12 +2179,14 @@ def phase_train(sd, ad, vd, dev, smi: str):
                   "build_model -> build_spider_from_config(preset='full') -> runner_base",
             model="build_full_spider: llama3_8b architecture, LoRA r 32, vocab "
                   f"{llm_cfg.vocab_size}, bf16 base frozen, remat; imagebind_huge; "
-                  "moe_transformer aligner (hidden 512, 3 experts x 4+4 layers)",
+                  "moe_transformer aligner (hidden 512, 3 experts x 4+4 layers); "
+                  "sam_vit_h in bf16, its mask decoder trained in fp32",
             trainable_params=n_trainable, frozen_params=n_frozen,
             resident_before_gb=resident_gb, allocated_gb=torch.cuda.memory_allocated() / 1e9,
             ok=type(runner) is registry.get_runner_class("runner_base") and L == 32
             and llm_cfg.hidden_size == 4096 and llm_cfg.lora.r == 32 and llm_cfg.remat
-            and spider.encoder is not None and spider.moe_aligner is not None))
+            and spider.encoder is not None and spider.moe_aligner is not None
+            and spider.sam is not None))
 
         # fingerprints of everything that must not move
         sums = {n: _checksum(p) for n, p in frozen.items()}
@@ -2265,6 +2331,10 @@ def phase_train(sd, ad, vd, dev, smi: str):
                          same_bits=dict(zip(("dq", "dk", "dv"), map(sum, zip(*repeats)))),
                          ok=len(repeats) == L and all(map(all, repeats))))
 
+        # ---- MASK: SAM ViT-H in bf16 and frozen; its mask decoder trains from
+        # the projected [MASK0] state (2 BCE + 0.5 dice against MASK_GT)
+        rows.append(mask_train_step(runner, spider, want, timed_step, add))
+
         # ---- nothing frozen moved; the new vocabulary rows did
         moved = [n for n, p in frozen.items() if _checksum(p) != sums[n]]
         rows_ok = all(_checksum(p[:FROZEN_ROWS]) == row_sums[n][0]
@@ -2377,7 +2447,152 @@ def phase_train(sd, ad, vd, dev, smi: str):
         signal.signal(signal.SIGTERM, sigterm)            # train() installed its own
     for row in rows:
         row["nvidia_smi"] = smi
+    cfg.model["with_sam"] = False      # spider_generate serves the tags it plants, not MASK
     return rows, launches, dict(cfg=cfg, checkpoint=path, out_dir=out_dir)
+
+
+def phase_mask_step(dev, smi: str) -> dict:
+    """The train phase's mask_step alone: the train entry's build_runner on
+    train_config (the 8B Spider with SAM ViT-H), then mask_train_step."""
+    import logging
+    import shutil
+    import tempfile
+
+    from spider_tpu_torch import train as T
+
+    out_dir = tempfile.mkdtemp(prefix="spider_mask_")
+    try:
+        runner = T.build_runner(train_config(out_dir), dev, "chip_smoke_mask")
+        for handler in logging.getLogger().handlers:
+            if getattr(handler, "stream", None) is sys.stdout:
+                handler.setStream(sys.stderr)
+        spider = runner.model
+        L = spider.llm.config.num_hidden_layers
+        want = dict(dict.fromkeys(KERNELS, 0), flash_fwd=L * (1 + spider.llm.config.remat),
+                    flash_bwd_dq=L, flash_bwd_dkv=L)
+
+        routes = {name: {} for name in ROUTED}
+
+        def add(counts):
+            """Add the launches just counted, by route, to `routes`."""
+            for name, by_route in read_route_launches().items():
+                for route, n in by_route.items():
+                    routes[name][route] = routes[name].get(route, 0) + n
+
+        def timed_step(samples):
+            reset_launches()
+            out, seconds = _sync_s(lambda: runner.train_step(samples))
+            counts = read_launches()
+            add(counts)
+            return out, seconds, counts
+
+        row = mask_train_step(runner, spider, want, timed_step, add)
+        row.update(route_launches=routes, nvidia_smi=smi)
+        row["ok"] = row["ok"] and on_ruled_route(routes)
+        return row
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def train_mask_samples(seed: int, px: int):
+    """A MASK batch of TRAIN_BATCH seeded samples: an image input for the
+    encoder (ImageBind-huge's 224 px), its SAM input (`px`, padded) and a
+    binary MASK_GT with one rectangle at the SAM size."""
+    import numpy as np
+
+    from spider_tpu_torch.processors.vision import image_to_imagebind, sam_preprocess
+
+    rng = np.random.default_rng(seed)
+    images, gts = [], []
+    for _ in range(TRAIN_BATCH):
+        images.append(rng.integers(0, 256, GROUNDING_HW + (3,), np.uint8))
+        gt = np.zeros((px, px), np.float32)
+        y0, x0 = rng.integers(px // 16, px // 2, 2)
+        h, w = rng.integers(px // 10, px // 3, 2)
+        gt[y0: y0 + h, x0: x0 + w] = 1.0
+        gts.append(gt)
+    B = TRAIN_BATCH
+    return {"Question": ["segment the horse in <IMAGE><IMAGE-Placeholder></IMAGE>"] * B,
+            "TaskPrompt": ["[MASK]"] * B,
+            "Answer": ["<MASK>horse<MASK-Placeholder></MASK>"] * B,
+            "IMAGE": [image_to_imagebind(im, TRAIN_IMAGE_SIZE) for im in images],
+            "IMAGE_SAM": [sam_preprocess(im, px)[0] for im in images], "MASK": gts}
+
+
+def mask_train_step(runner, spider, want: dict, timed_step, add) -> dict:
+    """The train phase's part mask_step: three MASK steps through
+    RunnerBase.train_step (s/step, peak GB, launches: the LLM's and the mask
+    decoder's forward and backward flash calls, grounding_flash_calls of
+    the MASK step's shapes), the mask decoder's gradients through the
+    backward kernels against the plain backward (GRAD_REL, GRAD_COS), and
+    SAM's image and prompt encoders bit-equal after the steps."""
+    import torch
+
+    from spider_tpu_torch.ops import attention as A
+
+    sam = spider.sam
+    samples = train_mask_samples(5, sam.config.img_size)
+    n = grounding_flash_calls("sam_vit_h_mask_step")
+    want_mask = dict(want, flash_fwd=want["flash_fwd"] + n,
+                     flash_bwd_dq=want["flash_bwd_dq"] + n,
+                     flash_bwd_dkv=want["flash_bwd_dkv"] + n)
+    frozen = {k: _checksum(p) for k, p in sam.named_parameters()
+              if not k.startswith("mask_decoder.")}
+    decoder = {k: _checksum(p) for k, p in sam.mask_decoder.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    steps = [timed_step(samples) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def decoder_grads():
+        spider.zero_grad(set_to_none=True)
+        out = runner.loss_dict(samples)
+        out["loss"].backward()
+        # the iou head and the multimask hypernetworks get none (one mask out)
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                          .flatten() for p in sam.mask_decoder.parameters()])
+        spider.zero_grad(set_to_none=True)
+        return float(out["loss"].detach()), flat
+
+    reset_launches()
+    loss_k, g_k = decoder_grads()
+    counts = read_launches()
+    add(counts)
+    kernel_backward = A.flash_backward
+    A.flash_backward = (lambda q, k, v, out, lse, g, route=None, **kw:
+                        A.flash_backward_reference(q, k, v, out, lse, g, **kw))
+    try:
+        reset_launches()
+        loss_p, g_p = decoder_grads()
+        plain_counts = read_launches()
+    finally:
+        A.flash_backward = kernel_backward
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    cos = torch.nn.functional.cosine_similarity(g_k, g_p, dim=0).item()
+    moved = [k for k, p in sam.named_parameters()
+             if not k.startswith("mask_decoder.") and _checksum(p) != frozen[k]]
+    decoder_moved = sum(_checksum(p) != decoder[k]
+                        for k, p in sam.mask_decoder.named_parameters())
+    outs = [o for o, _, _ in steps]
+    secs = [x for _, x, _ in steps]
+    finite = all(v == v and abs(v) != float("inf") for o in outs for v in o.values())
+    return dict(
+        phase="train", part="mask_step", batch=TRAIN_BATCH, image_sam_px=sam.config.img_size,
+        steps=3,
+        s_per_step=statistics.median(secs), s_per_step_all=secs, peak_gb=peak,
+        losses=[o["loss"] for o in outs], bce_loss=[o["bce_loss"] for o in outs],
+        dice_loss=[o["dice_loss"] for o in outs], sam_flash_calls_per_step=n,
+        launches_per_step=steps[-1][2], launches_expected=want_mask,
+        grad_check=dict(loss_kernels=loss_k, loss_plain=loss_p, mask_decoder_grad_rel_diff=rel,
+                        mask_decoder_grad_cosine=cos, grad_elements=g_p.numel(),
+                        grad_norm=g_p.norm().item(), launches=counts,
+                        launches_plain_route=plain_counts,
+                        bounds=dict(rel=GRAD_REL, cosine=GRAD_COS)),
+        sam_frozen_tensors=len(frozen), sam_frozen_moved=moved[:5],
+        mask_decoder_tensors_moved=decoder_moved,
+        ok=finite and all(c == want_mask for _, _, c in steps) and counts == want_mask
+        and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= GRAD_REL and cos >= GRAD_COS
+        and plain_counts["flash_bwd_dq"] == 0 and bool(torch.isfinite(g_k).all())
+        and g_p.norm().item() > 0 and not moved and decoder_moved > 0)
 
 
 class _RecordingPipe:
@@ -3074,6 +3289,8 @@ def phase_checkpoint(dev, smi: str):
         d = os.path.join(root, "imagebind")
         os.makedirs(d)
         done(checkpoint_imagebind(d, dev))
+        for grounding_row in checkpoint_grounding(d, dev):
+            done(grounding_row)
         shutil.rmtree(d)
         done(checkpoint_spider(llama_dir, dev, src, hf))
         twins, twin_launches = checkpoint_r1_twins(llama_dir, dev, src, hf)
@@ -4229,6 +4446,341 @@ def phase_story(model, tokenizer, dev, smi: str):
         _untimed_story_pipe(pipe)
 
 
+# ---------------------------------------------------------------------------
+# Grounding and segmentation: Grounding DINO (BOX) and SAM ViT-H (MASK)
+# ---------------------------------------------------------------------------
+
+GROUNDING_HW = (480, 640)             # the seeded uint8 image the BOX and MASK phases take
+GROUNDING_CAPTION = "a horse . a rider . a dog ."
+MASK_CAPTION = "a horse"
+GROUNDING_CALLS = 3                   # timed GroundingDINOInference calls after a warm-up
+GROUNDING_LABELS = ("grounding::msda", "sam::vit_attention")
+
+
+def grounding_attention_shapes():
+    """(model, where, kind, calls per model call, B, T, S, heads, D) of every
+    attention of Grounding DINO (at 512 px) and of SAM ViT-H's mask decoder
+    that goes through unet2d._attention: the DINO decoder's query
+    self-attention (900 queries, 8 heads of 32); SAM's prompt-token
+    self-attention, token-to-image (twice in the two-way blocks and once at
+    the end) and image-to-token over the 64 x 64 grid, for a box prompt (2
+    corner tokens beside the 5 output tokens, batch 1: the MASK decoder) and
+    for the MASK train step's text prompt (1 token, batch TRAIN_BATCH)."""
+    from spider_tpu_torch.models.dino import grounding_dino_tiny
+    from spider_tpu_torch.models.sam import sam_vit_h
+
+    d, s = grounding_dino_tiny(), sam_vit_h()
+    rows = [("grounding_dino_512px", "decoder", "self", d.dec_layers, 1, d.num_queries,
+             d.num_queries, d.num_heads, d.hidden_dim // d.num_heads)]
+    grid, h, depth = s.embed_hw ** 2, s.decoder_heads, s.decoder_depth
+    D, Dx = s.prompt_embed_dim // h, s.prompt_embed_dim // 2 // h
+    out_tokens = s.num_multimask_outputs + 2                 # the iou token and 4 mask tokens
+    for model, B, n in (("sam_vit_h_box", 1, out_tokens + 2),
+                        ("sam_vit_h_mask_step", TRAIN_BATCH, out_tokens + 1)):
+        rows += [(model, "mask_decoder", "self", depth, B, n, n, h, D),
+                 (model, "mask_decoder", "token_to_image", depth + 1, B, n, grid, h, Dx),
+                 (model, "mask_decoder", "image_to_token", depth, B, grid, n, h, Dx)]
+    return rows
+
+
+def grounding_flash_calls(model: str) -> int:
+    """Flash launches of one call of `model` (a grounding_attention_shapes
+    name): its attentions that unet2d.spatial_flash_predicate routes there."""
+    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+
+    return sum(calls for m, _, _, calls, B, T, S, H, D in grounding_attention_shapes()
+               if m == model and spatial_flash_predicate(B, T, S, H, D))
+
+
+def grounding_image(seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, GROUNDING_HW + (3,), np.uint8)
+
+
+def _grounding_launch_row(counts, routes, flash: int) -> dict:
+    """The launch counts of a grounding phase: exactly `flash` flash
+    forwards, all on "wgmma", and no other kernel of the port."""
+    return dict(launches=counts, route_launches=routes, flash_launches_expected=flash,
+                launches_ok=counts == dict(dict.fromkeys(KERNELS, 0), flash_fwd=flash)
+                and routes["flash_fwd"].get("wgmma", 0) == flash)
+
+
+def _labelled(fn, label: str):
+    """fn inside a torch.profiler.record_function range named `label`."""
+    import functools
+
+    import torch
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def _labelled_profile(fn, labels) -> dict:
+    """One torch.profiler pass (host and device) over fn(): the device time
+    of its kernels, and of the kernels launched inside each labelled range
+    (a record_function range), with their shares; the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda and e.name not in labels]
+    total_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_label = {}
+    for label in labels:
+        host = [e for e in events if e.name == label and e.device_type != cuda]
+        ms = sum(e.device_time_total for e in host) / 1e3
+        by_label[label] = dict(ranges=len(host), device_ms=ms,
+                               share=ms / total_ms if total_ms else None)
+    top = {}
+    for e in kernels:
+        top.setdefault(e.name, [0.0, 0])
+        top[e.name][0] += e.device_time_total / 1e3
+        top[e.name][1] += 1
+    rank = sorted(top.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(device_ms=total_ms, kernels=len(kernels), labelled=by_label,
+                top=[dict(kernel=k[:80], ms=ms, launches=n,
+                          share=ms / total_ms if total_ms else None)
+                     for k, (ms, n) in rank])
+
+
+def phase_grounding(dev, smi: str):
+    """BOX and MASK at full size through the spider_decoder_infer twin's
+    build_default_decoders(tiny=False): Grounding DINO (Swin-T + BERT-base,
+    900 queries, 512 px) and SAM ViT-H (1024 px), bf16, random from seed 0.
+    Yields the rows grounding, grounding_check, mask, mask_check and
+    grounding_profile, each as it is done; the main-path rows (grounding,
+    mask) carry their launches."""
+    import dataclasses
+    import statistics as st
+
+    import torch
+
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models import dino as dino_mod
+    from spider_tpu_torch.models.dino import GroundingDINO, with_dtype
+    from spider_tpu_torch.models.sam import Sam, SamViTBlock, postprocess_masks
+    from spider_tpu_torch.models.spider_decoder import SpiderDecoderInfer
+    from spider_tpu_torch.models.unet2d import spatial_flash_config
+    from spider_tpu_torch.processors.vision import sam_preprocess
+    from spider_tpu_torch.spider_decoder_infer import build_default_decoders
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    decoders = build_default_decoders(tiny=False, with_grounding=True, device=dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dino, mask_fn = decoders["BOX"], decoders["MASK"]
+    sam = mask_fn.sam
+    image = grounding_image(31)
+    dino_flash = grounding_flash_calls("grounding_dino_512px")
+    sam_flash = grounding_flash_calls("sam_vit_h_box")
+
+    def finite(t) -> bool:
+        return bool(torch.isfinite(t.float()).all())
+
+    # ---- grounding: GroundingDINOInference, the inference_detector contract
+    dino(image, GROUNDING_CAPTION)                               # warm-up
+    torch.cuda.synchronize()
+    secs = []
+    reset_launches()
+    for _ in range(GROUNDING_CALLS):
+        t1 = time.perf_counter()
+        res = dino(image, GROUNDING_CAPTION)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    counts, routes = read_launches(), read_route_launches()
+    s_call = st.median(secs)
+    prof = _device_profile(lambda: dino.raw(image, GROUNDING_CAPTION), s_call, steps=1, top=6)
+    launch = _grounding_launch_row(counts, routes, GROUNDING_CALLS * dino_flash)
+    yield dict(phase="grounding", model="grounding_dino_tiny: swin-T + bert-base, 900 queries, "
+               "6 + 6 layers, 4 levels x 4 points, 256 text tokens", image_size=dino.image_size,
+               input_hw=list(GROUNDING_HW), caption=GROUNDING_CAPTION, build_s=build_s,
+               calls=GROUNDING_CALLS, s_per_call=s_call, s_per_call_all=secs,
+               boxes=len(res["bboxes"]), top_scores=res["scores"][:5],
+               flash_launches_per_call=dino_flash,
+               device_ms_per_call=prof["device_ms_per_step"],
+               device_busy_share=prof["device_busy_share_unprofiled"],
+               device_kernels_per_call=prof["device_kernels_per_step"], **launch,
+               nvidia_smi=smi,
+               ok=launch["launches_ok"] and len(res["bboxes"]) == dino.max_dets
+               and all(0.0 <= x <= 1.0 for x in res["scores"])
+               and all(b[0] <= b[2] and b[1] <= b[3] for b in res["bboxes"]))
+
+    # ---- grounding_check: raw outputs in bf16 on the kernel and with plain
+    # attention, each against an fp32 copy with plain attention
+    inputs = dino.inputs(image, GROUNDING_CAPTION)
+    ref = GroundingDINO(with_dtype(dino.model.config, torch.float32), dev).eval()
+    ref.load_state_dict(dino.model.state_dict())
+    flat = lambda o: torch.cat([o["boxes"].float().flatten(), o["scores"].float().flatten()])
+    with torch.inference_mode():
+        reset_launches()
+        routed = dino.model(*inputs)
+        check_counts = read_launches()
+        with spatial_flash_config("einsum"):
+            plain = dino.model(*inputs)
+            want = ref(*inputs)
+    err_kernel, err_plain = _rel_errors(flat(routed), flat(plain), flat(want))
+    # the bf16 routes share the query selection, which bf16 and fp32 make
+    # differently: their distance from each other is the kernel's own
+    between = _rel_errors(flat(routed), flat(plain), flat(plain))[0]
+    yield dict(phase="grounding_check", rel_err_kernel_vs_fp32=err_kernel,
+               rel_err_plain_vs_fp32=err_plain, rel_diff_kernel_vs_plain=between,
+               flash_launches=check_counts["flash_fwd"], nvidia_smi=smi,
+               ok=finite(flat(routed)) and check_counts["flash_fwd"] == dino_flash
+               and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+    del ref, routed, plain, want
+    torch.cuda.empty_cache()
+
+    # ---- mask: the twin's MASK decoder behind SpiderDecoderInfer: DINO's top
+    # box, rescaled to the SAM frame, prompts SAM ViT-H; the low-res mask back
+    # at the original image's size
+    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+    infer = SpiderDecoderInfer(cfg, decoders=decoders)
+    sam_img, sam_hw = sam_preprocess(image, sam.config.img_size)
+    samples = dict(llm_text_all=[f"<MASK>{MASK_CAPTION}</MASK>"], Image_ori_array=[image],
+                   IMAGE_SAM=[sam_img], Meta_info=dict(original_shape=[GROUNDING_HW],
+                                                       sam_shape=[sam_hw]))
+    infer(dict(samples))                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    reset_launches()
+    for _ in range(GROUNDING_CALLS):
+        t1 = time.perf_counter()
+        _, preds, texts = infer(dict(samples))
+        secs.append(time.perf_counter() - t1)
+    counts, routes = read_launches(), read_route_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    low = torch.as_tensor(preds["MASK"][0], device=dev)
+    full = postprocess_masks(low[None], sam_hw, GROUNDING_HW, sam.config.img_size)
+    img_t = torch.from_numpy(sam_img)[None].to(dev)
+    box = torch.tensor([[[60.0, 80.0, 700.0, 600.0]]], device=dev)
+
+    def encode():
+        with torch.inference_mode():
+            return sam.image_encoder(img_t)
+
+    emb = encode()
+
+    def decode():
+        with torch.inference_mode():
+            return sam.decode(emb, boxes=box)[0]
+
+    enc_s = st.median(_sync_s(encode)[1] for _ in range(3))
+    dec_s = st.median(_sync_s(decode)[1] for _ in range(3))
+    launch = _grounding_launch_row(counts, routes,
+                                   GROUNDING_CALLS * (dino_flash + sam_flash))
+    yield dict(phase="mask", model="sam_vit_h: 32 blocks of 1280, 16 heads, global at "
+               "7/15/23/31, windows of 14; the twin's MASK decoder after DINO's top box",
+               requests=GROUNDING_CALLS, s_per_request=st.median(secs), s_per_request_all=secs,
+               encoder_s=enc_s, decoder_s=dec_s, peak_gb=peak_gb, resident_before_gb=before_gb,
+               low_res_shape=list(low.shape), original_size_shape=list(full.shape),
+               flash_launches_per_decode=sam_flash, mask_spans=texts["MASK"], **launch,
+               nvidia_smi=smi,
+               ok=launch["launches_ok"] and finite(low) and tuple(low.shape) == (1, 256, 256)
+               and tuple(full.shape) == (1, 1) + GROUNDING_HW and texts["MASK"] == [MASK_CAPTION])
+
+    # ---- mask_check: SAM's box decode in bf16 on the kernel and plain,
+    # against an fp32 copy with plain attention
+    ref = Sam(dataclasses.replace(sam.config, dtype=torch.float32), dev).eval()
+    ref.load_state_dict(sam.state_dict())
+    with torch.inference_mode():
+        reset_launches()
+        routed = sam.predict_box(img_t, box)
+        check_counts = read_launches()
+        with spatial_flash_config("einsum"):
+            plain = sam.predict_box(img_t, box)
+            want = ref.predict_box(img_t, box)
+    err_kernel, err_plain = _rel_errors(routed.float(), plain.float(), want.float())
+    yield dict(phase="mask_check", rel_err_kernel_vs_fp32=err_kernel,
+               rel_err_plain_vs_fp32=err_plain, flash_launches=check_counts["flash_fwd"],
+               nvidia_smi=smi,
+               ok=finite(routed) and check_counts["flash_fwd"] == sam_flash
+               and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+    del ref, routed, plain, want
+    torch.cuda.empty_cache()
+
+    # ---- grounding_profile: device time by kernel of one DINO call and one
+    # SAM encode, with the deformable attention's and the ViT attention's share
+    msda, attend = dino_mod.msda, SamViTBlock.attend
+    dino_mod.msda = _labelled(msda, GROUNDING_LABELS[0])
+    SamViTBlock.attend = _labelled(attend, GROUNDING_LABELS[1])
+    try:
+        dino_prof = _labelled_profile(lambda: dino.raw(image, GROUNDING_CAPTION),
+                                      GROUNDING_LABELS)
+        sam_prof = _labelled_profile(encode, GROUNDING_LABELS)
+    finally:
+        dino_mod.msda, SamViTBlock.attend = msda, attend
+    msda_share = dino_prof["labelled"][GROUNDING_LABELS[0]]["share"]
+    vit_share = sam_prof["labelled"][GROUNDING_LABELS[1]]["share"]
+    yield dict(phase="grounding_profile", dino_call=dino_prof, sam_encode=sam_prof,
+               msda_share_of_dino_call=msda_share, vit_attention_share_of_sam_encode=vit_share,
+               nvidia_smi=smi,
+               ok=dino_prof["device_ms"] > 0 and sam_prof["device_ms"] > 0
+               and msda_share is not None and vit_share is not None
+               and dino_prof["labelled"][GROUNDING_LABELS[0]]["ranges"]
+               == dino.model.config.enc_layers + dino.model.config.dec_layers)
+    del decoders, dino, mask_fn, sam, infer, emb
+    torch.cuda.empty_cache()
+
+
+def checkpoint_grounding(directory: str, dev) -> list:
+    """SAM ViT-H (the official release's keys, one fp32 .pth) and Grounding
+    DINO Swin-T (mm_grounding_dino's keys, one fp32 .pth), synthetic and in
+    their real layouts, loaded with from_pretrained(kind, path=...) in bf16:
+    every tensor equal to the on-card conversion of the written ones."""
+    import torch
+
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models.dino import GroundingDINO, grounding_dino_tiny
+    from spider_tpu_torch.models.sam import Sam, sam_vit_h
+
+    rows = []
+    for kind, manifest, make, rules_fn, name in (
+            ("sam", "sam_vit_h", lambda: Sam(sam_vit_h(), dev), C.sam_rules,
+             "sam_vit_h_4b8939.pth"),
+            ("grounding_dino", "grounding_dino_swin_t",
+             lambda: GroundingDINO(grounding_dino_tiny(), dev), C.grounding_dino_rules,
+             "grounding_dino_swin-t.pth")):
+        t0 = time.perf_counter()
+        module = make()
+        keys = manifest_keys(manifest)
+        rules = rules_fn(keys, module.config)
+        hf = C.export_state_dict(rules, fill_synthetic_(module, CKPT_SEED).state_dict())
+        path = os.path.join(directory, name)
+        cpu = {k: v.cpu() for k, v in hf.items()}
+        torch.save(cpu, path)
+        total = sum(t.numel() * t.element_size() for t in cpu.values())
+        del module, cpu
+        write_s = time.perf_counter() - t0
+        got, load = _timed_load(lambda: factory.from_pretrained(kind, path=path, device=dev,
+                                                                dtype=torch.bfloat16))
+        loaded = got.model if kind == "grounding_dino" else got
+        bad = _states_equal(loaded.state_dict(), C.convert_state_dict(rules, hf))
+        row = dict(phase="checkpoint", model=kind, checkpoint_gb=total / 1e9, write_s=write_s,
+                   read_gb_per_s=total / 1e9 / load["load_s"],
+                   keys_equal_manifest=sorted(hf) == sorted(keys), tensors=len(hf),
+                   tensors_differing=bad[:8], **load)
+        row["ok"] = row["keys_equal_manifest"] and not bad
+        rows.append(row)
+        del got, loaded, hf
+        os.remove(path)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -4312,8 +4864,11 @@ def main() -> int:
     checkpoint_only = sys.argv[1:] == ["checkpoint"]
     family_only = sys.argv[1:] == ["family"]
     story_only = sys.argv[1:] == ["story"]
-    if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only):
-        print("usage: chip_smoke.py [kernels | checkpoint | family | story]", file=sys.stderr)
+    grounding_only = sys.argv[1:] == ["grounding"]
+    if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only
+                             or grounding_only):
+        print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -4347,7 +4902,7 @@ def main() -> int:
     cuda_build.load_all(SOURCES)
     nvcc_seconds = {k: cuda_build.BUILD_SECONDS.get(k, 0.0) for k in SOURCES}
     # The two serving sources hold three and two kernels: neither may take
-    # nvcc longer than flash_bwd.cu with its 48.
+    # nvcc longer than flash_bwd.cu with its 72.
     build_ok = max(nvcc_seconds["int4_matmul"], nvcc_seconds["paged_decode"]) <= max(
         nvcc_seconds["flash_bwd"], 1e-9) or nvcc_seconds["flash_bwd"] == 0.0
     emit(dict(phase="build", seconds=time.perf_counter() - t0, nvcc_seconds=nvcc_seconds,
@@ -4383,6 +4938,33 @@ def main() -> int:
         print(smi, flush=True)
         if not ok:
             print("chip_smoke: a story row failed (see the JSON lines above)", file=sys.stderr)
+        return 0 if ok else 1
+
+    if grounding_only:
+        for row in phase_kernel_flash_bwd(dev, prefix="sam_"):
+            emit(dict(phase="kernel", nvidia_smi=smi, **row))
+            ok &= row["ok"]
+        for check in phase_unet_routing(dev):
+            emit(dict(nvidia_smi=smi, **check))
+            ok &= check["ok"]
+        for row in phase_grounding(dev, smi):
+            emit(row)
+            ok &= row["ok"]
+        check = phase_mask_step(dev, smi)
+        emit(check)
+        ok &= check["ok"]
+        torch.cuda.empty_cache()
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="spider_ckpt_") as d:
+            for row in checkpoint_grounding(d, dev):
+                emit(dict(row, nvidia_smi=smi))
+                ok &= row["ok"]
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a grounding row failed (see the JSON lines above)",
+                  file=sys.stderr)
         return 0 if ok else 1
 
     if family_only:
@@ -4457,6 +5039,13 @@ def main() -> int:
     # the SDXL story path: story_check (no main-path launches), then the
     # story, the story through SpiderFree and HTTP, and PhotoMaker
     for row in phase_story(model, tokenizer, dev, smi):
+        emit(row)
+        ok &= row["ok"]
+        if "launches" in row:
+            _add_launches(main_launches, row["launches"])
+    torch.cuda.empty_cache()
+    # BOX and MASK: Grounding DINO and SAM ViT-H through the decoder twin
+    for row in phase_grounding(dev, smi):
         emit(row)
         ok &= row["ok"]
         if "launches" in row:

@@ -92,7 +92,11 @@
 //    past the ragged T/S edges and from D up to DP (the next multiple of 16);
 //    fp32 inputs are rounded to bf16 there. All forms round P and dS to bf16
 //    for the second products, as the forward rounds P: the tensor cores take
-//    bf16 operands. Accumulation, exp and the dS arithmetic stay fp32.
+//    bf16 operands. Accumulation, exp and the dS arithmetic stay fp32. Where a
+//    key's sum runs over many query rows for each key (residual_products), the
+//    dk/dv forms also add the products of what that rounding drops
+//    (pack_f32_residual): at SAM's image-to-token attention, 4096 rows over 6
+//    keys, P in bf16 alone leaves dk and dv 0.03 past 2e-2 + 2^-7 |dv|.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +121,37 @@ __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The low half of a two-term bf16 split of (lo, hi): what rounding them to
+// bf16 drops, itself rounded to bf16. dk and dv sum P and dS over every query
+// row of a key; with P and dS rounded to bf16 alone that sum's error grows as
+// the square root of the rows (past 2e-2 + 2^-7 |dv| at SAM's 4096 image rows
+// over 6 prompt keys), so where residual_products holds the dk/dv products
+// also take this half.
+__device__ __forceinline__ uint32_t pack_f32_residual(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return pack_f32(lo - __low2float(v), hi - __high2float(v));
+}
+
+// The residual A fragment of one k-step (the registers acc_to_a takes).
+template <int N>
+__device__ __forceinline__ void acc_residual_to_a(uint32_t (&a)[4], const float (&s)[N], int kk) {
+  a[0] = pack_f32_residual(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_f32_residual(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_f32_residual(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_f32_residual(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// Whether a call takes the residual products (a second instance of each
+// dk/dv kernel, so the others keep their registers). A key's rounding error grows
+// as sqrt(rows) x P over its rows (T x the GQA group), and P runs about
+// 1 / keys: a CPU simulation of bf16 P and dS (random inputs, D 16-128) misses
+// the bound from sqrt(rows) / keys ~ 3.8 (512 rows over 6 keys) and keeps it at
+// 2.7-2.8 (256 over 6, 2048 over 16), so the products come in from
+// rows >= 8 keys^2. The training shapes (2048 rows over 512 keys) take none.
+__host__ __device__ inline bool residual_products(int T_len, int Hq, int Hkv, int S) {
+  return (int64_t)T_len * (Hq / Hkv) >= 8 * (int64_t)S * S;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -321,7 +356,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
+template <typename T, int DP, bool RESIDUAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -456,6 +491,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
             mma_nn<LD>(acc_v[n], ap, sDO, c0 + kk * 16, n * 8, g, t);
             mma_nn<LD>(acc_k[n], ads, sQ, c0 + kk * 16, n * 8, g, t);
           }
+          if constexpr (!RESIDUAL) continue;
+          // ... and what bf16 dropped from them (pack_f32_residual)
+          ap[0] = pack_f32_residual(st[2 * kk][0], st[2 * kk][1]);
+          ap[1] = pack_f32_residual(st[2 * kk][2], st[2 * kk][3]);
+          ap[2] = pack_f32_residual(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+          ap[3] = pack_f32_residual(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+          ads[0] = pack_f32_residual(dpt[2 * kk][0], dpt[2 * kk][1]);
+          ads[1] = pack_f32_residual(dpt[2 * kk][2], dpt[2 * kk][3]);
+          ads[2] = pack_f32_residual(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
+          ads[3] = pack_f32_residual(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+#pragma unroll
+          for (int n = 0; n < NT_O; ++n) {
+            mma_nn<LD>(acc_v[n], ap, sDO, c0 + kk * 16, n * 8, g, t);
+            mma_nn<LD>(acc_k[n], ads, sQ, c0 + kk * 16, n * 8, g, t);
+          }
         }
       }
     }
@@ -519,7 +569,8 @@ cudaError_t launch_dkv(const Args& a) {
   constexpr int LD = DP + 8;
   const size_t smem =
       (size_t)(2 * BQ + 2 * BK) * LD * sizeof(__nv_bfloat16) + 2 * BQ * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, DP>;
+  auto kernel = residual_products(a.T_len, a.Hq, a.Hkv, a.S) ? flash_bwd_dkv_kernel<T, DP, true>
+                                                            : flash_bwd_dkv_kernel<T, DP, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + BK - 1) / BK, a.Hkv, a.B);
@@ -585,7 +636,7 @@ struct Cfg {
   static constexpr int SMEM = KV_BYTES + STAGES * (STAGE_BYTES + ROWS_BYTES) + 1024 + 128;
 };
 
-template <int DP>
+template <int DP, bool RESIDUAL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_do,
@@ -774,6 +825,35 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           asm volatile("" ::"r"(ap[kk][e]), "r"(ads[kk][e]));  // live until here
         }
       }
+
+      // ---- the same products with what bf16 dropped from P^T and dS^T
+      // (pack_f32_residual), from the same dO and Q tiles.
+      if constexpr (RESIDUAL) {
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          acc_residual_to_a(ap[kk], st, kk);
+          acc_residual_to_a(ads[kk], dpt, kk);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          wgmma_rs<DP>(acc_v, ap[kk],
+                       smem_desc(sDO + kk * 16 * ROW_BYTES, Q_TILE_BYTES, GROUP_BYTES), 1);
+          wgmma_rs<DP>(acc_k, ads[kk],
+                       smem_desc(sQs + kk * 16 * ROW_BYTES, Q_TILE_BYTES, GROUP_BYTES), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            asm volatile("" ::"r"(ap[kk][e]), "r"(ads[kk][e]));  // live until here
+          }
+        }
+      }
       if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
     }
 
@@ -803,8 +883,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DP>
-int launch_dkv(const Args& a) {
+template <int DP, bool RESIDUAL>
+int launch_dkv_instance(const Args& a) {
   using C = Cfg<DP>;
   CUtensorMap map_q, map_do, map_k, map_v;
   CUresult r = make_map_4d(&map_q, a.q, a.B, a.T_len, a.Hq, a.D, BQ);
@@ -812,7 +892,7 @@ int launch_dkv(const Args& a) {
   if (r == CUDA_SUCCESS) r = make_map_4d(&map_k, a.k, a.B, a.S, a.Hkv, a.D, BKV);
   if (r == CUDA_SUCCESS) r = make_map_4d(&map_v, a.v, a.B, a.S, a.Hkv, a.D, BKV);
   if (r != CUDA_SUCCESS) return map_error(r);
-  auto kernel = flash_bwd_dkv_wgmma_kernel<DP>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<DP, RESIDUAL>;
   static bool allowed = false;  // once per instance
   if (!allowed) {
     cudaError_t err =
@@ -829,6 +909,12 @@ int launch_dkv(const Args& a) {
       static_cast<__nv_bfloat16*>(a.dv), static_cast<const int*>(a.kv_len),
       static_cast<const int*>(a.q_offset), a.T_len, a.S, a.Hq, a.Hkv, a.D, a.sm_scale, a.causal);
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dkv(const Args& a) {
+  return residual_products(a.T_len, a.Hq, a.Hkv, a.S) ? launch_dkv_instance<DP, true>(a)
+                                                      : launch_dkv_instance<DP, false>(a);
 }
 
 }  // namespace wg

@@ -22,6 +22,13 @@ port's layouts, so the reference's transposes are gone, and the ops left are:
                 every axis but the first, in numpy float32 as the reference does
   * ``int8``    [out, in] -> int8 ``kernel_q`` [out, in] and fp32
                 ``kernel_scale`` [out] (``quantize_int8``)
+  * ``tflip``   SAM's ConvTranspose2d [in, out, kh, kw] flipped in kh and kw:
+                the reference maps it to flax's kernel without a flip, and
+                flax applies that kernel unflipped, so this is the torch
+                module that computes what the reference computes
+  * ``cat``     rows stored as separate tensors [1, D] -> one [N, D]
+  * ``zeros``   no checkpoint key: zeros of the rule's ``shapes`` (BERT's
+                pooler where a checkpoint has none, as the reference fills it)
 
 ``convert_<family>_state_dict(sd, cfg)`` returns the port module's state dict
 (``module.load_state_dict(..., strict=True)`` takes it); ``load_converted``
@@ -44,6 +51,9 @@ one generic walk with per-leaf layout rules:
   * ConvTranspose1dTorch ``kernel`` [k, in, out] -> ``weight`` [in, out, k],
     no flip (the JAX module flips it in its forward pass, torch's
     ConvTranspose1d applies the weight as is)
+  * ConvTranspose ``kernel`` [kh, kw, in, out] -> ``weight`` [in, out, kh, kw]
+    flipped in kh and kw (flax's ``nn.ConvTranspose`` applies its kernel
+    unflipped; torch's ConvTranspose2d flips the weight)
   * int8 ``kernel_q`` [in, out]    -> ``kernel_q`` [out, in]; ``kernel_scale`` as is
   * Embed ``embedding``            -> ``weight``
   * LayerNorm/GroupNorm ``scale``  -> ``weight``
@@ -92,6 +102,8 @@ def _slice_layer(node, i: int):
 
 def _leaf(mod: nn.Module, key: str, arr: np.ndarray):
     if key == "kernel":
+        if isinstance(mod, nn.ConvTranspose2d):
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if isinstance(mod, nn.Conv3d):
             return "weight", arr.transpose(4, 3, 0, 1, 2)
         if isinstance(mod, nn.Conv2d):
@@ -195,6 +207,8 @@ def _unleaf(mod: nn.Module, name: str, arr: np.ndarray):
             return "embedding", arr
         if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             return "scale", arr
+        if isinstance(mod, nn.ConvTranspose2d):
+            return "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         if arr.ndim != 2:
             raise NotImplementedError(f"no JAX layout rule for a {type(mod).__name__} weight")
         return "kernel", arr.T
@@ -231,6 +245,8 @@ def spider_trainable_to_jax(spider: nn.Module) -> Dict[str, Any]:
     Spider's ``trainable_params()`` tree."""
     tree: Dict[str, Any] = {"llm": {"params": to_jax_tree(spider.llm)},
                             "logit_scale": spider.logit_scale.detach().cpu().numpy()}
+    if spider.sam is not None:                   # the mask decoder, the SAM part that trains
+        tree["sam"] = {"params": to_jax_tree(spider.sam)}
     if spider.llama_proj is not None:
         tree["llama_proj"] = to_jax_tree(spider.llama_proj)
     if spider.moe_aligner is not None:
@@ -258,6 +274,7 @@ class Rule:
     names: Tuple[str, ...]
     keys: Tuple[str, ...]
     op: str = "copy"
+    shapes: Tuple[Tuple[int, ...], ...] = ()      # of op "zeros"
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -310,6 +327,8 @@ _OPS: Dict[str, Callable[..., Tuple[torch.Tensor, ...]]] = {
     "row": lambda t: (t.reshape(1, 1, -1),),
     "wn": lambda g, v: (_fold_weight_norm(g, v),),
     "int8": quantize_int8,
+    "tflip": lambda t: (t.flip(2, 3),),
+    "cat": lambda *ts: (torch.cat(ts, dim=0),),
 }
 
 
@@ -327,6 +346,9 @@ _INVERSE: Dict[str, Callable[..., Tuple[torch.Tensor, ...]]] = {
     "qkv": lambda q, k, v: (torch.cat([q, k, v], dim=0),),
     "row": lambda t: (t,),
     "wn": _weight_norm_parts,
+    "tflip": lambda t: (t.flip(2, 3),),
+    "cat": lambda t: tuple(t[i: i + 1] for i in range(t.shape[0])),
+    "zeros": lambda *ts: (),
 }
 
 
@@ -338,6 +360,8 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def apply_rule(rule: Rule, tensors) -> Tuple[torch.Tensor, ...]:
+    if rule.op == "zeros":
+        return tuple(torch.zeros(s) for s in rule.shapes)
     outs = _OPS[rule.op](*tensors)
     if len(outs) != len(rule.names):
         raise ValueError(f"{rule.op} gives {len(outs)} tensors for {rule.names}")
@@ -919,3 +943,224 @@ def photomaker_rules(keys: Collection[str], cfg) -> List[Rule]:
 
 def convert_photomaker_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return convert_state_dict(photomaker_rules(sd, cfg), sd)
+
+
+# ---- BERT, Swin, SAM and Grounding DINO ------------------------------------
+
+def _bert(r: _Rules, name: str, pre: str, cfg) -> None:
+    """HF BertModel keys under `pre` -> the port's BertModel under `name`."""
+    r.add(f"{name}word_embeddings.weight", f"{pre}embeddings.word_embeddings.weight")
+    r.add(f"{name}position_embeddings.weight", f"{pre}embeddings.position_embeddings.weight")
+    r.add(f"{name}token_type_embeddings.weight",
+          f"{pre}embeddings.token_type_embeddings.weight")
+    r.norm(f"{name}embed_ln", f"{pre}embeddings.LayerNorm")
+    if f"{pre}pooler.dense.weight" in r.keys:
+        r.dense(f"{name}pooler", f"{pre}pooler.dense")
+    else:
+        H = cfg.hidden_size
+        r.append(Rule((f"{name}pooler.weight", f"{name}pooler.bias"), (), "zeros",
+                      shapes=((H, H), (H,))))
+    for i in range(cfg.num_hidden_layers):
+        b, p = f"{pre}encoder.layer.{i}.", f"{name}layer_{i}."
+        for n, k in (("query", "attention.self.query"), ("key", "attention.self.key"),
+                     ("value", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                     ("intermediate", "intermediate.dense"), ("output", "output.dense")):
+            r.dense(p + n, b + k)
+        r.norm(p + "attn_ln", b + "attention.output.LayerNorm")
+        r.norm(p + "out_ln", b + "output.LayerNorm")
+
+
+def bert_rules(keys: Collection[str], cfg) -> List[Rule]:
+    """bert-base-uncased names, with or without the ``bert.`` prefix
+    (spider_tpu/models/convert.py:218-260); without a pooler in the
+    checkpoint the pooler is zero, as the reference fills it."""
+    r = _Rules(keys)
+    _bert(r, "", "bert." if any(k.startswith("bert.") for k in keys) else "", cfg)
+    return r
+
+
+def convert_bert_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return convert_state_dict(bert_rules(sd, cfg), sd)
+
+
+def _fused_qkv(r: _Rules, names: Tuple[str, str, str], key: str, suffix: str = "") -> None:
+    """A fused [3C, ...] projection and its bias -> three Linears."""
+    for part in ("weight", "bias"):
+        r.append(Rule(tuple(f"{n}.{part}" for n in names), (f"{key}{part}{suffix}",), "qkv"))
+
+
+def _swin(r: _Rules, name: str, pre: str, cfg) -> None:
+    r.conv(f"{name}patch_embed", f"{pre}patch_embed.projection")
+    r.norm(f"{name}patch_norm", f"{pre}patch_embed.norm")
+    for s, depth in enumerate(cfg.depths):
+        for b in range(depth):
+            base, p = f"{pre}stages.{s}.blocks.{b}.", f"{name}stage{s}_block{b}."
+            r.norm(p + "norm1", base + "norm1")
+            r.norm(p + "norm2", base + "norm2")
+            _fused_qkv(r, (p + "q", p + "k", p + "v"), base + "attn.w_msa.qkv.")
+            r.dense(p + "proj", base + "attn.w_msa.proj")
+            r.add(p + "rel_pos_bias", base + "attn.w_msa.relative_position_bias_table")
+            r.dense(p + "fc1", base + "ffn.layers.0.0")
+            r.dense(p + "fc2", base + "ffn.layers.1")
+        if s < len(cfg.depths) - 1:
+            r.norm(f"{name}merge{s}.norm", f"{pre}stages.{s}.downsample.norm")
+            r.add(f"{name}merge{s}.reduction.weight", f"{pre}stages.{s}.downsample.reduction.weight",
+                  "linear")
+        if s in cfg.out_indices:
+            r.norm(f"{name}out_norm{s}", f"{pre}norm{s}")
+
+
+def swin_rules(keys: Collection[str], cfg, prefix: str = "backbone.") -> List[Rule]:
+    """mmdet SwinTransformer names (spider_tpu/models/convert.py:609-651):
+    the fused qkv split, the relative-position bias table as stored."""
+    r = _Rules(keys)
+    _swin(r, "", prefix, cfg)
+    return r
+
+
+def convert_swin_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return convert_state_dict(swin_rules(sd, cfg), sd)
+
+
+def sam_rules(keys: Collection[str], cfg) -> List[Rule]:
+    """Official SAM checkpoint names (spider_tpu/models/convert.py:429-533):
+    the fused qkv split, the four point embeddings stacked, the upscaling
+    ConvTranspose2d weights flipped (``tflip``, so the port computes what the
+    reference's converter and module compute). mask_downscaling (mask-input
+    prompts) is not read, as in the reference."""
+    r = _Rules(keys)
+    e, ie = "image_encoder.", "image_encoder."
+    r.conv(e + "patch_embed", ie + "patch_embed.proj")
+    r.add(e + "pos_embed", ie + "pos_embed")
+    r.add(e + "neck_conv1.weight", ie + "neck.0.weight")
+    r.norm(e + "neck_ln1", ie + "neck.1")
+    r.add(e + "neck_conv2.weight", ie + "neck.2.weight")
+    r.norm(e + "neck_ln2", ie + "neck.3")
+    for i in range(cfg.encoder_layers):
+        b, p = f"{ie}blocks.{i}.", f"{e}block_{i}."
+        r.norm(p + "ln1", b + "norm1")
+        r.norm(p + "ln2", b + "norm2")
+        _fused_qkv(r, (p + "q", p + "k", p + "v"), b + "attn.qkv.")
+        r.dense(p + "proj", b + "attn.proj")
+        r.dense(p + "fc1", b + "mlp.lin1")
+        r.dense(p + "fc2", b + "mlp.lin2")
+        if b + "attn.rel_pos_h" in keys:
+            r.add(p + "rel_pos_h", b + "attn.rel_pos_h")
+            r.add(p + "rel_pos_w", b + "attn.rel_pos_w")
+    pe = "prompt_encoder."
+    r.add(pe + "pe_gaussian", pe + "pe_layer.positional_encoding_gaussian_matrix")
+    r.append(Rule((pe + "point_embeddings",),
+                  tuple(f"{pe}point_embeddings.{i}.weight" for i in range(4)), "cat"))
+    r.add(pe + "not_a_point", pe + "not_a_point_embed.weight")
+    r.add(pe + "no_mask_embed", pe + "no_mask_embed.weight")
+    md = "mask_decoder."
+    r.add(md + "iou_token", md + "iou_token.weight")
+    r.add(md + "mask_tokens", md + "mask_tokens.weight")
+    for n, k in (("upscale_1", "output_upscaling.0"), ("upscale_2", "output_upscaling.3")):
+        r.add(f"{md}{n}.weight", f"{md}{k}.weight", "tflip")
+        r.add(f"{md}{n}.bias", f"{md}{k}.bias")
+    r.norm(md + "upscale_ln", md + "output_upscaling.1")
+    t = md + "transformer."
+    for part in ("q", "k", "v", "out"):
+        r.dense(f"{md}final_{part}", f"{t}final_attn_token_to_image.{part}_proj")
+    r.norm(md + "final_ln", t + "norm_final_attn")
+    for i in range(cfg.decoder_depth):
+        b, p = f"{t}layers.{i}.", f"{md}block_{i}."
+        for name, key in (("self", "self_attn"), ("cross_qk", "cross_attn_token_to_image"),
+                          ("cross_kq", "cross_attn_image_to_token")):
+            for part in ("q", "k", "v", "out"):
+                r.dense(f"{p}{name}_{part}", f"{b}{key}.{part}_proj")
+        for j in range(1, 5):
+            r.norm(f"{p}ln{j}", f"{b}norm{j}")
+        r.dense(p + "fc1", b + "mlp.lin1")
+        r.dense(p + "fc2", b + "mlp.lin2")
+    for i in range(cfg.num_multimask_outputs + 1):
+        h = f"{md}output_hypernetworks_mlps.{i}.layers."
+        for j, n in enumerate(("fc0", "fc1", "out")):
+            r.dense(f"{md}hyper_{i}_{n}", f"{h}{j}")
+    for j, n in enumerate(("iou_fc0", "iou_fc1", "iou_out")):
+        r.dense(md + n, f"{md}iou_prediction_head.layers.{j}")
+    return r
+
+
+def convert_sam_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return convert_state_dict(sam_rules(sd, cfg), sd)
+
+
+# The HF BERT inside an mm_grounding_dino checkpoint.
+DINO_BERT_PREFIX = "language_model.language_backbone.body.model."
+
+
+def grounding_dino_rules(keys: Collection[str], cfg) -> List[Rule]:
+    """mmdet GroundingDINO names (spider_tpu/models/convert.py:869-963):
+    the Swin backbone under ``backbone.``, HF BERT under
+    ``language_model.language_backbone.body.model.``, nn.MultiheadAttention's
+    fused in_proj split; ContrastiveEmbed's scalar biases: the last decoder
+    branch's is ``cls_bias``, the extra (encoder, two-stage) branch's
+    ``enc_cls_bias``; the extra box branch is ``enc_box_head``."""
+    r = _Rules(keys)
+    L = cfg.dec_layers
+    r.add("cls_bias", f"bbox_head.cls_branches.{L - 1}.bias")
+    r.add("enc_cls_bias", f"bbox_head.cls_branches.{L}.bias")
+    _swin(r, "backbone.", "backbone.", cfg.backbone)
+    bert_pre = DINO_BERT_PREFIX + ("bert." if f"{DINO_BERT_PREFIX}bert.embeddings.LayerNorm.weight"
+                                   in keys else "")
+    _bert(r, "bert.", bert_pre, cfg.bert)
+    r.dense("text_proj", "text_feat_map")
+    r.add("level_embed", "level_embed")
+    r.add("query_embedding", "query_embedding.weight")
+    r.dense("enc_out_proj", "memory_trans_fc")
+    r.norm("enc_out_ln", "memory_trans_norm")
+    r.norm("decoder_norm", "decoder.norm")
+    r.dense("ref_point_fc1", "decoder.ref_point_head.layers.0")
+    r.dense("ref_point_fc2", "decoder.ref_point_head.layers.1")
+    for i in range(cfg.num_levels - 1):
+        r.conv(f"neck_in{i}", f"neck.convs.{i}.conv")
+        r.norm(f"neck_gn{i}", f"neck.convs.{i}.gn")
+    r.conv("neck_extra", "neck.extra_convs.0.conv")
+    r.norm("neck_extra_gn", "neck.extra_convs.0.gn")
+
+    def msda(name: str, key: str) -> None:
+        for n in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+            r.dense(f"{name}.{n}", f"{key}.{n}")
+
+    def mha(name: str, key: str, parts: Tuple[str, str, str, str]) -> None:
+        _fused_qkv(r, tuple(f"{name}.{p}" for p in parts[:3]), f"{key}.in_proj_")
+        r.dense(f"{name}.{parts[3]}", f"{key}.out_proj")
+
+    for i in range(cfg.enc_layers):
+        img, txt, fus, p = (f"encoder.layers.{i}.", f"encoder.text_layers.{i}.",
+                            f"encoder.fusion_layers.{i}.", f"enc_{i}")
+        msda(f"{p}.msda", img + "self_attn")
+        mha(p, txt + "self_attn.attn", ("txt_q", "txt_k", "txt_v", "txt_attn_out"))
+        for side, key in (("img", img), ("txt", txt)):
+            r.norm(f"{p}.{side}_ln1", key + "norms.0")
+            r.norm(f"{p}.{side}_ln2", key + "norms.1")
+            r.dense(f"{p}.{side}_fc1", key + "ffn.layers.0.0")
+            r.dense(f"{p}.{side}_fc2", key + "ffn.layers.1")
+        f = f"{p}.fusion."
+        r.norm(f + "ln_img", fus + "layer_norm_v")
+        r.norm(f + "ln_txt", fus + "layer_norm_l")
+        for n, k in (("img_q", "v_proj"), ("txt_k", "l_proj"), ("img_v", "values_v_proj"),
+                     ("txt_v", "values_l_proj"), ("img_out", "out_v_proj"),
+                     ("txt_out", "out_l_proj")):
+            r.dense(f + n, f"{fus}attn.{k}")
+        r.add(f + "gamma_img", fus + "gamma_v")
+        r.add(f + "gamma_txt", fus + "gamma_l")
+    for i in range(L):
+        d, p = f"decoder.layers.{i}.", f"dec_{i}"
+        mha(p, d + "self_attn.attn", ("self_q", "self_k", "self_v", "self_out"))
+        mha(p, d + "cross_attn_text.attn", ("txt_q", "txt_k", "txt_v", "txt_out"))
+        msda(f"{p}.msda", d + "cross_attn")
+        for j in range(4):
+            r.norm(f"{p}.ln{j + 1}", f"{d}norms.{j}")
+        r.dense(f"{p}.fc1", d + "ffn.layers.0.0")
+        r.dense(f"{p}.fc2", d + "ffn.layers.1")
+    for name, branch in [(f"dec_box_head_{i}", i) for i in range(L)] + [("enc_box_head", L)]:
+        for n, j in (("fc0", 0), ("fc1", 2), ("out", 4)):
+            r.dense(f"{name}.{n}", f"bbox_head.reg_branches.{branch}.{j}")
+    return r
+
+
+def convert_grounding_dino_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return convert_state_dict(grounding_dino_rules(sd, cfg), sd)

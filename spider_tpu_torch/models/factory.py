@@ -178,9 +178,13 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
     `quantization` 'int8' or 'int4' projections, tokenizer): from a
     checkpoint, its config.json gives the shape and the projections quantise
     to int8, as the reference's from_pretrained does; 'imagebind' ->
-    ImageBindEncoder (imagebind_huge) in `dtype`. A checkpoint's tokenizer
-    is its HF tokenizer through ``transformers``, or TinyTokenizer where
-    that cannot load (``_hf_tokenizer``).
+    ImageBindEncoder (imagebind_huge) in `dtype`; 'sam' -> Sam (ViT-H at
+    1024px) in `dtype`, from the official ``sam_vit_h`` checkpoint;
+    'grounding_dino' -> GroundingDINOInference (Swin-T + BERT-base, 900
+    queries, at 512px) in `dtype`, from an mm_grounding_dino checkpoint. A
+    checkpoint's tokenizer is its HF tokenizer through ``transformers``, or
+    TinyTokenizer where that cannot load (``_hf_tokenizer``); a random
+    Grounding DINO takes TinyTokenizer.
     """
     if kind == "llama":
         if quantization not in ("int8", "int4"):
@@ -203,9 +207,26 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
         if path is None:
             return random_init_(model, torch.Generator(device=device).manual_seed(seed))
         return C.load_checkpoint(model, C.imagebind_rules, path)
+    if kind == "sam":
+        from spider_tpu_torch.models.sam import Sam, sam_vit_h
+
+        model = Sam(dataclasses.replace(sam_vit_h(), dtype=dtype), device).eval()
+        if path is None:
+            return random_init_(model, torch.Generator(device=device).manual_seed(seed))
+        return C.load_checkpoint(model, C.sam_rules, path)
+    if kind == "grounding_dino":
+        from spider_tpu_torch.models.dino import (GroundingDINO, GroundingDINOInference,
+                                                  grounding_dino_tiny, with_dtype)
+
+        model = GroundingDINO(with_dtype(grounding_dino_tiny(), dtype), device).eval()
+        if path is None:
+            random_init_(model, torch.Generator(device=device).manual_seed(seed))
+            return GroundingDINOInference(model, TinyTokenizer())
+        C.load_checkpoint(model, C.grounding_dino_rules, path)
+        return GroundingDINOInference(model, _hf_tokenizer(path, ""))
     if kind not in ("sd15", "zeroscope", "audioldm", "sdxl_story"):
-        raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', "
-                         f"'audioldm', 'sdxl_story', 'imagebind' or 'llama')")
+        raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', 'audioldm', "
+                         f"'sdxl_story', 'imagebind', 'sam', 'grounding_dino' or 'llama')")
     parts = pipeline_parts(kind, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     for sub, (module, rules) in parts.items():
@@ -297,8 +318,6 @@ def build_tiny_spider(*, device, seed: int = 0, use_moe_aligner: bool = False,
     from spider_tpu_torch.models.pipelines.vd import build_tiny_vd
     from spider_tpu_torch.models.spider import Spider
 
-    if with_sam:
-        raise NotImplementedError("the SAM mask decoder is not ported: with_sam must be False")
     gen = torch.Generator(device=device).manual_seed(seed)
     tokenizer = TinyTokenizer()
     modality_tokens = modality_tokens or {"IMAGE": 4, "VIDEO": 8, "AUDIO": 4,
@@ -314,7 +333,12 @@ def build_tiny_spider(*, device, seed: int = 0, use_moe_aligner: bool = False,
         pipes = {"IMAGE": build_tiny_sd(tokenizer=tokenizer, device=device, seed=seed),
                  "VIDEO": build_tiny_vd(tokenizer=tokenizer, device=device, seed=seed),
                  "AUDIO": build_tiny_ad(tokenizer=tokenizer, device=device, seed=seed)}
-    # alignment dims follow the pipes' conditioning spaces
+    sam = None
+    if with_sam:
+        from spider_tpu_torch.models.sam import Sam, sam_tiny
+
+        sam = random_init_(Sam(sam_tiny(), device), gen)
+    # alignment dims follow the pipes' conditioning spaces and SAM's prompt space
     align_specs = {
         "IMAGE": dict(alignment_input_tokens=modality_tokens["IMAGE"],
                       alignment_output_tokens=77, alignment_output_dim=32),
@@ -323,13 +347,13 @@ def build_tiny_spider(*, device, seed: int = 0, use_moe_aligner: bool = False,
         "AUDIO": dict(alignment_input_tokens=modality_tokens["AUDIO"],
                       alignment_output_tokens=1, alignment_output_dim=16),
         "MASK": dict(alignment_input_tokens=1, alignment_output_tokens=1,
-                     alignment_output_dim=8),
+                     alignment_output_dim=sam.config.prompt_embed_dim if sam else 8),
     }
     aligners, moe = _build_aligners(cfg.hidden_size, align_specs, use_moe_aligner, 32, 1,
                                     device, gen)
     return Spider(llm=llm, tokenizer=tokenizer, encoder=encoder,
                   llama_proj=_llama_proj(ib_cfg.embed_dim, cfg.hidden_size, device, gen),
-                  aligners=aligners, moe_aligner=moe, diffusion_pipes=pipes,
+                  aligners=aligners, moe_aligner=moe, diffusion_pipes=pipes, sam=sam,
                   modality_tokens=modality_tokens, max_context_len=max_context_len,
                   **spider_kwargs)
 
@@ -347,8 +371,8 @@ def build_full_spider(*, device, paths: Optional[Dict[str, str]] = None, seed: i
     FULL_ALIGN_SPECS).
 
     paths: checkpoint directories or files by component ('llama',
-    'imagebind', 'sd15', 'zeroscope', 'audioldm'; 'sam' is not ported and
-    raises); a component without one is random from `seed`. The llama
+    'imagebind', 'sam', 'sd15', 'zeroscope', 'audioldm'); a component
+    without one is random from `seed`. The llama
     checkpoint gives the base weights (its config.json the shape) and keeps
     them unquantised; its vocabulary grows by ``extend_embedding_rows``,
     the reference's new rows. The LoRA pairs, the aligner and the input
@@ -368,16 +392,18 @@ def build_full_spider(*, device, paths: Optional[Dict[str, str]] = None, seed: i
 
     with_pipes builds resident SD-1.5 / ZeroScope / AudioLDM pipelines for the
     alignment targets; `diffusion_pipes` hands over pipelines already built.
+    with_sam builds SAM ViT-H in `dtype` (``from_pretrained('sam')``) for
+    the MASK branch: Spider freezes its image and prompt encoders, and its
+    mask decoder trains with fp32 parameters, computing in `dtype`.
     """
     from spider_tpu_torch.models.spider import Spider
 
     paths = {k: v for k, v in (paths or {}).items() if v}
-    if with_sam or "sam" in paths:
-        raise NotImplementedError("the SAM mask decoder is not ported (ROADMAP A8): with_sam "
-                                  "must be False and paths['sam'] unset")
-    unknown = set(paths) - {"llama", "imagebind", "sd15", "zeroscope", "audioldm"}
+    unknown = set(paths) - {"llama", "imagebind", "sam", "sd15", "zeroscope", "audioldm"}
     if unknown:
         raise ValueError(f"unknown checkpoint path(s) {sorted(unknown)}")
+    if "sam" in paths and not with_sam:
+        raise ValueError("paths['sam'] is given but with_sam is False")
     gen = torch.Generator(device=device).manual_seed(seed)
     llama_path = paths.get("llama")
     tokenizer = _hf_tokenizer(llama_path, "") if llama_path else TinyTokenizer()
@@ -411,6 +437,10 @@ def build_full_spider(*, device, paths: Optional[Dict[str, str]] = None, seed: i
     if with_encoder:
         encoder = from_pretrained("imagebind", paths.get("imagebind"), device=device,
                                   dtype=dtype, seed=seed)
+    sam = None
+    if with_sam:
+        sam = from_pretrained("sam", paths.get("sam"), device=device, dtype=dtype, seed=seed)
+        sam.mask_decoder.float()
     aligners, moe = _build_aligners(cfg.hidden_size, FULL_ALIGN_SPECS, use_moe_aligner, 512,
                                     4, device, gen)
     pipes = dict(diffusion_pipes or {})
@@ -421,7 +451,7 @@ def build_full_spider(*, device, paths: Optional[Dict[str, str]] = None, seed: i
                                            seed=seed)
     return Spider(llm=llm, tokenizer=tokenizer, encoder=encoder,
                   llama_proj=_llama_proj(1024, cfg.hidden_size, device, gen),
-                  aligners=aligners, moe_aligner=moe, diffusion_pipes=pipes,
+                  aligners=aligners, moe_aligner=moe, diffusion_pipes=pipes, sam=sam,
                   modality_tokens=modality_tokens, max_context_len=max_context_len,
                   **spider_kwargs)
 

@@ -21,10 +21,17 @@ preparation, a greedy decode that keeps each step's hidden states
 (``decode.generate``), the tag parse of the answer, and for each tag span the
 decoder it names (``_decode_modality_infer``): the signal tokens' hidden
 states through the aligner, fused 0.1 / 0.9 with the decoder's own text
-conditioning. BOX goes to a ``box_decoder`` callable. Not ported: the MASK
-branch's SAM decoder. Without SAM, MASK trains the text loss exactly as in
-the reference and decodes to nothing; with ``sam`` given the constructor
-raises.
+conditioning. BOX goes to a ``box_decoder`` callable; MASK to SAM
+(``_decode_mask_infer``: the box decoder's top box, rescaled to the SAM
+input, prompts ``Sam.predict_box``).
+
+MASK training: with ``sam`` and a batch holding ``IMAGE_SAM`` and ``MASK``,
+the projected [MASK0] state prompts SAM's mask decoder as a text embedding
+(``predict_text``), and the masks, resized to the ground truth's size, are
+held to it by 2 * BCE + 0.5 * dice. Only the mask decoder trains: Spider
+freezes SAM's image and prompt encoders (no gradient, out of the
+optimizer). Without SAM, MASK trains the text loss and decodes to nothing,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -143,6 +150,8 @@ class Spider(nn.Module):
         whose text conditioning is the alignment target (not submodules)
       box_decoder: callable (image, caption) -> {bboxes, label_names,
         scores}, or None (Grounding DINO inference)
+      sam: models/sam.py's Sam, or None; its image and prompt encoders are
+        frozen here, its mask decoder trains
     """
 
     @classmethod
@@ -167,9 +176,6 @@ class Spider(nn.Module):
                  alignment_layer: Sequence[int] = (-1,),
                  logit_scale: float = 1.0):
         super().__init__()
-        if sam is not None:
-            raise NotImplementedError("the SAM mask decoder is not ported: build without sam "
-                                      "(MASK samples then train the text loss only)")
         self.model_name = name
         self.llm = llm
         self.tokenizer = tokenizer
@@ -180,7 +186,10 @@ class Spider(nn.Module):
         self.aligners = nn.ModuleDict(aligners or {})
         self.moe_aligner = moe_aligner
         self.diffusion_pipes = dict(diffusion_pipes or {})
-        self.sam = None
+        self.sam = sam
+        if sam is not None:
+            sam.image_encoder.requires_grad_(False).eval()
+            sam.prompt_encoder.requires_grad_(False)
         self.box_decoder = box_decoder
         self.modality_tokens = dict(modality_tokens or DEFAULT_MODALITY_TOKENS)
         self.max_context_len = max_context_len
@@ -219,7 +228,8 @@ class Spider(nn.Module):
     # ------------------------------------------------ trainable param bundle
     def trainable_params(self) -> Dict[str, nn.Parameter]:
         """{dotted name: parameter} of everything an optimizer may move:
-        every parameter that requires grad outside the frozen encoder."""
+        every parameter that requires grad outside the frozen encoder (and
+        SAM's frozen image and prompt encoders, which require none)."""
         return {n: p for n, p in self.named_parameters()
                 if p.requires_grad and not n.startswith("encoder.")}
 
@@ -227,6 +237,8 @@ class Spider(nn.Module):
         super().train(mode)
         if self.encoder is not None:
             self.encoder.eval()
+        if self.sam is not None:
+            self.sam.image_encoder.eval()
         return self
 
     # -------------------------------------------------------------- prepare
@@ -385,10 +397,12 @@ class Spider(nn.Module):
         return self.aligners[modality](hidden, modality=modality)
 
     def compute_loss(self, batch: PreparedBatch, modality_embeds: Dict[str, torch.Tensor],
-                     cond_embeds: Optional[torch.Tensor], task: str
+                     cond_embeds: Optional[torch.Tensor], task: str,
+                     aux_arrays: Optional[Dict[str, np.ndarray]] = None
                      ) -> Dict[str, torch.Tensor]:
         """cond_embeds: frozen text-conditioning target of the task decoder
-        for this batch's captions (None for TEXT/BOX)."""
+        for this batch's captions (None for TEXT/BOX/MASK). aux_arrays, for
+        MASK: IMAGE_SAM [B, 3, s, s] and MASK_GT [B, s, s]."""
         embeds = self._splice_embeds(batch, modality_embeds)
         targets = self._tensor(batch.targets)
         logits, hidden_states, _ = self.llm(inputs_embeds=embeds, output_hidden_states=True)
@@ -398,7 +412,7 @@ class Spider(nn.Module):
         no_decoder_loss = (self.only_llm_gen_loss
                            or task not in self.modality_tokens
                            or batch.signal_pos is None
-                           or cond_embeds is None)
+                           or (cond_embeds is None and task != "MASK"))
         if no_decoder_loss:
             out["loss"] = gen_loss
             return out
@@ -413,6 +427,9 @@ class Spider(nn.Module):
             proj = self._apply_aligner(task, fused)
             proj_sum = proj if proj_sum is None else proj_sum + proj
 
+        if task == "MASK":
+            return self._mask_loss(out, gen_loss, proj_sum, aux_arrays)
+
         target = cond_embeds
         if target.ndim == 2:  # AUDIO pooled -> (N, 1, D)
             target = target[:, None, :]
@@ -422,6 +439,36 @@ class Spider(nn.Module):
         out[f"{task}_semantic_align_mse_loss"] = semantic
         out["loss"] = gen_loss + semantic
         return out
+
+    def _mask_loss(self, out: Dict[str, torch.Tensor], gen_loss: torch.Tensor,
+                   proj_sum: torch.Tensor, aux_arrays) -> Dict[str, torch.Tensor]:
+        """SAM mask-decoder training: the projected [MASK0] state prompts
+        the decoder as text embeddings; 2 * BCE + 0.5 * dice against the
+        ground truth, each over the batch (spider_tpu/models/spider.py:440-470)."""
+        from spider_tpu_torch.models.sam import postprocess_masks
+
+        if self.sam is None or aux_arrays is None:
+            raise ValueError("a MASK loss needs sam and the IMAGE_SAM / MASK_GT arrays")
+        images = torch.as_tensor(np.asarray(aux_arrays["IMAGE_SAM"]),
+                                 dtype=torch.float32).to(self.sam.device)
+        masks = self.sam.predict_text(images, proj_sum.float().to(self.sam.device))
+        gt = torch.as_tensor(np.asarray(aux_arrays["MASK_GT"])).to(masks.device)
+        s = gt.shape[-1]
+        pred = postprocess_masks(masks, (s, s), (s, s), img_size=s)[:, 0]
+        n = max(gt.shape[0], 1)
+        out["bce_loss"] = 2.0 * sigmoid_bce_loss(pred, gt) / n
+        out["dice_loss"] = 0.5 * dice_loss(pred, gt) / n
+        out["loss"] = gen_loss + out["bce_loss"].to(gen_loss.device) \
+            + out["dice_loss"].to(gen_loss.device)
+        return out
+
+    def mask_arrays(self, samples: Dict[str, Any]) -> Optional[Dict[str, np.ndarray]]:
+        """The MASK branch's IMAGE_SAM and MASK_GT arrays of a batch, or
+        None where it trains the text loss only (no SAM, or no IMAGE_SAM)."""
+        if self.sam is None or "IMAGE_SAM" not in samples:
+            return None
+        return {"IMAGE_SAM": np.stack([np.asarray(x) for x in samples["IMAGE_SAM"]]),
+                "MASK_GT": np.stack([np.asarray(x) for x in samples["MASK"]])}
 
     # ---------------------------------------------------------- forward API
     def forward(self, samples: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -459,10 +506,11 @@ class Spider(nn.Module):
                 and "Caption" in samples:
             cond_embeds = self.diffusion_pipes[task](prompt=samples["Caption"],
                                                      return_prompts_only=True)
-        if task == "MASK":
+        aux_arrays = self.mask_arrays(samples) if task == "MASK" else None
+        if task == "MASK" and aux_arrays is None:
             task = "TEXT"  # no SAM: MASK degrades to gen_loss only
 
-        out = self.compute_loss(batch, modality_embeds, cond_embeds, task)
+        out = self.compute_loss(batch, modality_embeds, cond_embeds, task, aux_arrays)
         if embed_align is not None:
             out["loss"] = out["loss"] + embed_align
             out[f"{task}_embed_align_mse_loss"] = embed_align
@@ -596,7 +644,9 @@ class Spider(nn.Module):
                         outputs_label_names=[res["label_names"]],
                         outputs_scores=[res["scores"]])
         if modality == "MASK":
-            return None          # the SAM decoder is not ported (self.sam is None)
+            if self.sam is None:
+                return None
+            return self._decode_mask_infer(occurrence, cap, tokens, step_hidden, samples)
 
         # the occurrence-th run of [X0..Xn] among the generated tokens
         sig_ids = self._signal_ids[modality]
@@ -623,3 +673,24 @@ class Spider(nn.Module):
         result = pipe(prompt_embeds=prompt_embeds, guidance_scale=guidance_scale,
                       num_inference_steps=num_inference_steps)
         return result[0] if modality in ("IMAGE", "AUDIO") else result
+
+    @torch.inference_mode()
+    def _decode_mask_infer(self, occurrence: int, cap: str, tokens: np.ndarray, step_hidden,
+                           samples) -> Optional[np.ndarray]:
+        """The box decoder's top box for `cap`, rescaled from the original
+        image to the SAM input, prompts SAM (spider_tpu/models/spider.py:725-740):
+        low-res masks [1, 4h, 4w] fp32 on the host, or None without a box
+        decoder, an IMAGE_SAM input or a detection."""
+        if self.box_decoder is None or "IMAGE_SAM" not in samples:
+            return None
+        det = self.box_decoder(samples["Image_ori_array"][0], cap)
+        if not det["bboxes"]:
+            return None
+        oh, ow = samples["Meta_info"]["original_shape"][0]
+        sh, sw = samples["Meta_info"]["sam_shape"][0]
+        box = np.asarray(det["bboxes"][0], np.float32) * np.array(
+            [sw / ow, sh / oh, sw / ow, sh / oh], np.float32)
+        dev = self.sam.device
+        image = torch.as_tensor(np.asarray(samples["IMAGE_SAM"][0]), dtype=torch.float32)
+        masks = self.sam.predict_box(image[None].to(dev), torch.from_numpy(box)[None, None].to(dev))
+        return masks[0].float().cpu().numpy()

@@ -104,9 +104,20 @@ def spatial_flash_config(mode: str):
         _SPATIAL_FLASH.reset(tok)
 
 
+# The wgmma forward's work item is (128 query rows, head, batch), one
+# persistent block an SM. With fewer items than this, over more keys than
+# FLASH_FEW_ITEMS_MAX_KEYS, a few SMs walk every key alone (SAM's
+# token-to-image at batch 1: 8 items over 4096 keys).
+FLASH_MIN_ITEMS = 16
+FLASH_FEW_ITEMS_MAX_KEYS = 1024
+
+
 def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
     """Where spatial attention goes to the flash kernel on the card: every
-    head dim the kernel takes, D <= 128, whatever B, T, S and the head count.
+    head dim the kernel takes, D <= 128, except a call with fewer than
+    FLASH_MIN_ITEMS work items (B x heads x ceil(T / 128)) over more than
+    FLASH_FEW_ITEMS_MAX_KEYS keys, which stays on the einsum. Every UNet
+    shape has at least 16 items and goes to the kernel.
 
     The reference's rule for its TPU kernel (unet2d.py:163-165: T >= 4096 or,
     for D >= 64, fp32 logits over 512 MiB) kept the plain einsum at every
@@ -114,7 +125,9 @@ def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
     H100 the rows of ``chip_smoke.py``'s phase ``unet_routing`` (flash against
     this module's einsum, device time in ms, bf16, CFG batch 2, ZeroScope's 16
     frames in the batch; NVIDIA H100 80GB HBM3, 700 W) put the kernel ahead at
-    every shape it takes, self- and cross-attention alike, down to T = 128:
+    every UNet shape it takes, self- and cross-attention alike, down to
+    T = 128, and at the grounding shapes but one, which the rule's exception
+    keeps on the einsum:
 
       SD-1.5 512px     L0 T 4096 D 40: self 0.178 / 3.41, cross (S 77) 0.018 / 0.115
                        L1 T 1024 D 80: self 0.020 / 0.261, cross 0.010 / 0.057
@@ -127,13 +140,24 @@ def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
       SDXL story 768px (B 8: 4 frames, batched CFG; chip_smoke.py story, same card)
                        L1 T 2304 D 64: self 0.289 / 5.92, cross 0.048 / 0.349
                        L2, mid T 576 D 64: self 0.069 / 0.766, cross 0.030 / 0.183
+      Grounding DINO 512px (B 1, 8 heads; chip_smoke.py grounding, same card)
+                       decoder self T 900 D 32: 0.0155 / 0.104 (SDPA 0.0157)
+      SAM ViT-H mask decoder, 8 heads, the 64 x 64 grid (S or T 4096)
+                       box prompt, B 1: self T 7 D 32 0.0043 / 0.0193,
+                       image-to-token T 4096 S 7 D 16 0.0063 / 0.0274,
+                       token-to-image T 7 S 4096 D 16 0.0433 / 0.0281 (8 items:
+                       the einsum's)
+                       MASK train step, B 4: self T 6 0.0043 / 0.0286,
+                       image-to-token 0.0150 / 0.0551, token-to-image T 6
+                       0.0450 / 0.0636 (32 items)
 
     As single calls with the host's time in them, the large shapes rank the
     same way and the small ones are host-bound on either side (0.07-0.2 ms
     for the one-launch wrapper, 0.15-0.47 ms for the einsum's eight launches).
     SD-1.5's and ZeroScope's levels 2 and mid have D = 160, which no flash
     kernel here takes: they stay on the einsum (T <= 256, 0.04-0.29 ms)."""
-    return D <= 128
+    items = B * heads * -(-T // 128)
+    return D <= 128 and not (items < FLASH_MIN_ITEMS and S > FLASH_FEW_ITEMS_MAX_KEYS)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,7 +184,9 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) ->
     Routed to the flash kernel on CUDA tensors where
     ``spatial_flash_predicate`` holds: at SD-1.5 512px and ZeroScope levels 0
     and 1 (D = 40, 80), at AudioLDM every level (D = 16 to 80; S = 1 in
-    cross-attention), self- and cross-attention. The kernel masks the ragged
+    cross-attention), self- and cross-attention; Grounding DINO's decoder
+    self-attention and SAM's mask decoder, but for its token-to-image
+    attention at batch 1. The kernel masks the ragged
     edges and takes those head dims itself, so none of the reference's
     padding is needed. Elsewhere (D = 160, CPU tensors, the "einsum"
     override): ``plain_attention``.

@@ -127,9 +127,10 @@ class RunnerBase:
                 and task in spider.diffusion_pipes and "Caption" in samples:
             cond = spider.diffusion_pipes[task](prompt=samples["Caption"],
                                                 return_prompts_only=True)
-        if task == "MASK":
+        aux = spider.mask_arrays(samples) if task == "MASK" else None
+        if task == "MASK" and aux is None:
             task = "TEXT"       # no SAM: MASK trains the text loss only
-        return spider.compute_loss(batch, modality_embeds, cond, task)
+        return spider.compute_loss(batch, modality_embeds, cond, task, aux)
 
     def train_step(self, samples: Dict[str, Any]) -> Dict[str, float]:
         self.model.train()

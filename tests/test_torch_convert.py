@@ -602,7 +602,7 @@ def test_build_full_spider_from_paths(tmp_path, tiny_presets, monkeypatch):
     assert not torch.count_nonzero(llm.model.layers[0].self_attn.q_proj.lora_b)
     _assert_same_state(spider.encoder, load_jax_params(ib_make(), _np_tree(ib_tree)),
                        cast=True)
-    with pytest.raises(NotImplementedError, match="SAM"):
+    with pytest.raises(ValueError, match="with_sam"):      # a SAM path needs with_sam
         factory.build_full_spider(device="cpu", paths=dict(llama=llama, sam="/x"))
     with pytest.raises(ValueError, match="no checkpoint paths"):
         factory.build_spider_from_config(dict(preset="tiny", paths=dict(llama=llama)),

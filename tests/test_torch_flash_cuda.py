@@ -107,6 +107,21 @@ def test_kernel_audioldm_shapes(dev, T, S, route):
     _check(q, k, v, 2e-2, 1e-3, route, causal=False)
 
 
+# Grounding DINO's decoder self-attention (B 1, 900 queries, D 32) and SAM
+# ViT-H's mask decoder: prompt-token self-attention (D 32), token-to-image and
+# image-to-token over the 64 x 64 grid (D 16), for a box prompt (7 tokens,
+# B 1) and the MASK train step's text prompt (6 tokens, B 4).
+GROUNDING_SHAPES = [(1, 900, 900, 32), (1, 7, 7, 32), (1, 7, 4096, 16), (1, 4096, 7, 16),
+                    (4, 6, 6, 32), (4, 6, 4096, 16), (4, 4096, 6, 16)]
+
+
+@pytest.mark.parametrize("B,T,S,D", GROUNDING_SHAPES)
+@ROUTES
+def test_kernel_grounding_and_sam_decoder_shapes(dev, B, T, S, D, route):
+    q, k, v = _inputs(B, T, S, 8, 8, D, torch.bfloat16, dev, seed=T + S)
+    _check(q, k, v, 2e-2, 1e-3, route, causal=False)
+
+
 @pytest.mark.parametrize("route", [None, "mma"])
 def test_kernel_fp32_inputs(dev, route):
     # fp32 is the general route's alone, by the rule and by name.

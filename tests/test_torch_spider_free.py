@@ -216,6 +216,9 @@ def test_port_imports_no_jax():
             "names = ['spider_tpu_torch'] + [m.name for m in pkgutil.walk_packages("
             "spider_tpu_torch.__path__, 'spider_tpu_torch.')]\n"
             "assert 'spider_tpu_torch.train' in names and len(names) > 50, names\n"
+            "assert {'spider_tpu_torch.models.sam', 'spider_tpu_torch.models.dino', "
+            "'spider_tpu_torch.ops.msda', 'spider_tpu_torch.grounding_dino_test', "
+            "'spider_tpu_torch.spider_decoder_infer'} <= set(names), names\n"
             "for m in names: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")

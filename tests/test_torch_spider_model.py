@@ -267,8 +267,10 @@ def test_trainable_tree_round_trips_through_the_converters(pair):
 
 
 def test_sam_is_refused_until_it_is_ported():
-    with pytest.raises(NotImplementedError):
-        tF.build_tiny_spider(device="cpu", with_sam=True)
-    _, ts = _pair()
-    with pytest.raises(NotImplementedError):
-        tS.Spider(llm=ts.llm, tokenizer=ts.tokenizer, sam=object())
+    # SAM is ported (tests/test_torch_mask.py holds its MASK branch): the
+    # tiny Spider takes it, with its encoders frozen and the MASK aligner in
+    # its prompt space
+    ts = tF.build_tiny_spider(device="cpu", with_sam=True, with_pipes=False)
+    assert ts.aligners["MASK"].model.weight.shape[0] == ts.sam.config.prompt_embed_dim
+    assert not any(p.requires_grad for p in ts.sam.image_encoder.parameters())
+    assert any(n.startswith("sam.mask_decoder.") for n in ts.trainable_params())
