@@ -139,6 +139,22 @@ Phases, each printing one JSON line:
   mask_check   SAM's box decode in bf16 on the kernel and plain, against fp32
   grounding_profile  device time by kernel of one DINO call and one SAM encode, with the
                share of the deformable attention (ops/msda.py) and of the ViT attention
+  omni         Qwen2.5-Omni-7B at full width and depth (the thinker's Qwen2 decoder, its
+               audio and vision towers and the talker in bf16, token2wav in fp32; random
+               from seed 0) built by from_pretrained('omni_speech') and driven through
+               OmniSpeechPipeline.chat_with_speech after a shorter warm-up turn: a text
+               prompt, a seeded 448x448 image (256 tokens) and 10 s of 128-bin log-mel
+               (250 tokens); 64 thinker tokens, up to 128 codec tokens under HF's default
+               sampling from a seeded generator, token2wav with 10 RK4 steps and guidance
+               0.5: seconds of each tower's encode, thinker prefill ms and decode tok/s,
+               talker tok/s, token2wav seconds, the turn's seconds, peak GB; the waveform
+               finite, within [-1, 1] and 2 x codes x 240 samples; 28 flash launches a
+               prefill (the thinker's and the talker's), all wgmma
+  omni_check   the thinker's prefill logits in bf16 on the kernel and with plain
+               attention, each against an fp32 copy with plain attention (streamed a
+               layer at a time), the unet_check rule
+  omni_profile device time by kernel of the towers' encodes with one thinker prefill, and
+               of one DiT call, with the share of the towers' and the DiT's plain attention
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -159,12 +175,17 @@ Phases, each printing one JSON line:
                the infer twin's reply (unquantised, as the reference's serving loader)
                equal to a model filled in memory from the same tensors, and the gradio
                twin's server answering one POST /chat; SAM ViT-H and Grounding DINO as one
-               fp32 .pth each, loaded with from_pretrained(kind, path=...)
+               fp32 .pth each, loaded with from_pretrained(kind, path=...); then a
+               Qwen2.5-Omni-7B checkpoint (bf16 safetensors, config.json; full width, 4 of
+               28 LLM and talker layers and 4 of 32 tower layers) through
+               from_pretrained('qwen_omni_thinker' and 'omni_speech', path=...), every
+               tensor equal, the thinker's reply equal to one filled in memory, and the
+               qwen2_5omni_infer twin through SPIDER_TPU_OMNI_CKPT
 Then the run's total seconds, the kernel summary, the card's `nvidia-smi` name
 and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
-configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, the
+configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, omni, the
 train steps (the MASK step among them), spider_generate, the checkpoint
 decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
@@ -182,8 +203,9 @@ story` the build, the wgmma probe, tattn_grad, the routing rows and the story
 phases (on the 8B int8 model it builds); `python3 chip_smoke.py grounding` the
 build, the wgmma probe, the backward rows at SAM's shapes, the routing rows, the
 grounding phases, the train phase's mask_step alone (the 8B Spider with SAM,
-built through the train entry) and the two grounding checkpoints. None prints
-the final line.
+built through the train entry) and the two grounding checkpoints; `python3
+chip_smoke.py omni` the build, the wgmma probe, the flash rows at the Omni prefill
+shapes, the omni phases and the Omni checkpoint. None prints the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -508,7 +530,9 @@ def tattn_launches_per_unet3d_call(cfg, lat_h: int, lat_w: int, frames: int) -> 
 # kernel vs plain
 # ---------------------------------------------------------------------------
 
-def phase_kernel_flash(dev, spider_free_T: int):
+def phase_kernel_flash(dev, spider_free_T: int, only: str = ""):
+    """Rows of the flash forward (see the module docstring); `only` keeps the
+    cases whose name starts with it."""
     import torch
 
     from spider_tpu_torch.ops import attention as A
@@ -522,6 +546,7 @@ def phase_kernel_flash(dev, spider_free_T: int):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
     B_lm, T_lm = TRAIN_LM_SHAPE
+    omni_T, omni_T2 = omni_prefill_lengths()
     cases = [
         # the train path's cache-free causal forward: the LM step and a Spider
         # step of batch 4 padded to two length buckets
@@ -549,9 +574,18 @@ def phase_kernel_flash(dev, spider_free_T: int):
          dict(causal=True, kv_len=i32(128), q_offset=0)),
         ("llama2_prefill_T128", (1, 128, 128 + FAMILY_NEW_TOKENS, 32, 32, 128),
          dict(causal=True, kv_len=i32(128), q_offset=0)),
+        # the Qwen2.5-Omni thinker's prefill (text, image and audio tokens)
+        # and its talker's (two rows longer), 28/4 heads over their caches
+        (f"omni_thinker_prefill_T{omni_T}", (1, omni_T, omni_T + OMNI_THINKER_TOKENS, 28, 4, 128),
+         dict(causal=True, kv_len=i32(omni_T), q_offset=0)),
+        (f"omni_talker_prefill_T{omni_T2}",
+         (1, omni_T2, omni_T2 + OMNI_SPEECH_TOKENS, 28, 4, 128),
+         dict(causal=True, kv_len=i32(omni_T2), q_offset=0)),
     ]
     rows = []
     for i, (name, shape, kw) in enumerate(cases):
+        if not name.startswith(only):
+            continue
         q, k, v = inputs(*shape, seed=100 + i)
         route = A.flash_route(q.dtype, q.shape[-1])
         want, want_lse = A.mha_reference_with_lse(q, k, v, **kw)
@@ -3297,10 +3331,20 @@ def phase_checkpoint(dev, smi: str):
         done(twins)
         del src, hf
         torch.cuda.empty_cache()
+        shutil.rmtree(llama_dir)
+        d = os.path.join(root, "qwen2_5_omni")
+        os.makedirs(d)
+        omni_launches = dict.fromkeys(KERNELS, 0)
+        for omni_row in checkpoint_omni(d, dev):
+            done(omni_row)
+            if "launches" in omni_row:
+                _add_launches(omni_launches, omni_row["launches"])
+        shutil.rmtree(d)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     done(dict(phase="checkpoint", model="total", seconds=time.perf_counter() - t_phase, ok=ok))
-    return ok, _add_launches(dict(row["launches"]), twin_launches)
+    return ok, _add_launches(_add_launches(dict(row["launches"]), twin_launches),
+                             omni_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4781,6 +4825,461 @@ def checkpoint_grounding(directory: str, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Qwen2.5-Omni: any-modality in, text and speech out (OmniSpeechPipeline)
+# ---------------------------------------------------------------------------
+
+OMNI_PROMPT = "Describe <IMAGE-Placeholder> and what you hear in <AUDIO-Placeholder>."
+OMNI_IMAGE_HW = (448, 448)            # 32 x 32 patches of 14 -> 256 merged tokens
+OMNI_MEL_FRAMES = 1000                # 10 s of 128-bin log-mel -> 250 audio tokens
+OMNI_THINKER_TOKENS = 64
+OMNI_SPEECH_TOKENS = 127              # decode steps after the first id: up to 128 codes
+OMNI_FLOW_STEPS = 10
+OMNI_GUIDANCE = 0.5
+OMNI_UPSAMPLE = 240                   # BigVGAN's 5 x 3 x 2 x 2 x 2 x 2
+OMNI_CKPT_LAYERS = 4                  # the synthetic checkpoint: 4 of 28 LLM and talker
+OMNI_CKPT_TOWER_LAYERS = 4            # layers, 4 of 32 tower layers
+OMNI_LABELS = ("omni::audio_attention", "omni::vision_attention", "omni::dit_attention")
+
+
+def omni_inputs(seed: int = 41):
+    """The seeded request media: a normalised 448 x 448 RGB image and a 10 s
+    128-bin log-mel."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    image = rng.standard_normal(OMNI_IMAGE_HW + (3,)).astype(np.float32)
+    mel = (rng.standard_normal((OMNI_MEL_FRAMES, 128)) - 4.0).astype(np.float32)
+    return image, mel
+
+
+def omni_prefill_lengths() -> tuple:
+    """(thinker prefill T, talker prefill T) of the omni request with
+    TinyTokenizer ids: the prompt's text tokens, 256 image tokens (32 x 32
+    patches merged 2 x 2), 250 audio tokens (5 chunks of 200 frames, 100
+    tokens each after the stride-2 conv, pooled by 2); the talker's is two
+    rows longer (the speaker's text-BOS and the first reply row)."""
+    import re
+
+    from spider_tpu_torch.models.tokenizer import TinyTokenizer
+
+    tok = TinyTokenizer()
+    text = sum(len(tok(p, add_special_tokens=False).input_ids)
+               for p in re.split("<IMAGE-Placeholder>|<AUDIO-Placeholder>", OMNI_PROMPT) if p)
+    image = (OMNI_IMAGE_HW[0] // 14) * (OMNI_IMAGE_HW[1] // 14) // 4
+    audio = sum(((200 - 1) // 2 + 1) for _ in range(OMNI_MEL_FRAMES // 200)) // 2
+    T = text + image + audio
+    return T, T + 2
+
+
+class _Timed:
+    """A stand-in for `inner` whose calls (and `methods`) are timed to a
+    device synchronise, the seconds and calls summed into timing[key]."""
+
+    def __init__(self, inner, timing: dict, key: str):
+        self.inner, self.timing, self.key = inner, timing, key
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, *args, **kwargs):
+        return _timed_call(self.inner, self.timing, self.key, args, kwargs)
+
+
+def _timed_call(fn, timing: dict, key: str, args, kwargs):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    s, n = timing.get(key, (0.0, 0))
+    timing[key] = (s + time.perf_counter() - t0, n + 1)
+    return out
+
+
+def _time_methods(obj, names, timing: dict, prefix: str):
+    """Wrap obj's bound methods `names` on the instance, timed into timing."""
+    for name in names:
+        fn = getattr(obj, name)
+        setattr(obj, name, lambda *a, _fn=fn, _k=prefix + name, **kw:
+                _timed_call(_fn, timing, _k, a, kw))
+
+
+def phase_omni(dev, smi: str):
+    """Qwen2.5-Omni-7B at full width and depth, bf16 (token2wav fp32), random
+    from seed 0, built by from_pretrained('omni_speech') and driven through
+    OmniSpeechPipeline.chat_with_speech: one request of text, a 448 x 448
+    image and 10 s of audio; 64 thinker tokens, up to 128 codec tokens under
+    HF's default sampling, token2wav with 10 RK4 steps and guidance 0.5.
+    Yields the rows omni (after a warm-up turn), omni_check and omni_profile;
+    the omni row carries its launches (28 flash forwards a prefill, the
+    thinker's and the talker's, all on "wgmma")."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.models import omni_token2wav, qwen_omni
+    from spider_tpu_torch.ops.norms import rms_norm
+
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    pipe = factory.from_pretrained("omni_speech", device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    thinker, talker = pipe.thinker, pipe.talker
+    thinker.max_new_tokens = OMNI_THINKER_TOKENS
+    image, mel = omni_inputs()
+    T_think, T_talk = omni_prefill_lengths()
+    layers = thinker.llm.config.num_hidden_layers + talker.config.num_hidden_layers
+    kw = dict(audios=[mel], images=[image], max_speech_tokens=OMNI_SPEECH_TOKENS,
+              num_flow_steps=OMNI_FLOW_STEPS, guidance_scale=OMNI_GUIDANCE)
+
+    # the warm-up turn, shorter; then the measured one with each stage timed
+    thinker.max_new_tokens = 4
+    pipe.chat_with_speech(OMNI_PROMPT, **dict(kw, max_speech_tokens=8, num_flow_steps=2))
+    thinker.max_new_tokens = OMNI_THINKER_TOKENS
+    timing = {}
+    _time_methods(thinker, ("encode_audio", "encode_image", "prefill", "_decode"), timing,
+                  "thinker.")
+    _time_methods(pipe, ("talk",), timing, "pipe.")
+    token2wav = pipe.token2wav
+    pipe.token2wav = _Timed(token2wav, timing, "token2wav")
+    codes_seen, decoded = [], []
+    talk, decode = pipe.talk, thinker._decode
+    pipe.talk = lambda *a, **k: codes_seen.append(talk(*a, **k)) or codes_seen[-1]
+    thinker._decode = lambda *a, **k: decoded.append(decode(*a, **k)) or decoded[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    text, wav = pipe.chat_with_speech(OMNI_PROMPT, **kw)
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t0
+    counts, routes = read_launches(), read_route_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name in ("encode_audio", "encode_image", "prefill", "_decode"):
+        del thinker.__dict__[name]
+    del pipe.__dict__["talk"]
+    pipe.token2wav = token2wav
+    codes = codes_seen[-1]
+    sec = lambda k: timing[k][0]
+    prefill_s = sec("thinker.prefill")
+    decode_s = sec("thinker._decode") - prefill_s
+    # decode steps: one a reply row (up to 64; the loop stops at EOS)
+    steps = len(decoded[-1][2])
+    launch_ok = (counts == dict(dict.fromkeys(KERNELS, 0), flash_fwd=layers)
+                 and routes["flash_fwd"].get("wgmma", 0) == layers)
+    wav_ok = (wav.dtype == np.float32 and wav.ndim == 1 and bool(np.isfinite(wav).all())
+              and float(np.abs(wav).max(initial=0.0)) <= 1.0
+              and wav.size == 2 * len(codes) * OMNI_UPSAMPLE)
+    codes_ok = (1 <= len(codes) <= OMNI_SPEECH_TOKENS + 1
+                and int(codes.max()) <= token2wav.dit.config.num_embeds)
+    yield dict(phase="omni", model="Qwen2.5-Omni-7B: thinker (qwen2 28 layers of 3584, 28/4 "
+               "heads, mrope 16/24/24; audio tower 32 x 1280; vision tower 32 x 1280, full "
+               "attention at 7/15/23/31), talker (28 layers of 3584), DiT 22 x 1024, BigVGAN "
+               "1536 ch x240", build_s=build_s, resident_gb=resident_gb, peak_gb=peak_gb,
+               prompt=OMNI_PROMPT, image_hw=list(OMNI_IMAGE_HW), mel_frames=OMNI_MEL_FRAMES,
+               thinker_prefill_T=T_think, talker_prefill_T=T_talk,
+               audio_encode_s=sec("thinker.encode_audio"),
+               image_encode_s=sec("thinker.encode_image"),
+               thinker_prefill_ms=prefill_s * 1e3, thinker_decode_s=decode_s,
+               thinker_decode_steps=steps,
+               thinker_decode_tok_s=steps / decode_s if decode_s > 0 else None,
+               text_chars=len(text), talker_s=sec("pipe.talk"), codes=len(codes),
+               talker_tok_s=len(codes) / sec("pipe.talk"), token2wav_s=sec("token2wav"),
+               turn_s=turn_s, wave_samples=int(wav.size),
+               wave_samples_expected=2 * len(codes) * OMNI_UPSAMPLE,
+               wave_abs_max=float(np.abs(wav).max(initial=0.0)), launches=counts,
+               route_launches=routes, flash_launches_expected=layers, nvidia_smi=smi,
+               ok=launch_ok and wav_ok and codes_ok and isinstance(text, str))
+
+    # ---- omni_check: the thinker's prefill logits in bf16 on the kernel and
+    # with plain attention, each against an fp32 copy with plain attention
+    # (streamed a layer at a time: the fp32 thinker would not fit beside the
+    # resident models)
+    llm, cfg = thinker.llm, thinker.llm.config
+    embeds, positions, _ = thinker.prepare(OMNI_PROMPT, [mel], [image])
+    T = embeds.shape[1]
+    pos = torch.from_numpy(positions).to(dev)
+
+    def prefill_logits():
+        cache = L.init_kv_cache(cfg, 1, T, device=dev)
+        return llm.call_with_final(embeds, positions=pos, kv_write_index=0, kv_cache=cache,
+                                   kv_len=torch.tensor([T], dtype=torch.int32, device=dev))[0]
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    with torch.inference_mode():
+        reset_launches()
+        routed = prefill_logits()[0].float()
+        check_counts, check_routes = read_launches(), read_route_launches()
+        with plain_llama_attention():
+            plain = prefill_logits()[0].float()
+            x = embeds.float()
+            for layer in llm.model.layers:
+                block = L.LlamaBlock(cfg32, dev).eval()
+                block.load_state_dict(layer.state_dict())
+                x = block(x, pos, 0)[0]
+                del block
+            final = rms_norm(x, llm.model.norm.float(), cfg.rms_norm_eps)
+            want = (final @ llm.lm_head.weight.float().T)[0]
+    err_kernel, err_plain = _rel_errors(routed, plain, want)
+    agree = float((routed.argmax(-1) == want.argmax(-1)).float().mean())
+    yield dict(phase="omni_check", T=T, rel_err_kernel_vs_fp32=err_kernel,
+               rel_err_plain_vs_fp32=err_plain, argmax_agree_kernel_vs_fp32=agree,
+               flash_launches=check_counts["flash_fwd"],
+               flash_wgmma=check_routes["flash_fwd"].get("wgmma", 0), nvidia_smi=smi,
+               ok=bool(torch.isfinite(routed).all()) and T == T_think
+               and check_counts["flash_fwd"] == cfg.num_hidden_layers
+               and check_routes["flash_fwd"].get("wgmma", 0) == cfg.num_hidden_layers
+               and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+    del routed, plain, want, x, final
+    torch.cuda.empty_cache()
+
+    # ---- omni_profile: device time by kernel of the towers' encodes and one
+    # thinker prefill, and of one DiT call (CFG batch of 2 over 2 x codes
+    # frames), with the share of the towers' and the DiT's plain attention
+    saved = (qwen_omni.audio_attention, qwen_omni.vision_attention,
+             omni_token2wav.dit_attention)
+    qwen_omni.audio_attention = _labelled(saved[0], OMNI_LABELS[0])
+    qwen_omni.vision_attention = _labelled(saved[1], OMNI_LABELS[1])
+    omni_token2wav.dit_attention = _labelled(saved[2], OMNI_LABELS[2])
+    dit, dcfg = token2wav.dit, token2wav.dit.config
+    Tm = 2 * len(codes)
+    g = torch.Generator(device=dev).manual_seed(5)
+    y = torch.randn((1, Tm, dcfg.mel_dim), generator=g, device=dev)
+    spk = torch.zeros((1, Tm, dcfg.enc_emb_dim), device=dev)
+    ref_mel = torch.zeros((1, 2 * dcfg.block_size, dcfg.mel_dim), device=dev)
+    code = torch.as_tensor(codes[None].astype(np.int64), device=dev)
+
+    def thinker_call():
+        with torch.inference_mode():
+            thinker.encode_audio(mel)
+            thinker.encode_image(image)
+            thinker.prefill(embeds, positions, 0)
+
+    def dit_call():
+        with torch.inference_mode():
+            dit(y, spk, ref_mel, code, 0.5, apply_cfg=True)
+
+    try:
+        think_prof = _labelled_profile(thinker_call, OMNI_LABELS)
+        dit_prof = _labelled_profile(dit_call, OMNI_LABELS)
+    finally:
+        qwen_omni.audio_attention, qwen_omni.vision_attention, omni_token2wav.dit_attention = \
+            saved
+    towers = {k: think_prof["labelled"][k] for k in OMNI_LABELS[:2]}
+    yield dict(phase="omni_profile", towers_and_prefill=think_prof, dit_call=dit_prof,
+               audio_attention_share=towers[OMNI_LABELS[0]]["share"],
+               vision_attention_share=towers[OMNI_LABELS[1]]["share"],
+               dit_attention_share=dit_prof["labelled"][OMNI_LABELS[2]]["share"],
+               dit_frames=Tm, nvidia_smi=smi,
+               ok=think_prof["device_ms"] > 0 and dit_prof["device_ms"] > 0
+               and towers[OMNI_LABELS[0]]["ranges"] == pipe.thinker.audio_enc.config.num_layers
+               and towers[OMNI_LABELS[1]]["ranges"] == pipe.thinker.vision_enc.config.depth
+               and dit_prof["labelled"][OMNI_LABELS[2]]["ranges"] == dcfg.num_hidden_layers)
+    del pipe, thinker, talker, token2wav, dit, embeds
+    torch.cuda.empty_cache()
+
+
+def _omni_keys(name: str, layers: int, prefix: str):
+    """The manifest's keys with `prefix`, cut to the first `layers` of its
+    ``layers.N.`` / ``blocks.N.`` entries."""
+    import re
+
+    out = []
+    for k in manifest_keys(name):
+        m = re.match(r"(?:model\.)?(?:layers|blocks)\.(\d+)\.", k)
+        if m is None or int(m.group(1)) < layers:
+            out.append(prefix + k)
+    return out
+
+
+def checkpoint_omni(directory: str, dev):
+    """A synthetic Qwen2.5-Omni-7B checkpoint in the HF layout (bf16 safetensors
+    and config.json), at full width and cut in depth only: 4 of 28 LLM and
+    talker layers, 4 of 32 layers of each tower; the key lists those of the
+    five omni_* manifests at that depth (the DiT and BigVGAN whole) and the
+    thinker's Qwen2 decoder. Loaded through from_pretrained('qwen_omni_thinker'
+    and 'omni_speech', path=...) with every tensor equal to the on-card
+    conversion of the written ones and the thinker's reply equal to one filled
+    in memory; then the qwen2_5omni_infer twin through SPIDER_TPU_OMNI=1 and
+    SPIDER_TPU_OMNI_CKPT, its answer equal to SpiderFree on the in-memory
+    thinker. Returns rows."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from spider_tpu_torch import qwen2_5omni_infer
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models import checkpoint_io as io
+    from spider_tpu_torch.models import convert as C
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.models import qwen_omni as Q
+    from spider_tpu_torch.models.omni_talker import OmniTalker, talker_full
+    from spider_tpu_torch.models.omni_token2wav import BigVGAN, DiTModel, bigvgan_full, dit_full
+    from spider_tpu_torch.models.tokenizer import TinyTokenizer
+    from spider_tpu_torch.serving.spider_free import SpiderFree
+
+    bf16 = torch.bfloat16
+    depths = dict(llm=dict(num_hidden_layers=OMNI_CKPT_LAYERS),
+                  audio=dict(num_layers=OMNI_CKPT_TOWER_LAYERS),
+                  vision=dict(depth=OMNI_CKPT_TOWER_LAYERS))
+    t0 = time.perf_counter()
+    acfg, vcfg, lcfg = Q.omni_thinker_configs(bf16, depths)
+    tcfg = dataclasses.replace(talker_full(), dtype=bf16, param_dtype=bf16,
+                               num_hidden_layers=OMNI_CKPT_LAYERS)
+    src = dict(audio=Q.OmniAudioEncoder(acfg, dev), vision=Q.OmniVisionEncoder(vcfg, dev),
+               llm=L.LlamaForCausalLM(lcfg, dev), talker=OmniTalker(tcfg, dev),
+               dit=DiTModel(dit_full(), dev), vocoder=BigVGAN(bigvgan_full(), dev))
+    for i, m in enumerate(src.values()):
+        fill_synthetic_(m.eval(), CKPT_SEED + i)
+    keys = {"audio": _omni_keys("omni_audio_tower", OMNI_CKPT_TOWER_LAYERS, "thinker.audio_tower."),
+            "vision": _omni_keys("omni_vision_tower", OMNI_CKPT_TOWER_LAYERS, "thinker.visual."),
+            "talker": _omni_keys("omni_talker", OMNI_CKPT_LAYERS, "talker."),
+            "dit": _omni_keys("omni_dit", 99, "token2wav.code2wav_dit_model."),
+            "vocoder": _omni_keys("omni_bigvgan", 99, "token2wav.code2wav_bigvgan_model.")}
+    all_keys = set().union(*map(set, keys.values()))
+    ra, rv, rl = C.omni_thinker_rules(all_keys | {"thinker.lm_head.weight"}, acfg, vcfg, lcfg)
+    rules = dict(audio=ra, vision=rv, llm=rl, talker=C.omni_talker_rules(all_keys, tcfg),
+                 dit=C.omni_dit_rules(all_keys, dit_full()),
+                 vocoder=C.omni_bigvgan_rules(all_keys, bigvgan_full()))
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    hf = {}
+    for name, module in src.items():
+        hf.update({k: v.to(bf16) for k, v in C.export_state_dict(
+            rules[name], module.state_dict()).items()})
+    # the two keys the converters skip, present in a real checkpoint
+    hf["thinker.audio_tower.audio_bos_eos_token.weight"] = torch.zeros(2, acfg.output_dim,
+                                                                       dtype=bf16, device=dev)
+    hf["token2wav.code2wav_dit_model.rotary_embed.inv_freq"] = torch.ones(
+        dit_full().head_dim // 2, dtype=bf16, device=dev)
+    llm_keys = {k for r in rl for k in r.keys}
+    keys_ok = set(hf) == all_keys | llm_keys and all(
+        set(v) <= set(hf) for v in keys.values())
+    io.save_file({k: v.contiguous().cpu() for k, v in hf.items()},
+                 os.path.join(directory, "model.safetensors"))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump({"architectures": ["Qwen2_5OmniModel"], "model_type": "qwen2_5_omni",
+                   "thinker_config": {"text_config": {"num_hidden_layers": OMNI_CKPT_LAYERS},
+                                      "audio_config": {"encoder_layers": OMNI_CKPT_TOWER_LAYERS},
+                                      "vision_config": {"depth": OMNI_CKPT_TOWER_LAYERS}},
+                   "talker_config": {"num_hidden_layers": OMNI_CKPT_LAYERS},
+                   "torch_dtype": "bfloat16"}, f, indent=2)
+    total = sum(t.numel() * t.element_size() for t in hf.values())
+    write_s = time.perf_counter() - t0
+    rows = []
+
+    del src
+    free()
+    image, mel = omni_inputs(43)
+    image = image[:224, :224]
+    prompt = "Look at <IMAGE-Placeholder> and <AUDIO-Placeholder>."
+    # the thinker filled in memory from the same tensors
+    parts = []
+    for make, rset in ((lambda: Q.OmniAudioEncoder(acfg, dev), ra),
+                       (lambda: Q.OmniVisionEncoder(vcfg, dev), rv),
+                       (lambda: L.LlamaForCausalLM(lcfg, dev), rl)):
+        part = make().eval()
+        part.load_state_dict(C.convert_state_dict(rset, hf), strict=True)
+        parts.append(part)
+    class Ids(TinyTokenizer):
+        """TinyTokenizer keeping the ids of its last decode: most of a random
+        152064-id model's ids decode to nothing, so the texts alone would
+        agree too easily."""
+
+        def decode(self, ids, **kw):
+            self.ids = list(ids)
+            return super().decode(ids, **kw)
+
+    mem = Q.QwenOmniThinker(parts[2], Ids(), parts[0], parts[1], max_new_tokens=16)
+    want_reply = mem.chat(prompt, audios=[mel[:400]], images=[image])
+    want_ids = mem.tokenizer.ids
+    thinker, load = _timed_load(lambda: factory.from_pretrained(
+        "qwen_omni_thinker", path=directory, device=dev, dtype=bf16))
+    bad = []
+    for mod, rset in ((thinker.audio_enc, ra), (thinker.vision_enc, rv), (thinker.llm, rl)):
+        bad += _states_equal(mod.state_dict(), C.convert_state_dict(rset, hf))
+    thinker.max_new_tokens = 16
+    thinker.tokenizer = Ids()
+    reset_launches()
+    reply = thinker.chat(prompt, audios=[mel[:400]], images=[image])
+    launches, routes = read_launches(), read_route_launches()
+    ids_equal = thinker.tokenizer.ids == want_ids and len(want_ids) == 17
+    rows.append(dict(phase="checkpoint", model="qwen_omni_thinker", checkpoint_gb=total / 1e9,
+                     write_s=write_s, read_gb_per_s=total / 1e9 / load["load_s"],
+                     keys_equal_manifests=keys_ok, tensors=len(hf), tensors_differing=bad[:8],
+                     depths=depths, reply_equal_in_memory=reply == want_reply,
+                     reply_ids_equal_in_memory=ids_equal, reply_ids=len(want_ids),
+                     reply_chars=len(reply), launches=launches, route_launches=routes,
+                     **load,
+                     ok=keys_ok and not bad and reply == want_reply and ids_equal
+                     and launches["flash_fwd"] == OMNI_CKPT_LAYERS
+                     and routes["flash_fwd"].get("wgmma", 0) == OMNI_CKPT_LAYERS))
+    del thinker
+    free()
+
+    speech, load = _timed_load(lambda: factory.from_pretrained(
+        "omni_speech", path=directory, device=dev, dtype=bf16))
+    bad = []
+    for mod, name in ((speech.talker, "talker"), (speech.token2wav.dit, "dit"),
+                      (speech.token2wav.vocoder, "vocoder")):
+        bad += _states_equal(mod.state_dict(), C.convert_state_dict(rules[name], hf))
+    rows.append(dict(phase="checkpoint", model="omni_speech", tensors_differing=bad[:8],
+                     talker_layers=speech.talker.config.num_hidden_layers,
+                     read_gb_per_s=total / 1e9 / load["load_s"], **load,
+                     ok=not bad and speech.talker.config.num_hidden_layers == OMNI_CKPT_LAYERS))
+    del speech
+    free()
+
+    # the infer twin: SpiderFree on the thinker the environment selects
+    saved = {k: os.environ.get(k) for k in ("SPIDER_TPU_OMNI", "SPIDER_TPU_OMNI_CKPT",
+                                            "QWEN_OMNI_PATH")}
+    os.environ.update(SPIDER_TPU_OMNI="1", SPIDER_TPU_OMNI_CKPT=directory)
+    os.environ.pop("QWEN_OMNI_PATH", None)
+    hf_tokenizer, twin_tok = factory._hf_tokenizer, Ids()
+    factory._hf_tokenizer = lambda *a, **k: twin_tok       # the twin's tokenizer, recording
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        answer = qwen2_5omni_infer.main([R1_PROMPT])
+        twin_s = time.perf_counter() - t0
+        launches, routes = read_launches(), read_route_launches()
+    finally:
+        factory._hf_tokenizer = hf_tokenizer
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    free()
+    cfg = Config.fromfile(os.path.join(ROOT, "train_configs", "spider_decoder_cfg.py"))
+    mem.max_new_tokens = 512                   # build_full_omni_thinker's default
+    _, answers, _, _ = SpiderFree(cfg, lambda p, **kw: mem.chat(p, **kw), decoders={}).chat(
+        R1_PROMPT)
+    ids_equal = twin_tok.ids == mem.tokenizer.ids and len(twin_tok.ids) > 1
+    rows.append(dict(phase="checkpoint", model="qwen2_5omni_infer_twin", seconds=twin_s,
+                     answer_chars=len(answer), answer_equal_in_memory=answer == answers[0],
+                     ids=len(twin_tok.ids), ids_equal_in_memory=ids_equal,
+                     launches=launches, route_launches=routes,
+                     ok=answer == answers[0] and ids_equal
+                     and launches["flash_fwd"] == OMNI_CKPT_LAYERS
+                     and routes["flash_fwd"].get("wgmma", 0) == OMNI_CKPT_LAYERS))
+    del mem, parts, hf
+    free()
+    return rows
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -4865,9 +5364,10 @@ def main() -> int:
     family_only = sys.argv[1:] == ["family"]
     story_only = sys.argv[1:] == ["story"]
     grounding_only = sys.argv[1:] == ["grounding"]
+    omni_only = sys.argv[1:] == ["omni"]
     if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only
-                             or grounding_only):
-        print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding]",
+                             or grounding_only or omni_only):
+        print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding | omni]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -4967,6 +5467,25 @@ def main() -> int:
                   file=sys.stderr)
         return 0 if ok else 1
 
+    if omni_only:
+        for row in phase_kernel_flash(dev, 0, only="omni_"):
+            emit(dict(phase="kernel", nvidia_smi=smi, **row))
+            ok &= row["ok"]
+        for row in phase_omni(dev, smi):
+            emit(row)
+            ok &= row["ok"]
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="spider_ckpt_") as d:
+            for row in checkpoint_omni(d, dev):
+                emit(dict(row, nvidia_smi=smi))
+                ok &= row["ok"]
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: an omni row failed (see the JSON lines above)", file=sys.stderr)
+        return 0 if ok else 1
+
     if family_only:
         model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
         for row in family_phases(model, tokenizer, dev, smi):
@@ -5046,6 +5565,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # BOX and MASK: Grounding DINO and SAM ViT-H through the decoder twin
     for row in phase_grounding(dev, smi):
+        emit(row)
+        ok &= row["ok"]
+        if "launches" in row:
+            _add_launches(main_launches, row["launches"])
+    torch.cuda.empty_cache()
+    # Qwen2.5-Omni: text and speech out of one request (omni, omni_check,
+    # omni_profile), its models freed after
+    for row in phase_omni(dev, smi):
         emit(row)
         ok &= row["ok"]
         if "launches" in row:

@@ -27,6 +27,9 @@ port's layouts, so the reference's transposes are gone, and the ops left are:
                 flax applies that kernel unflipped, so this is the torch
                 module that computes what the reference computes
   * ``cat``     rows stored as separate tensors [1, D] -> one [N, D]
+  * ``k1``      a kernel-1 Conv1d weight [out, in, 1] -> a Linear's [out, in]
+  * ``flat``    a patch embedding [out, C, t, p, p] -> a Linear's [out, C*t*p*p]
+                (the rule's ``shapes`` keep the stored shape for the inverse)
   * ``zeros``   no checkpoint key: zeros of the rule's ``shapes`` (BERT's
                 pooler where a checkpoint has none, as the reference fills it)
 
@@ -313,6 +316,12 @@ def _temporal(w: torch.Tensor) -> torch.Tensor:
     return w[..., 0]
 
 
+def _k1(w: torch.Tensor) -> torch.Tensor:
+    if w.dim() != 3 or w.shape[-1] != 1:
+        raise ValueError(f"a kernel-1 Conv1d weight is [out, in, 1], got {tuple(w.shape)}")
+    return w[..., 0]
+
+
 def _split3(w: torch.Tensor):
     if w.shape[0] % 3:
         raise ValueError(f"a fused q/k/v tensor needs 3 equal parts, got {tuple(w.shape)}")
@@ -329,6 +338,8 @@ _OPS: Dict[str, Callable[..., Tuple[torch.Tensor, ...]]] = {
     "int8": quantize_int8,
     "tflip": lambda t: (t.flip(2, 3),),
     "cat": lambda *ts: (torch.cat(ts, dim=0),),
+    "k1": lambda t: (_k1(t),),
+    "flat": lambda t: (t.reshape(t.shape[0], -1),),
 }
 
 
@@ -349,6 +360,7 @@ _INVERSE: Dict[str, Callable[..., Tuple[torch.Tensor, ...]]] = {
     "tflip": lambda t: (t.flip(2, 3),),
     "cat": lambda t: tuple(t[i: i + 1] for i in range(t.shape[0])),
     "zeros": lambda *ts: (),
+    "k1": lambda t: (t[..., None],),
 }
 
 
@@ -384,6 +396,9 @@ def export_state_dict(rules: Iterable[Rule], state: Mapping[str, torch.Tensor]
     int8 has no inverse)."""
     out: Dict[str, torch.Tensor] = {}
     for rule in rules:
+        if rule.op == "flat":
+            out[rule.keys[0]] = state[rule.names[0]].reshape(rule.shapes[0])
+            continue
         if rule.op not in _INVERSE:
             raise ValueError(f"op {rule.op!r} has no inverse ({rule.names})")
         out.update(zip(rule.keys, _INVERSE[rule.op](*(state[n] for n in rule.names))))
@@ -1164,3 +1179,251 @@ def grounding_dino_rules(keys: Collection[str], cfg) -> List[Rule]:
 
 def convert_grounding_dino_state_dict(sd: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return convert_state_dict(grounding_dino_rules(sd, cfg), sd)
+
+
+# ---- Qwen2.5-Omni: thinker towers, talker, token2wav ------------------------
+
+def _prefixed(rules: Iterable[Rule], prefix: str) -> List[Rule]:
+    """The rules with `prefix` put before every checkpoint key."""
+    return [dataclasses.replace(r, keys=tuple(prefix + k for k in r.keys)) for r in rules]
+
+
+def _key_prefix(keys: Collection[str], prefix: str) -> str:
+    """`prefix` where a full-Omni checkpoint has it on its keys, else ''."""
+    return prefix if any(k.startswith(prefix) for k in keys) else ""
+
+
+def _inner_keys(keys: Collection[str], prefix: str) -> Set[str]:
+    return {k[len(prefix):] for k in keys if k.startswith(prefix)}
+
+
+def omni_audio_rules(keys: Collection[str], cfg, prefix: str = "audio_tower.") -> List[Rule]:
+    """Qwen2_5OmniAudioEncoder names -> the port's OmniAudioEncoder
+    (spider_tpu/models/convert.py:971-1003). The conv weights are torch's
+    layout as stored; ``audio_bos_eos_token`` (unused at inference) and the
+    sinusoid table (recomputed) are not read."""
+    r = _Rules(keys)
+    for n in ("conv1", "conv2"):
+        r.add(f"{n}.weight", f"{prefix}{n}.weight")
+        r.add(f"{n}.bias", f"{prefix}{n}.bias")
+    r.norm("ln_post", prefix + "ln_post")
+    r.dense("proj", prefix + "proj")
+    for i in range(cfg.num_layers):
+        b, p = f"{prefix}layers.{i}.", f"layer_{i}."
+        r.norm(p + "self_attn_layer_norm", b + "self_attn_layer_norm")
+        r.norm(p + "final_layer_norm", b + "final_layer_norm")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            r.dense(f"{p}self_attn.{n}", f"{b}self_attn.{n}")
+        r.dense(p + "fc1", b + "fc1")
+        r.dense(p + "fc2", b + "fc2")
+    return r
+
+
+def omni_vision_rules(keys: Collection[str], cfg, prefix: str = "visual.") -> List[Rule]:
+    """Qwen2_5OmniVisionEncoder names -> the port's OmniVisionEncoder
+    (spider_tpu/models/convert.py:1006-1037): the bias-free Conv3d patch
+    embedding flattened to a Linear over (C, tp, p, p) vectors (``flat``),
+    the blocks' RMSNorm scales as raw parameters, the merger's MLP."""
+    r = _Rules(keys)
+    r.append(Rule(("patch_embed.weight",), (prefix + "patch_embed.proj.weight",), "flat",
+                  shapes=((cfg.hidden_size, cfg.in_channels, cfg.temporal_patch_size,
+                           cfg.patch_size, cfg.patch_size),)))
+    r.add("ln_q", prefix + "merger.ln_q.weight")
+    r.dense("merge_fc1", prefix + "merger.mlp.0")
+    r.dense("merge_fc2", prefix + "merger.mlp.2")
+    for i in range(cfg.depth):
+        b, p = f"{prefix}blocks.{i}.", f"block_{i}."
+        r.add(p + "norm1", b + "norm1.weight")
+        r.add(p + "norm2", b + "norm2.weight")
+        for n in ("q", "k", "v", "proj"):
+            r.dense(f"{p}attn.{n}", f"{b}attn.{n}")
+        for n, k in (("mlp_gate", "gate_proj"), ("mlp_up", "up_proj"), ("mlp_down", "down_proj")):
+            r.dense(p + n, f"{b}mlp.{k}")
+    return r
+
+
+def omni_thinker_rules(keys: Collection[str], audio_cfg, vision_cfg, llm_cfg
+                       ) -> Tuple[List[Rule], List[Rule], List[Rule]]:
+    """(audio, vision, llm) rule sets of a thinker checkpoint, bare or with
+    the full Omni's ``thinker.`` prefix (spider_tpu/models/convert.py:1040-1053):
+    the towers under ``audio_tower.`` and ``visual.``, the Qwen2 decoder's
+    ``model.*`` and ``lm_head.*`` through ``llama_rules``."""
+    pre = _key_prefix(keys, "thinker.")
+    inner = _inner_keys(keys, pre)
+    return (_prefixed(omni_audio_rules(inner, audio_cfg), pre),
+            _prefixed(omni_vision_rules(inner, vision_cfg), pre),
+            _prefixed(llama_rules({k for k in inner if k.startswith(("model.", "lm_head."))},
+                                  llm_cfg), pre))
+
+
+def omni_talker_rules(keys: Collection[str], cfg, prefix: str = "talker.") -> List[Rule]:
+    """Qwen2_5OmniTalkerForConditionalGeneration names -> the port's
+    OmniTalker (spider_tpu/models/convert.py:1056-1077): the Qwen2 body's
+    ``model.*`` through ``llama_rules`` (its embedding is the codec
+    embedding), ``thinker_to_talker_proj`` and ``codec_head``; bare or
+    ``talker.``-prefixed."""
+    pre = _key_prefix(keys, prefix)
+    inner = _inner_keys(keys, pre)
+    r = _Rules(inner)
+    r.extend(llama_rules({k for k in inner if k.startswith("model.")}, cfg.as_llama()))
+    r.dense("thinker_to_talker_proj", "thinker_to_talker_proj")
+    r.add("codec_head.weight", "codec_head.weight")
+    return _prefixed(r, pre)
+
+
+def _tdnn(r: _Rules, name: str, key: str) -> None:
+    r.add(f"{name}.conv.weight", f"{key}.conv.weight")
+    r.add(f"{name}.conv.bias", f"{key}.conv.bias")
+
+
+def _k1_dense(r: _Rules, name: str, key: str) -> None:
+    r.add(f"{name}.weight", f"{key}.weight", "k1")
+    if f"{key}.bias" in r.keys:
+        r.add(f"{name}.bias", f"{key}.bias")
+
+
+def omni_dit_rules(keys: Collection[str], cfg,
+                   prefix: str = "token2wav.code2wav_dit_model.") -> List[Rule]:
+    """Qwen2_5OmniToken2WavDiTModel names -> the port's DiTModel
+    (spider_tpu/models/convert.py:1094-1142): the ECAPA encoder's kernel-1
+    convolutions that the port holds as Linears (``k1``); the rotary table
+    ``rotary_embed.inv_freq`` (recomputed) is not read."""
+    pre = _key_prefix(keys, prefix)
+    r = _Rules(_inner_keys(keys, pre))
+    e, enc = "spk_encoder.", "input_embed.spk_encoder."
+    _tdnn(r, e + "block_0", enc + "blocks.0")
+    _tdnn(r, e + "mfa", enc + "mfa")
+    _tdnn(r, e + "asp.tdnn", enc + "asp.tdnn")
+    _k1_dense(r, e + "asp.conv", enc + "asp.conv")
+    _k1_dense(r, e + "fc", enc + "fc")
+    for i in range(1, len(cfg.enc_channels) - 1):
+        b, p = f"{enc}blocks.{i}.", f"{e}block_{i}."
+        _tdnn(r, p + "tdnn1", b + "tdnn1")
+        _tdnn(r, p + "tdnn2", b + "tdnn2")
+        for j in range(cfg.enc_res2net_scale - 1):
+            _tdnn(r, f"{p}res2net_block.block_{j}", f"{b}res2net_block.blocks.{j}")
+        _k1_dense(r, p + "se_block.conv1", b + "se_block.conv1")
+        _k1_dense(r, p + "se_block.conv2", b + "se_block.conv2")
+    r.dense("time_mlp_in", "time_embed.time_mlp.0")
+    r.dense("time_mlp_out", "time_embed.time_mlp.2")
+    r.add("codec_embed.weight", "text_embed.codec_embed.weight")
+    r.dense("input_proj", "input_embed.proj")
+    r.dense("norm_out_linear", "norm_out.linear")
+    r.dense("proj_out", "proj_out")
+    for i in range(cfg.num_hidden_layers):
+        b, p = f"transformer_blocks.{i}.", f"layer_{i}."
+        r.dense(p + "attn_norm_linear", b + "attn_norm.linear")
+        for n, k in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0")):
+            r.dense(f"{p}attn.{n}", f"{b}attn.{k}")
+        r.dense(p + "ff_in", b + "ff.ff.0")
+        r.dense(p + "ff_out", b + "ff.ff.3")
+    return _prefixed(r, pre)
+
+
+def omni_bigvgan_rules(keys: Collection[str], cfg,
+                       prefix: str = "token2wav.code2wav_bigvgan_model.") -> List[Rule]:
+    """Qwen2_5OmniToken2WavBigVGANModel names -> the port's BigVGAN
+    (spider_tpu/models/convert.py:1145-1187): AMP block i*R+j as ``res_<i>_<j>``,
+    its SnakeBeta pairs ``activations.2m``/``2m+1`` as ``act1_<m>``/``act2_<m>``;
+    the ConvTranspose1d weights [in, out, k] are the port's layout as stored."""
+    pre = _key_prefix(keys, prefix)
+    r = _Rules(_inner_keys(keys, pre))
+
+    def snake(name: str, key: str) -> None:
+        r.add(f"{name}.alpha", f"{key}.alpha")
+        r.add(f"{name}.beta", f"{key}.beta")
+
+    r.add("conv_pre.weight", "conv_pre.weight")
+    r.add("conv_pre.bias", "conv_pre.bias")
+    snake("activation_post", "activation_post.act")
+    r.add("conv_post.weight", "conv_post.weight")
+    R = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        r.add(f"up_{i}.weight", f"ups.{i}.0.weight")
+        r.add(f"up_{i}.bias", f"ups.{i}.0.bias")
+        for j in range(R):
+            b, p = f"resblocks.{i * R + j}.", f"res_{i}_{j}."
+            for m in range(len(cfg.resblock_dilation_sizes[j])):
+                for n, k in ((f"conv1_{m}", f"convs1.{m}"), (f"conv2_{m}", f"convs2.{m}")):
+                    r.add(f"{p}{n}.weight", f"{b}{k}.weight")
+                    r.add(f"{p}{n}.bias", f"{b}{k}.bias")
+                snake(f"{p}act1_{m}", f"{b}activations.{2 * m}.act")
+                snake(f"{p}act2_{m}", f"{b}activations.{2 * m + 1}.act")
+    return _prefixed(r, pre)
+
+
+# config.json node and key -> the port's config field, for each part
+_OMNI_CONFIG_FIELDS = {
+    "llm": (("thinker_config", "text_config"), {
+        "vocab_size": "vocab_size", "hidden_size": "hidden_size",
+        "intermediate_size": "intermediate_size", "num_hidden_layers": "num_hidden_layers",
+        "num_attention_heads": "num_attention_heads",
+        "num_key_value_heads": "num_key_value_heads", "rope_theta": "rope_theta",
+        "rms_norm_eps": "rms_norm_eps"}),
+    "audio": (("thinker_config", "audio_config"), {
+        "num_mel_bins": "num_mel_bins", "d_model": "d_model", "encoder_layers": "num_layers",
+        "encoder_attention_heads": "num_heads", "encoder_ffn_dim": "ffn_dim",
+        "n_window": "n_window", "max_source_positions": "max_positions",
+        "output_dim": "output_dim"}),
+    "vision": (("thinker_config", "vision_config"), {
+        "depth": "depth", "hidden_size": "hidden_size", "intermediate_size": "intermediate_size",
+        "num_heads": "num_heads", "in_channels": "in_channels", "patch_size": "patch_size",
+        "spatial_merge_size": "spatial_merge_size",
+        "temporal_patch_size": "temporal_patch_size", "window_size": "window_size",
+        "out_hidden_size": "out_hidden_size", "fullatt_block_indexes": "fullatt_block_indexes"}),
+    "talker": (("talker_config",), {
+        "vocab_size": "vocab_size", "embedding_size": "embedding_size",
+        "hidden_size": "hidden_size", "intermediate_size": "intermediate_size",
+        "num_hidden_layers": "num_hidden_layers", "num_attention_heads": "num_attention_heads",
+        "num_key_value_heads": "num_key_value_heads", "head_dim": "head_dim",
+        "rope_theta": "rope_theta", "rms_norm_eps": "rms_norm_eps",
+        "tts_codec_start_token_id": "codec_bos", "tts_codec_end_token_id": "codec_eos",
+        "tts_codec_pad_token_id": "codec_pad", "tts_codec_mask_token_id": "codec_mask",
+        "tts_text_start_token_id": "text_bos", "tts_text_end_token_id": "text_eos",
+        "tts_text_pad_token_id": "text_pad"}),
+}
+
+
+def read_omni_config(path: Optional[str]) -> Dict[str, Dict[str, Any]]:
+    """What an HF Qwen2.5-Omni ``config.json`` in `path` states of each part
+    ({'llm', 'audio', 'vision', 'talker'}: {port config field: value}), {}
+    where there is none. The builders replace their ``*_full`` preset's
+    fields with these, so a checkpoint's widths and depths are followed
+    (``talker_full`` is transformers' class default, not necessarily the
+    talker a checkpoint holds); what the file leaves out stays the preset's."""
+    if not path or not os.path.isfile(os.path.join(path, "config.json")):
+        return {}
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    out: Dict[str, Dict[str, Any]] = {}
+    for part, (where, fields) in _OMNI_CONFIG_FIELDS.items():
+        node = hf
+        for key in where:
+            node = node.get(key, {})
+        got = {field: tuple(node[key]) if isinstance(node[key], list) else node[key]
+               for key, field in fields.items() if key in node}
+        section = (node.get("rope_scaling") or {}).get("mrope_section")
+        if section is not None and part in ("llm", "talker"):
+            got["mrope_section"] = tuple(section)
+        if got:
+            out[part] = got
+    return out
+
+
+def load_omni_thinker(path: str, audio: nn.Module, vision: nn.Module, llm: nn.Module) -> None:
+    """Stream a thinker checkpoint (a Qwen2.5-Omni directory or file) into
+    the three modules on their devices, in their dtypes."""
+    with open_state_dict(path) as sd:
+        ra, rv, rl = omni_thinker_rules(sd, audio.config, vision.config, llm.config)
+        for module, rules in ((audio, ra), (vision, rv), (llm, rl)):
+            load_converted(module, rules, sd)
+
+
+def load_omni_speech(path: str, talker: nn.Module, dit: nn.Module, vocoder: nn.Module) -> None:
+    """Stream a Qwen2.5-Omni checkpoint's talker and token2wav keys into
+    the three modules."""
+    with open_state_dict(path) as sd:
+        for module, rules in ((talker, omni_talker_rules(sd, talker.config)),
+                              (dit, omni_dit_rules(sd, dit.config)),
+                              (vocoder, omni_bigvgan_rules(sd, vocoder.config))):
+            load_converted(module, rules, sd)

@@ -181,11 +181,25 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
     ImageBindEncoder (imagebind_huge) in `dtype`; 'sam' -> Sam (ViT-H at
     1024px) in `dtype`, from the official ``sam_vit_h`` checkpoint;
     'grounding_dino' -> GroundingDINOInference (Swin-T + BERT-base, 900
-    queries, at 512px) in `dtype`, from an mm_grounding_dino checkpoint. A
-    checkpoint's tokenizer is its HF tokenizer through ``transformers``, or
-    TinyTokenizer where that cannot load (``_hf_tokenizer``); a random
-    Grounding DINO takes TinyTokenizer.
+    queries, at 512px) in `dtype`, from an mm_grounding_dino checkpoint;
+    'qwen_omni_thinker' -> QwenOmniThinker (Qwen2.5-Omni-7B's audio and
+    vision towers and Qwen2 decoder) in `dtype`, from a Qwen2.5-Omni
+    checkpoint's thinker; 'omni_speech' -> OmniSpeechPipeline (that thinker,
+    the talker in `dtype`, token2wav in fp32; the directory's
+    ``spk_dict.pt`` where it has one). A checkpoint's tokenizer is its HF
+    tokenizer through ``transformers``, or TinyTokenizer where that cannot
+    load (``_hf_tokenizer``); a random Grounding DINO or Omni takes
+    TinyTokenizer.
     """
+    if kind == "qwen_omni_thinker":
+        from spider_tpu_torch.models.qwen_omni import build_full_omni_thinker
+
+        return build_full_omni_thinker(path, device=device, dtype=dtype, seed=seed)
+    if kind == "omni_speech":
+        from spider_tpu_torch.models.omni_speech import build_full_omni_speech, default_spk_path
+
+        return build_full_omni_speech(path, default_spk_path(path), device=device, dtype=dtype,
+                                      seed=seed)
     if kind == "llama":
         if quantization not in ("int8", "int4"):
             raise ValueError(f"llama quantization must be 'int8' or 'int4', got "
@@ -226,7 +240,8 @@ def from_pretrained(kind: str, path: Optional[str] = None, *, device,
         return GroundingDINOInference(model, _hf_tokenizer(path, ""))
     if kind not in ("sd15", "zeroscope", "audioldm", "sdxl_story"):
         raise ValueError(f"unknown kind {kind!r} (expected 'sd15', 'zeroscope', 'audioldm', "
-                         f"'sdxl_story', 'imagebind', 'sam', 'grounding_dino' or 'llama')")
+                         f"'sdxl_story', 'imagebind', 'sam', 'grounding_dino', 'llama', "
+                         f"'qwen_omni_thinker' or 'omni_speech')")
     parts = pipeline_parts(kind, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     for sub, (module, rules) in parts.items():

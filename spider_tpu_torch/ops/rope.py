@@ -7,6 +7,7 @@ so the same code serves prefill (positions 0..T) and KV-cached decode
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -58,6 +59,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(section, device) -> torch.Tensor:
+    """[d2] int64: the position stream of each frequency, made once per
+    (section, device). Built on the device from a per-call host tensor and a
+    tensor-valued repeat_interleave, it cost two waits for the device in
+    every call (four a layer of a decode step)."""
+    return torch.tensor([i for i, n in enumerate(section) for _ in range(n)], device=device)
+
+
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
                 section) -> torch.Tensor:
     """Multimodal 3-D RoPE (Qwen2-VL / Qwen2.5-Omni), counterpart of
@@ -74,8 +84,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor
     if sum(section) != d2:
         raise ValueError(f"mrope section {tuple(section)} must sum to head_dim/2 = {d2}")
     angles = positions[..., None].float() * inv_freq                  # [3, B, T, d2]
-    sel = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(section, device=x.device))       # [d2]
+    sel = _mrope_streams(tuple(section), x.device)                     # [d2]
     # The JAX form sums the three streams weighted by a one-hot of sel,
     # which picks one of them exactly; a gather picks the same bits.
     ang = torch.gather(angles.movedim(0, -1), -1,
