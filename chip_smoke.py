@@ -113,6 +113,26 @@ Phases, each printing one JSON line:
                bits) and once for the prefill alone; then _decode_modality_infer for
                IMAGE, AUDIO and VIDEO from that run's hidden states with each signal
                run written into the token row: fused conditioning, media, launches
+  train_data   train_configs/spider_train.py, the production recipe, through the train
+               entry's build_runner with preset 'full' and SAM ViT-H, its 21 builders at
+               their full-size defaults (224 px, SAM 1024, 128 x 204 mel, 5 clips) on
+               real-format sources the port's own writers put in a temporary directory:
+               cc_sbu-, webvid- and audiocap-style tar shards (jpg where PIL imports, mp4
+               where cv2 writes one, else <ext>.npy; 10 s flac and wav at 16 kHz), a
+               REFER corpus (refs(unc).p, instances.json with polygons and compressed
+               RLE, jpg images), a travel JSON, an HDF5 story file where h5py imports
+               (else the story builders' synthetic twin); batch sizes, ratios,
+               length_bucket and max_context_len as the config gives them. One
+               RunnerBase.train_step from each builder in the config's order (task,
+               padded and live tokens, step and data seconds, finite losses, flash / dq
+               / dk-dv launches by route as the config implies, SAM's share in the MASK
+               step), peak GB, HbmBudget's report, StepTimer p50/p90, the tar reader of
+               each tar builder (the native library built in spider_tpu_torch/build/,
+               or the phase fails); a 16-iteration train_epoch through MultiIterLoader
+               at the config's ratios; PrefetchLoader(device=cuda:0) bit-equal to
+               prepare_sample, and the data seconds a consumer waits with and without
+               it; common/profiler.trace around one step, whose device rows name the
+               three flash kernels
   story_check  one SDXL story UNet call at 768px (4 frames, id_length 4, batched CFG,
                consistent self-attention on the up blocks) routed through the kernel,
                with plain attention, and in fp32; 176 flash launches, all wgmma
@@ -186,8 +206,8 @@ and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
 configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, omni, the
-train steps (the MASK step among them), spider_generate, the checkpoint
-decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
+train steps (the MASK step among them), spider_generate, train_data's steps and epoch, the
+checkpoint decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
 and the run fails if a main-path launch took a general route: every bf16
@@ -205,7 +225,9 @@ build, the wgmma probe, the backward rows at SAM's shapes, the routing rows, the
 grounding phases, the train phase's mask_step alone (the 8B Spider with SAM,
 built through the train entry) and the two grounding checkpoints; `python3
 chip_smoke.py omni` the build, the wgmma probe, the flash rows at the Omni prefill
-shapes, the omni phases and the Omni checkpoint. None prints the final line.
+shapes, the omni phases and the Omni checkpoint; `python3 chip_smoke.py data` the
+build, the wgmma probe and train_data (with the three pipelines it needs as alignment
+targets). None prints the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -2136,6 +2158,21 @@ def train_config(out_dir: str):
                  length_bucket=TRAIN_BUCKET, output_dir=out_dir)))
 
 
+def batch_tokens(spider, samples, bucket: int):
+    """(padded, live, supervised) tokens of a batch as the step sees it:
+    padded to the length bucket; up to each sample's last token; with a
+    target."""
+    from spider_tpu_torch.runners.runner import _pad_to_bucket
+
+    pad = spider.tokenizer.pad_token_id
+    batch = _pad_to_bucket(spider.prepare_batch(samples), bucket, pad)
+    slots = sum(batch.slot_mask.values()) > 0 if batch.slot_mask else False
+    real = (batch.input_ids != pad) | slots
+    last = real.shape[1] - real[:, ::-1].argmax(axis=1)
+    return (int(batch.input_ids.size), int(last[real.any(axis=1)].sum()),
+            int((batch.targets != -100).sum()))
+
+
 def phase_train(sd, ad, vd, dev, smi: str):
     """The training path at full width, through the train entry's own
     build_runner (task -> datasets -> build_spider_from_config(preset='full')
@@ -2157,7 +2194,6 @@ def phase_train(sd, ad, vd, dev, smi: str):
     from spider_tpu_torch.common.registry import registry
     from spider_tpu_torch.datasets.utils.loaders import batched
     from spider_tpu_torch.ops import attention as A
-    from spider_tpu_torch.runners.runner import _pad_to_bucket
     from spider_tpu_torch.runners.train_step import build_optimizer, make_lm_train_step
 
     rows = []
@@ -2230,16 +2266,7 @@ def phase_train(sd, ad, vd, dev, smi: str):
                     for n, p in vocab.items()}
 
         def token_counts(samples):
-            """(padded, live, supervised) tokens of a batch as the step sees it:
-            padded to the length bucket; up to each sample's last token; with a
-            target."""
-            pad = spider.tokenizer.pad_token_id
-            batch = _pad_to_bucket(spider.prepare_batch(samples), TRAIN_BUCKET, pad)
-            slots = sum(batch.slot_mask.values()) > 0 if batch.slot_mask else False
-            real = (batch.input_ids != pad) | slots
-            last = real.shape[1] - real[:, ::-1].argmax(axis=1)
-            return (int(batch.input_ids.size), int(last[real.any(axis=1)].sum()),
-                    int((batch.targets != -100).sum()))
+            return batch_tokens(spider, samples, TRAIN_BUCKET)
 
         def timed_step(samples):
             reset_launches()
@@ -2797,6 +2824,486 @@ def phase_spider_generate(handoff: dict, sd, ad, vd, dev, smi: str):
     del inf, spider, named, runs, a, b, prefill
     gc.collect()
     torch.cuda.empty_cache()
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# train_data: train_configs/spider_train.py, the production recipe, at full
+# width on real-format data (tar shards, a REFER corpus, a travel JSON, an
+# HDF5 story file) written here by the port's own writers
+# ---------------------------------------------------------------------------
+
+TRAIN_DATA_CONFIG = "train_configs/spider_train.py"
+TRAIN_DATA_SHARD_SAMPLES = 8          # samples a tar shard; two shards a family
+TRAIN_DATA_SHUFFLE = 4                # the tar builders' shuffle buffer (the default 1000
+                                      # would decode 1000 samples before the first)
+TRAIN_DATA_EPOCH_ITERS = 16           # the short train_epoch at the config's ratios
+TRAIN_DATA_PREFETCH = 6               # batches through PrefetchLoader and prepare_sample
+DATA_IMAGE_HW = (384, 512)            # cc_sbu images and REFER images
+DATA_VIDEO_FRAMES_HW = (24, 240, 320)  # webvid clips
+DATA_AUDIO_SECONDS = 10.0             # audiocap clips at 16 kHz
+DATA_REFER_IMAGES = 12
+DATA_CAPTIONS = ("a dog running on the beach", "a red car parked near a tree",
+                 "two children playing football", "a bowl of fruit on a table",
+                 "a city street at night with lights", "a cat sleeping on a sofa",
+                 "a mountain lake under a blue sky", "a man riding a bicycle")
+TAR_FAMILIES = {
+    "cc_sbu": ("i2t_cc_sbu", "t2i_cc_sbu", "t2i_ts_cc_sbu", "i2t_ts_cc_sbu"),
+    "webvid": ("v2t_webvid", "t2v_webvid", "t2v_ts_webvid", "t2v_ts_mul_webvid",
+               "t2v_ts_spec_webvid", "v2t_ts_webvid"),
+    "audiocap": ("a2t_audiocap", "t2a_audiocap", "t2a_ts_audiocap", "a2t_ts_audiocap")}
+
+
+def coco_rle_string(mask) -> str:
+    """A binary mask's compressed COCO RLE string (pycocotools' rleToString:
+    column-major runs, each from the run before last as a delta, in 5-bit
+    groups with a continuation bit, offset by 48)."""
+    import numpy as np
+
+    flat = np.asarray(mask).T.reshape(-1)
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    bounds = np.concatenate([[0], edges, [flat.size]])
+    runs = list(np.diff(bounds))
+    if flat[0]:
+        runs = [0] + runs                        # runs start with a run of zeros
+    out = []
+    for i, x in enumerate(int(r) for r in runs):
+        if i > 2:
+            x -= int(runs[i - 2])
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not (x == 0 and not c & 0x10 or x == -1 and c & 0x10)
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def write_train_data_sources(directory: str, seed: int) -> dict:
+    """Real-format sources for spider_train.py's builders, written by the
+    port's ShardWriter, flac and wav encoders: cc_sbu-, webvid- and
+    audiocap-style tar shards; a REFER corpus (refcoco/refs(unc).p and
+    instances.json, polygon and compressed-RLE annotations, its images); a
+    travel-guide JSON; an HDF5 story file. Images are .jpg where PIL imports,
+    videos .mp4 where cv2 can write one, the story HDF5 where h5py imports;
+    else pre-decoded `<ext>.npy` members (or, for the story, the synthetic
+    twin). Returns the paths and the formats used."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from spider_tpu_torch.datasets import media
+    from spider_tpu_torch.datasets.flac import encode_flac
+    from spider_tpu_torch.datasets.shard_writer import ShardWriter
+
+    rng = np.random.default_rng(seed)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+
+    def picture(h, w):
+        """Gradients with noise: compresses like a photo, unlike pure noise."""
+        y, x = np.mgrid[0:h, 0:w]
+        base = np.stack([x * 255 // w, y * 255 // h, (x + y) * 127 // (h + w)], axis=-1)
+        return np.clip(base + rng.integers(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+
+    def jpeg(img) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    def mp4(frames):
+        """mp4v bytes of `frames` through cv2, or None where it cannot write."""
+        if cv2 is None:
+            return None
+        path = os.path.join(directory, "clip.mp4")
+        h, w = frames.shape[1:3]
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (w, h))
+        if not writer.isOpened():
+            return None
+        for f in frames:
+            writer.write(f[..., ::-1].copy())
+        writer.release()
+        with open(path, "rb") as f:
+            data = f.read()
+        os.remove(path)
+        return data
+
+    n = 2 * TRAIN_DATA_SHARD_SAMPLES
+    paths, formats = {}, {}
+    pattern = os.path.join(directory, "{}-%03d.tar")
+    with ShardWriter(pattern.format("cc_sbu"), TRAIN_DATA_SHARD_SAMPLES) as w:
+        for i in range(n):
+            img = picture(*DATA_IMAGE_HW)
+            w.write(f"{i:06d}", {"jpg": jpeg(img) if Image else img,
+                                 "txt": DATA_CAPTIONS[i % len(DATA_CAPTIONS)]})
+    formats["cc_sbu"] = ["jpg" if Image else "jpg.npy", "txt"]
+    T, H, W = DATA_VIDEO_FRAMES_HW
+    video_formats = set()
+    with ShardWriter(pattern.format("webvid"), TRAIN_DATA_SHARD_SAMPLES) as w:
+        for i in range(n):
+            frames = np.stack([np.roll(picture(H, W), 4 * t, axis=1) for t in range(T)])
+            data = mp4(frames)
+            video_formats.add("mp4" if data is not None else "mp4.npy")
+            w.write(f"{i:06d}", {"mp4": data if data is not None else frames,
+                                 "txt": DATA_CAPTIONS[(i + 3) % len(DATA_CAPTIONS)]})
+    formats["webvid"] = sorted(video_formats) + ["txt"]
+    t = np.arange(int(DATA_AUDIO_SECONDS * 16000)) / 16000
+    with ShardWriter(pattern.format("audiocap"), TRAIN_DATA_SHARD_SAMPLES) as w:
+        for i in range(n):
+            wave = (0.3 * np.sin(2 * np.pi * (180 + 40 * i) * t)
+                    + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+            audio = ({"flac": encode_flac(wave, 16000)} if i % 2 == 0
+                     else {"wav": media.encode_wav_bytes(wave, 16000)})
+            w.write(f"{i:06d}", {**audio, "txt": DATA_CAPTIONS[(i + 5) % len(DATA_CAPTIONS)]})
+    formats["audiocap"] = ["flac (10 s, 16 kHz, encode_flac)", "wav (10 s, 16 kHz)", "txt"]
+    for family in TAR_FAMILIES:
+        paths[family] = os.path.join(directory, f"{family}-*.tar")
+
+    # REFER: refs(unc).p + instances.json; even annotations polygons, odd ones
+    # compressed RLE; images under images/ (COCO file names)
+    refer_root = os.path.join(directory, "refer")
+    image_dir = os.path.join(refer_root, "images")
+    os.makedirs(os.path.join(refer_root, "refcoco"))
+    os.makedirs(image_dir)
+    h, w = DATA_IMAGE_HW
+    images, anns, refs = [], [], []
+    for i in range(DATA_REFER_IMAGES):
+        name = f"COCO_train2014_{i:012d}.jpg"
+        if Image is not None:
+            Image.fromarray(picture(h, w)).save(os.path.join(image_dir, name), quality=90)
+        images.append(dict(id=i, file_name=name, height=h, width=w))
+        x0, y0 = int(rng.integers(0, w // 2)), int(rng.integers(0, h // 2))
+        bw, bh = int(rng.integers(w // 8, w // 2)), int(rng.integers(h // 8, h // 2))
+        if i % 2 == 0:
+            seg = [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh],
+                   [x0 + bw / 2, y0 + bh, x0 + bw, y0 + 1.5 * bh, x0, y0 + 1.5 * bh]]
+        else:
+            mask = np.zeros((h, w), np.uint8)
+            mask[y0: y0 + bh, x0: x0 + bw] = 1
+            seg = dict(counts=coco_rle_string(mask), size=[h, w])
+        anns.append(dict(id=100 + i, image_id=i, bbox=[x0, y0, bw, bh], segmentation=seg,
+                         category_id=1))
+        sentences = [dict(sent=DATA_CAPTIONS[i % len(DATA_CAPTIONS)])]
+        if i % 3 == 0:
+            sentences.append(dict(sent=f"the object on the {('left', 'right')[i % 2]}"))
+        refs.append(dict(ref_id=i, ann_id=100 + i, image_id=i, category_id=1,
+                         split="train" if i < DATA_REFER_IMAGES - 2 else "val",
+                         sentences=sentences))
+    with open(os.path.join(refer_root, "refcoco", "refs(unc).p"), "wb") as f:
+        pickle.dump(refs, f)
+    with open(os.path.join(refer_root, "refcoco", "instances.json"), "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name="object")]), f)
+    paths.update(refer_root=refer_root, image_path=image_dir if Image else "")
+    formats["refer"] = ["refs(unc).p", "instances.json (polygons, compressed RLE)",
+                        "jpg" if Image else "no images: PIL does not import"]
+
+    guides = [dict(location=f"City {i}", answer_multimodal=dict(
+        introduction=f"City {i} sits on a river.",
+        must_see_attractions=[f"Old gate<IMAGE>the old gate of city {i}</IMAGE>: stone.",
+                              f"Harbour<VIDEO>boats in the harbour of city {i}</VIDEO>."],
+        cultural_experiences=[f"Street music<AUDIO>street music of city {i}</AUDIO>."],
+        food=f"Fish soup<IMAGE>a bowl of fish soup</IMAGE>: local.")) for i in range(12)]
+    paths["travel_json"] = os.path.join(directory, "travel_guides.json")
+    with open(paths["travel_json"], "w") as f:
+        json.dump(guides, f)
+    formats["travel_guide"] = ["json"]
+
+    if h5py is not None:
+        paths["story_hdf5"] = os.path.join(directory, "story.h5")
+        with h5py.File(paths["story_hdf5"], "w") as f:
+            f["image"] = np.stack([np.stack([picture(128, 128) for _ in range(5)])
+                                   for _ in range(8)])
+            f["text"] = np.array([[f"scene {j} of story {s}: {DATA_CAPTIONS[(s + j) % 8]}"
+                                   for j in range(5)] for s in range(8)], dtype="S")
+        formats["story"] = ["hdf5 (image [8, 5, 128, 128, 3], text [8, 5])"]
+    else:
+        formats["story"] = ["synthetic twin: h5py does not import"]
+    return dict(paths=paths, formats=formats)
+
+
+def train_data_config(out_dir: str, sources: dict):
+    """train_configs/spider_train.py as `python -m spider_tpu_torch.train`
+    reads it, set to the full preset with SAM ViT-H, every builder's tiny
+    build_info replaced by the builders' own full-size defaults (224 px
+    images, SAM at 1024, 128 mel bins x 204 frames, 5 clips) and the path of
+    its source; batch sizes, ratios, length_bucket and max_context_len as
+    the config gives them; the epoch cut to TRAIN_DATA_EPOCH_ITERS."""
+    from spider_tpu_torch.common.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, TRAIN_DATA_CONFIG))
+    cfg.model.preset = "full"
+    cfg.model.with_sam = True
+    paths = sources["paths"]
+    for name, entry in cfg.datasets.items():
+        family = next((f for f, names in TAR_FAMILIES.items() if name in names), None)
+        if family is not None:
+            info = dict(webdataset_path=paths[family], shuffle_buffer=TRAIN_DATA_SHUFFLE)
+        elif "refcoco" in name:
+            info = dict(refer_root=paths["refer_root"], image_path=paths["image_path"])
+        elif name == "travel_guide":
+            info = dict(json_path=paths["travel_json"])
+        else:
+            info = dict(hdf5_path=paths["story_hdf5"]) if "story_hdf5" in paths else {}
+        entry.build_info = info
+    cfg.run.output_dir = out_dir
+    cfg.run.iters_per_epoch = TRAIN_DATA_EPOCH_ITERS
+    cfg.run.log_freq = TRAIN_DATA_EPOCH_ITERS
+    return cfg
+
+
+def _same_tensors(got, want) -> bool:
+    """Nested dicts and lists of tensors equal bit for bit, dtypes and devices
+    included; other leaves equal."""
+    import torch
+
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(_same_tensors(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(_same_tensors(a, b) for a, b in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.device == want.device and torch.equal(got, want))
+    if hasattr(want, "tolist"):                  # object arrays stay on the host
+        return got.tolist() == want.tolist()
+    return got == want
+
+
+def phase_train_data(sd, ad, vd, dev, smi: str):
+    """spider_train.py at full width through the train entry's build_runner
+    and RunnerBase.train_step / train_epoch, on the sources of
+    write_train_data_sources: one step from each of the 21 builders in the
+    config's order, then a short train_epoch through MultiIterLoader at the
+    config's ratios; PrefetchLoader against prepare_sample; one step under
+    common/profiler.trace. Returns (rows, launches): the main path's launch
+    counts are the 21 steps' and the epoch's."""
+    import gc
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spider_tpu_torch import train as T
+    from spider_tpu_torch.common import profiler
+    from spider_tpu_torch.common.observability import HbmBudget
+    from spider_tpu_torch.datasets import native_loader
+    from spider_tpu_torch.datasets.utils.loaders import (MultiIterLoader, PrefetchLoader,
+                                                          batched, prepare_sample)
+
+    rows = []
+    launches = dict.fromkeys(KERNELS, 0)
+    routes = {name: dict.fromkeys(by_route, 0)
+              for name, by_route in read_route_launches().items()}
+    work = tempfile.mkdtemp(prefix="spider_train_data_")
+
+    def add(counts):
+        for name in KERNELS:
+            launches[name] += counts[name]
+        for name, by_route in read_route_launches().items():
+            for route, n in by_route.items():
+                routes[name][route] += n
+
+    def finite(values):
+        return all(v == v and abs(v) != float("inf") for v in values)
+
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "data"))
+        sources = write_train_data_sources(os.path.join(work, "data"), seed=21)
+        write_s = time.perf_counter() - t0
+        rows.append(dict(phase="train_data", part="sources", seconds=write_s,
+                         formats=sources["formats"], ok=True))
+
+        t0 = time.perf_counter()
+        cfg = train_data_config(os.path.join(work, "out"), sources)
+        runner = T.build_runner(cfg, dev, "chip_smoke_data")
+        for handler in logging.getLogger().handlers:
+            if getattr(handler, "stream", None) is sys.stdout:
+                handler.setStream(sys.stderr)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        spider = runner.model
+        spider.diffusion_pipes.update(IMAGE=sd, VIDEO=vd, AUDIO=ad)
+        llm_cfg = spider.llm.config
+        L = llm_cfg.num_hidden_layers
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(flash_fwd=L * (1 + llm_cfg.remat), flash_bwd_dq=L, flash_bwd_dkv=L)
+        entries = runner.datasets["train"]
+        budget = HbmBudget(dev)
+        budget.register("llama3_8b (bf16 base, fp32 LoRA and vocabulary)", spider.llm)
+        budget.register("imagebind_huge (bf16)", spider.encoder)
+        budget.register("sam_vit_h (bf16, fp32 mask decoder)", spider.sam)
+        budget.register("moe_aligner + llama_proj", [spider.moe_aligner, spider.llama_proj])
+        budget.register("sd15 (bf16)", [sd.text_encoder, sd.unet, sd.vae])
+        budget.register("zeroscope (bf16)", [vd.text_encoder, vd.unet, vd.vae])
+        budget.register("audioldm (bf16)", [ad.text_encoder, ad.unet, ad.vae, ad.vocoder])
+        rows.append(dict(
+            phase="train_data", part="build", seconds=build_s, config=TRAIN_DATA_CONFIG,
+            entry="spider_tpu_torch.train.build_runner",
+            builders=list(entries), batch_sizes={n: e["batch_size"] for n, e in entries.items()},
+            sample_ratios={n: e["sample_ratio"] for n, e in entries.items()},
+            length_bucket=runner.length_bucket, max_context_len=spider.max_context_len,
+            lora_r=llm_cfg.lora.r, layers=L, hidden=llm_cfg.hidden_size,
+            sam_img_size=spider.sam.config.img_size if spider.sam is not None else None,
+            ok=len(entries) == 21 and L == 32 and llm_cfg.hidden_size == 4096
+            and llm_cfg.lora.r == 32 and spider.sam is not None
+            and spider.max_context_len == cfg.model.max_context_len
+            and runner.length_bucket == cfg.run.length_bucket))
+
+        # ---- one step from each builder, in the config's order
+        timer = profiler.StepTimer()
+        torch.cuda.reset_peak_memory_stats()
+        batches, steps_ok = {}, True
+        for i, (name, entry) in enumerate(entries.items()):
+            loader = batched(iter(entry["dataset"]), entry["batch_size"])
+            t0 = time.perf_counter()
+            samples = next(loader)
+            data_s = time.perf_counter() - t0
+            batches[name] = samples
+            task = samples["TaskPrompt"][0]
+            padded, live, _ = batch_tokens(spider, samples, runner.length_bucket)
+            expect = dict(want)
+            if task == "[MASK]" and spider.sam is not None:
+                n = grounding_flash_calls("sam_vit_h_mask_step", len(samples["TaskPrompt"]))
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    expect[k] += n
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timer.step():
+                out = runner.train_step(samples)
+                torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            counts, by_route = read_launches(), read_route_launches()
+            add(counts)
+            source = getattr(entry["dataset"], "source", None)
+            row = dict(phase="train_data", part="builder_step", index=i, builder=name,
+                       task=task, batch=len(samples["TaskPrompt"]), padded_tokens=padded,
+                       live_tokens=live, step_s=step_s, data_s=data_s,
+                       includes_warm_up=i == 0, losses=out, loss_finite=finite(out.values()),
+                       launches=counts, launches_expected=expect,
+                       route_launches={k: by_route[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                                 "flash_bwd_dkv")},
+                       tar_reader=getattr(source, "reader", None),
+                       source=type(source).__name__ if source is not None else
+                       type(entry["dataset"]).__name__)
+            row["ok"] = (row["loss_finite"] and counts == expect
+                         and on_ruled_route(by_route) and 0 < live <= padded)
+            steps_ok &= row["ok"]
+            rows.append(row)
+        tar_readers = {n: getattr(entries[n]["dataset"].source, "reader", None)
+                       for names in TAR_FAMILIES.values() for n in names}
+        library = native_loader.LOADED_PATH
+        rows.append(dict(
+            phase="train_data", part="steps", builders=len(batches),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, step_timer=timer.summary(),
+            hbm_budget=budget.report(log=lambda *a: None), tar_readers=tar_readers,
+            native_library=os.path.relpath(library, ROOT) if library else None,
+            data_s_total=sum(r["data_s"] for r in rows if r.get("part") == "builder_step"),
+            step_s_total=sum(r["step_s"] for r in rows if r.get("part") == "builder_step"),
+            ok=steps_ok and len(batches) == 21
+            and all(r == "native" for r in tar_readers.values())
+            and library is not None
+            and os.path.dirname(library) == os.path.join(ROOT, "spider_tpu_torch", "build")))
+
+        # ---- a short epoch through RunnerBase.train_epoch: MultiIterLoader
+        # over the 21 builders at the config's ratios, the metrics stream
+        reset_launches()
+        step0 = runner.global_step
+        epoch_s = _sync_s(lambda: runner.train_epoch(0))[1]
+        counts = read_launches()
+        add(counts)
+        with open(os.path.join(cfg.run.output_dir, "metrics.jsonl")) as f:
+            stream = [json.loads(line) for line in f]
+        n = TRAIN_DATA_EPOCH_ITERS
+        mask_steps = (counts["flash_fwd"] - n * want["flash_fwd"]) / max(
+            grounding_flash_calls("sam_vit_h_mask_step", 1), 1)
+        rows.append(dict(
+            phase="train_data", part="train_epoch", iters=n, seconds=epoch_s,
+            s_per_iter=epoch_s / n, losses=[m["loss"] for m in stream], launches=counts,
+            mask_steps_by_launches=mask_steps,
+            ok=runner.global_step == step0 + n and len(stream) == n
+            and finite(m["loss"] for m in stream)
+            and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
+            and counts["flash_bwd_dq"] - n * want["flash_bwd_dq"]
+            == counts["flash_fwd"] - n * want["flash_fwd"]
+            and mask_steps == int(mask_steps) >= 0))
+
+        # ---- PrefetchLoader: the same bits as prepare_sample; data seconds the
+        # consumer waits with and without it, a consumer taking one median
+        # step's time (host sleep) between batches
+        fixed = [batches[name] for name in list(entries)[:TRAIN_DATA_PREFETCH]]
+        got = list(PrefetchLoader(iter(fixed), 2, dev))
+        same = all(_same_tensors(g, prepare_sample(b, dev)) for g, b in zip(got, fixed))
+        del got
+        step_s = statistics.median(r["step_s"] for r in rows if r.get("part") == "builder_step")
+
+        def mixed():
+            iters = [batched(iter(e["dataset"]), e["batch_size"]) for e in entries.values()]
+            return MultiIterLoader(iters, [e["sample_ratio"] for e in entries.values()],
+                                   seed=7)
+
+        def waits(it):
+            total = 0.0
+            for _ in range(TRAIN_DATA_PREFETCH):
+                t0 = time.perf_counter()
+                batch = next(it)
+                torch.cuda.synchronize()
+                total += time.perf_counter() - t0
+                del batch
+                time.sleep(step_s)
+            return total
+
+        plain_wait = waits(prepare_sample(b, dev) for b in mixed())
+        prefetch_it = iter(PrefetchLoader(mixed(), 2, dev))
+        prefetch_wait = waits(prefetch_it)
+        prefetch_it.close()
+        rows.append(dict(phase="train_data", part="prefetch", batches=len(fixed),
+                         same_bits=same, consumer_step_s=step_s, draws=TRAIN_DATA_PREFETCH,
+                         data_wait_s_prepare_sample=plain_wait,
+                         data_wait_s_prefetch_loader=prefetch_wait, depth=2,
+                         ok=same and len(fixed) == TRAIN_DATA_PREFETCH))
+
+        # ---- common/profiler.trace around one step: the device rows name the
+        # three kernels (these launches are not counted)
+        samples = batches["i2t_cc_sbu"]
+        with profiler.trace(os.path.join(work, "trace")) as prof:
+            with profiler.annotate("train_data::step"):
+                runner.train_step(samples)
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in name for name in kernels)
+                 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        rows.append(dict(phase="train_data", part="profile_trace",
+                         trace_mb=os.path.getsize(prof.trace_path) / 1e6,
+                         device_rows=len(kernels), kernel_rows=named,
+                         annotated=any(e.get("name") == "train_data::step" for e in events),
+                         ok=all(v > 0 for v in named.values())))
+        rows.append(dict(phase="train_data", part="routes", launches=launches,
+                         route_launches=routes,
+                         ok=on_ruled_route(routes)
+                         and all(sum(routes[n].values()) == launches[n] for n in ROUTED)))
+        del runner, spider, batches, fixed, samples
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["nvidia_smi"] = smi
     return rows, launches
 
 
@@ -4527,13 +5034,14 @@ def grounding_attention_shapes():
     return rows
 
 
-def grounding_flash_calls(model: str) -> int:
+def grounding_flash_calls(model: str, batch: int = None) -> int:
     """Flash launches of one call of `model` (a grounding_attention_shapes
-    name): its attentions that unet2d.spatial_flash_predicate routes there."""
+    name), at its own batch or at `batch`: its attentions that
+    unet2d.spatial_flash_predicate routes there."""
     from spider_tpu_torch.models.unet2d import spatial_flash_predicate
 
     return sum(calls for m, _, _, calls, B, T, S, H, D in grounding_attention_shapes()
-               if m == model and spatial_flash_predicate(B, T, S, H, D))
+               if m == model and spatial_flash_predicate(batch or B, T, S, H, D))
 
 
 def grounding_image(seed: int):
@@ -5365,10 +5873,11 @@ def main() -> int:
     story_only = sys.argv[1:] == ["story"]
     grounding_only = sys.argv[1:] == ["grounding"]
     omni_only = sys.argv[1:] == ["omni"]
+    data_only = sys.argv[1:] == ["data"]
     if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only
-                             or grounding_only or omni_only):
-        print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding | omni]",
-              file=sys.stderr)
+                             or grounding_only or omni_only or data_only):
+        print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding | omni"
+              " | data]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -5486,6 +5995,20 @@ def main() -> int:
             print("chip_smoke: an omni row failed (see the JSON lines above)", file=sys.stderr)
         return 0 if ok else 1
 
+    if data_only:
+        sd = factory.from_pretrained("sd15", device=dev, dtype=torch.bfloat16, seed=0)
+        vd = factory.from_pretrained("zeroscope", device=dev, dtype=torch.bfloat16, seed=1)
+        ad = factory.from_pretrained("audioldm", device=dev, dtype=torch.bfloat16, seed=2)
+        for row in phase_train_data(sd, ad, vd, dev, smi)[0]:
+            emit(row)
+            ok &= row["ok"]
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a train_data row failed (see the JSON lines above)",
+                  file=sys.stderr)
+        return 0 if ok else 1
+
     if family_only:
         model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
         for row in family_phases(model, tokenizer, dev, smi):
@@ -5599,6 +6122,15 @@ def main() -> int:
         emit(row)
         ok &= row["ok"]
     _add_launches(main_launches, gen_launches)
+
+    # The production recipe, train_configs/spider_train.py, at full width on
+    # real-format data: a step from each of its 21 builders and a short epoch
+    data_rows, data_launches = phase_train_data(sd, ad, vd, dev, smi)
+    for row in data_rows:
+        emit(row)
+        ok &= row["ok"]
+    _add_launches(main_launches, data_launches)
+    del data_rows
 
     # The checkpoint slice: real layouts written at full size and loaded;
     # the card's memory goes to the 8B checkpoint and the Spider built on it.

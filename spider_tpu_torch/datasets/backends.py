@@ -1,8 +1,8 @@
 """Data sources (a copy of spider_tpu/datasets/backends.py, which is numpy and
 Python only). Webdataset tar shards, COCO/REFER annotations, HDF5 story files
 and JSON travel files; every source also has a synthetic twin so the full pipeline
-runs without files. Decoding real media goes through ``datasets/media.py``,
-which is not ported yet: the import is lazy and only real files reach it.
+runs without files. Real media decode through ``datasets/media.py``; tar shards
+are walked by the native reader (``datasets/native_loader.py``) where it builds.
 """
 
 from __future__ import annotations
@@ -98,6 +98,7 @@ class TarShardSource:
         self.native = native
         if os.environ.get("SPIDER_NATIVE_TAR", "1") == "0":
             self.native = "never"
+        self.reader: Optional[str] = None
 
     def _wanted(self, ext: str) -> bool:
         if self.decode_exts is None:
@@ -107,7 +108,8 @@ class TarShardSource:
                    for p in parts)
 
     def _native_reader(self, shards: List[str]):
-        """Best-effort native byte source; None if the .so can't build."""
+        """Best-effort native byte source; None if the .so can't build
+        (NativeTarSource loads its library when it is made)."""
         if self.native == "never":
             return None
         try:
@@ -121,6 +123,8 @@ class TarShardSource:
 
     def _iter_all_shards(self, shards: List[str]) -> Iterator[Dict[str, Any]]:
         native = self._native_reader(shards)
+        # which reader walked the shards last: "native" or "python"
+        self.reader = "python" if native is None else "native"
         if native is not None:
             for raw in native:
                 sample: Dict[str, Any] = {}

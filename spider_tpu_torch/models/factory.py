@@ -480,7 +480,8 @@ def build_spider_from_config(model_config: Dict, *, device):
     if preset == "tiny":
         if any(cfg.get("paths", {}).values()):
             raise ValueError("preset 'tiny' is random and takes no checkpoint paths")
-        keys = ("use_moe_aligner", "with_pipes", "modality_tokens", "lora_r") + _SPIDER_KWARGS
+        keys = ("use_moe_aligner", "with_pipes", "with_sam", "modality_tokens",
+                "lora_r") + _SPIDER_KWARGS
         return build_tiny_spider(device=device, **{k: cfg[k] for k in keys if k in cfg})
     if preset == "full":
         keys = ("paths", "lora_r", "with_encoder", "with_sam", "with_pipes",

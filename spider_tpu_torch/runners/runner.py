@@ -234,3 +234,7 @@ class RunnerBase:
         self.global_step = int(state["step"])
         self.start_epoch = int(state["epoch"]) + 1
         logging.info("Resumed from %s (epoch %d)", path, self.start_epoch)
+
+    # ----------------------------------------------------------------- misc
+    def model_forward(self, samples):
+        return self.model.forward(samples)

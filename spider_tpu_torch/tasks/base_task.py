@@ -1,12 +1,14 @@
 """Task layer (counterpart of spider_tpu/tasks/base_task.py): builds the model
 from cfg.model.type via the registry on an explicit device, builds
 {split: {name: dataset}} dicts with batch_size and sample_ratio attached, and
-evaluates by loss. One process: the per-rank seed offsets and result shards
-of the reference wait for the multi-card slice."""
+evaluates by loss. One process until the multi-card slice: rank 0 of a world
+of one, for the per-source seed offsets and for ``save_result``'s shards."""
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import Any, Dict
 
 import torch
@@ -37,7 +39,15 @@ class BaseTask:
             builder_cls = registry.get_builder_class(name)
             if builder_cls is None:
                 raise KeyError(f"unknown dataset builder {name}")
+            # Every data-parallel rank draws its own samples: a per-source
+            # seed offset of rank * 9973, as in the JAX package. Every
+            # builder gets an explicit seed, so one whose own default is not
+            # 0 (flintstones) draws what the JAX task's does.
+            rank = 0        # one process until the multi-card slice
             dataset_cfg = dict(dataset_cfg)
+            build_info = dict(dataset_cfg.get("build_info", {}))
+            build_info["seed"] = build_info.get("seed", 0) + rank * 9973
+            dataset_cfg["build_info"] = build_info
             dataset = builder_cls(dataset_cfg).build_datasets()
             if dataset is None:
                 logging.warning("builder %s produced no dataset", name)
@@ -57,6 +67,27 @@ class BaseTask:
                 out = model.forward(samples)
             results.append({k: float(v) for k, v in out.items()})
         return results
+
+    def save_result(self, results, result_dir, filename) -> str:
+        """Per-process shards merged by process 0: one process here (rank 0,
+        world size 1) until the multi-card slice brings common/dist.py.
+        Returns the merged file's path."""
+        rank, world_size = 0, 1
+        os.makedirs(result_dir, exist_ok=True)
+        shard = os.path.join(result_dir, f"{filename}_rank{rank}.json")
+        with open(shard, "w") as f:
+            json.dump(results, f)
+        final = os.path.join(result_dir, f"{filename}.json")
+        if rank == 0:
+            merged = []
+            for r in range(world_size):
+                path = os.path.join(result_dir, f"{filename}_rank{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        merged.extend(json.load(f))
+            with open(final, "w") as f:
+                json.dump(merged, f)
+        return final
 
 
 @registry.register_task("image_text_pretrain")

@@ -221,7 +221,13 @@ def test_port_imports_no_jax():
             "'spider_tpu_torch.spider_decoder_infer', 'spider_tpu_torch.models.qwen_omni', "
             "'spider_tpu_torch.models.omni_talker', 'spider_tpu_torch.models.omni_token2wav', "
             "'spider_tpu_torch.models.omni_speech', 'spider_tpu_torch.qwen2_5omni_infer', "
-            "'spider_tpu_torch.qwen2_5omni_web', 'spider_tpu_torch.qwen2_5omni_spider_web'} "
+            "'spider_tpu_torch.qwen2_5omni_web', 'spider_tpu_torch.qwen2_5omni_spider_web', "
+            "'spider_tpu_torch.datasets.flac', 'spider_tpu_torch.datasets.media', "
+            "'spider_tpu_torch.datasets.native_loader', 'spider_tpu_torch.datasets.refer', "
+            "'spider_tpu_torch.datasets.grounding', 'spider_tpu_torch.datasets.story', "
+            "'spider_tpu_torch.datasets.travel_guide', 'spider_tpu_torch.datasets.shard_writer', "
+            "'spider_tpu_torch.processors.randaugment', 'spider_tpu_torch.common.gradcam', "
+            "'spider_tpu_torch.common.observability', 'spider_tpu_torch.common.profiler'} "
             "<= set(names), names\n"
             "for m in names: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
