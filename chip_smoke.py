@@ -175,6 +175,26 @@ Phases, each printing one JSON line:
                layer at a time), the unet_check rule
   omni_profile device time by kernel of the towers' encodes with one thinker prefill, and
                of one DiT call, with the share of the towers' and the DiT's plain attention
+  parallel     the training side of the multi-card code on this one card (one H100:
+               no cross-card collective can run): init_distributed_mode at a world of
+               one (nccl on 127.0.0.1, a free port) and the five-axis DeviceMesh;
+               the ring at Llama-3-8B's attention (B 1, T 8192, 32/8 heads, D 128,
+               bf16, causal, a ring of 4: the four ranks' block steps in one process,
+               ops/ring_attention.ring_attention_ranks), forward and backward, against
+               one flash_attention_with_lse call over T 8192 and its backward (out
+               2e-2, lse 1e-3, gradients 2e-2 + 2^-7 |ref|) and against the fp32 plain
+               form at T 2048; a fully masked block's merge bit-unchanged; the block
+               kinds (q_offset +T_local, 0, -T_local) against the plain form; the
+               same bits twice; 16 / 16 / 16 launches, all "wgmma"; device ms per
+               rank and in total against the single call, SDPA and the bound; then
+               ring_attention, moe_ffn_expert_parallel (4096 -> 14336, 4 experts) and
+               gpipe (S 1) through the NCCL world of one, each the bits of its
+               one-device form; then train_configs/spider_longctx_train.py with
+               preset full through the train entry's build_runner: as written (data 2
+               x context 4) it raises the ValueError naming the world of one; with
+               run.mesh all ones 2 steps through the FSDP2/HSDP wrapping (losses,
+               s/step, peak GB), then, the process group destroyed, the unwrapped
+               runner's 2 steps on the same batches (losses within 2e-3 relative)
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -207,7 +227,7 @@ and power limit, and as the last line {"ok": true, "device": {...}}.
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
 configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, omni, the
 train steps (the MASK step among them), spider_generate, train_data's steps and epoch, the
-checkpoint decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
+parallel phase's ring and runner steps, the checkpoint decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
 and the run fails if a main-path launch took a general route: every bf16
@@ -227,7 +247,9 @@ built through the train entry) and the two grounding checkpoints; `python3
 chip_smoke.py omni` the build, the wgmma probe, the flash rows at the Omni prefill
 shapes, the omni phases and the Omni checkpoint; `python3 chip_smoke.py data` the
 build, the wgmma probe and train_data (with the three pipelines it needs as alignment
-targets). None prints the final line.
+targets); `python3 chip_smoke.py parallel` the build, the wgmma probe and the parallel
+phase (run in the whole script after train_data, before checkpoint). None prints the
+final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -2162,10 +2184,10 @@ def batch_tokens(spider, samples, bucket: int):
     """(padded, live, supervised) tokens of a batch as the step sees it:
     padded to the length bucket; up to each sample's last token; with a
     target."""
-    from spider_tpu_torch.runners.runner import _pad_to_bucket
+    from spider_tpu_torch.models.spider import pad_to_bucket
 
     pad = spider.tokenizer.pad_token_id
-    batch = _pad_to_bucket(spider.prepare_batch(samples), bucket, pad)
+    batch = pad_to_bucket(spider.prepare_batch(samples), bucket, pad)
     slots = sum(batch.slot_mask.values()) > 0 if batch.slot_mask else False
     real = (batch.input_ids != pad) | slots
     last = real.shape[1] - real[:, ::-1].argmax(axis=1)
@@ -5788,6 +5810,344 @@ def checkpoint_omni(directory: str, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: the training side of the multi-card code on one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_RING = (1, 8192, 32, 8, 128, 4)     # B, T, Hq, Hkv, D (Llama-3-8B), ring size n
+PARALLEL_RING_PLAIN_T = 2048                 # the ring against the fp32 plain form
+PARALLEL_CONFIG = "train_configs/spider_longctx_train.py"
+PARALLEL_STEPS = 2
+PARALLEL_LOSS_REL = 2e-3                     # the wrapped runner against the unwrapped one
+PARALLEL_MOE_TOKENS = 512
+
+
+def _ring_inputs(dev, seed: int, B: int, T: int, Hq: int, Hkv: int, D: int, n: int):
+    """q, k, v, g [B, T, H, D] bf16 from a seeded generator, and each split
+    into the n ranks' blocks of T / n rows."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    full = [torch.randn((B, T, h, D), generator=g, device=dev).to(torch.bfloat16)
+            for h in (Hq, Hkv, Hkv, Hq)]
+    Tl = T // n
+    split = [[x[:, r * Tl:(r + 1) * Tl].contiguous() for r in range(n)] for x in full]
+    return full, split
+
+
+def _bwd_excess(got, want) -> float:
+    """max(|got - want| - (BWD_ATOL + BWD_REL |want|)): <= 0 passes."""
+    d = (got.float() - want.float()).abs()
+    return (d - (BWD_ATOL + BWD_REL * want.float().abs())).max().item()
+
+
+def parallel_ring_rows(dev, smi: str):
+    """The ring's block steps at Llama-3-8B's attention (B 1, T 8192, 32/8
+    heads, D 128, bf16, causal), the four ranks of a ring of 4 run as four
+    sets of block steps in one process (ops/ring_attention.ring_attention_ranks),
+    forward and backward; then each rank's steps timed on the device. Returns
+    (rows, launches of the ring runs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spider_tpu_torch.ops import attention as A
+    from spider_tpu_torch.ops import ring_attention as R
+
+    B, T, Hq, Hkv, D, n = PARALLEL_RING
+    Tl = T // n
+    (q, k, v, g), (qs, ks, vs, gs) = _ring_inputs(dev, 51, B, T, Hq, Hkv, D, n)
+    rows = []
+
+    # the single call over T 8192 and its backward: the yardstick (not counted)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out_ref, lse_ref = A.flash_attention_with_lse(qr, kr, vr, causal=True)
+    out_ref.backward(g)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    outs, lses, dqs, dks, dvs = R.ring_attention_ranks(qs, ks, vs, gs, causal=True)
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_route_launches()
+    again = R.ring_attention_ranks(qs, ks, vs, gs, causal=True)
+    same_bits = all(torch.equal(a, b) for xs, ys in zip((outs, lses, dqs, dks, dvs), again)
+                    for a, b in zip(xs, ys))
+    del again
+    cat = lambda xs: torch.cat(xs, dim=1)
+    out_err = (cat(outs).float() - out_ref.float()).abs().max().item()
+    lse_err = (torch.cat(lses, dim=2) - lse_ref).abs().max().item()
+    grad_excess = {name: _bwd_excess(cat(got), want.grad) for name, got, want in
+                   (("dq", dqs, qr), ("dk", dks, kr), ("dv", dvs, vr))}
+    want_launches = dict(flash_fwd=n * n, flash_bwd_dq=n * n, flash_bwd_dkv=n * n)
+    ok = (out_err <= OUT_ATOL and lse_err <= LSE_ATOL and max(grad_excess.values()) <= 0
+          and same_bits and all(launches[k] == v for k, v in want_launches.items())
+          and all(routes[k]["mma"] == 0 and routes[k]["wgmma"] == v
+                  for k, v in want_launches.items()))
+    rows.append(dict(phase="parallel", part="ring_8b", B=B, T=T, heads=[Hq, Hkv], D=D, ring=n,
+                     out_max_abs_err=out_err, lse_max_abs_err=lse_err,
+                     grad_excess=grad_excess, same_bits_twice=same_bits, launches=launches,
+                     route_launches=routes, ok=ok, nvidia_smi=smi))
+
+    # a fully masked block leaves the merge bit-unchanged (rank 0's block from
+    # rank n - 1, after its diagonal step)
+    o0, l0 = R.ring_step_forward(qs[0], ks[0], vs[0], *R._initial(qs[0]), 0)
+    o1, l1 = R.ring_step_forward(qs[0], ks[n - 1], vs[n - 1], o0, l0, -(n - 1) * Tl)
+    dead_ok = torch.equal(o0, o1) and torch.equal(l0, l1)
+
+    # each block kind on the kernel against the plain form (live rows): past,
+    # diagonal, after the diagonal
+    offsets = {}
+    for rel in (Tl, 0, -Tl):
+        o, lse = R.ring_block(qs[1], ks[0], vs[0], rel, True)
+        po, plse = A.mha_reference_with_lse(qs[1].float(), ks[0].float(), vs[0].float(),
+                                            causal=True, q_offset=rel)
+        live = torch.isfinite(plse)
+        rows_live = live.transpose(1, 2)[..., None].expand_as(o)
+        offsets[str(rel)] = dict(
+            live_rows=int(live.sum()),
+            out_max_abs_err=(o.float() - po)[rows_live].abs().max().item() if live.any() else 0.0,
+            lse_max_abs_err=(lse - plse)[live].abs().max().item() if live.any() else 0.0)
+    offsets_ok = all(v["out_max_abs_err"] <= OUT_ATOL and v["lse_max_abs_err"] <= LSE_ATOL
+                     for v in offsets.values()) and offsets[str(-Tl)]["live_rows"] == 0
+    rows.append(dict(phase="parallel", part="ring_blocks", dead_block_merge_unchanged=dead_ok,
+                     offsets=offsets, ok=dead_ok and offsets_ok, nvidia_smi=smi))
+
+    # against the fp32 plain form at T 2048, n 4
+    Tp = PARALLEL_RING_PLAIN_T
+    (q2, k2, v2, g2), (q2s, k2s, v2s, g2s) = _ring_inputs(dev, 52, B, Tp, Hq, Hkv, D, n)
+    o2, l2, dq2, dk2, dv2 = R.ring_attention_ranks(q2s, k2s, v2s, g2s, causal=True)
+    pq, pk, pv = (x.float().requires_grad_(True) for x in (q2, k2, v2))
+    po, plse = A.mha_reference_with_lse(pq, pk, pv, causal=True)
+    po.backward(g2.float())
+    plain_excess = {name: _bwd_excess(cat(got), want.grad) for name, got, want in
+                    (("dq", dq2, pq), ("dk", dk2, pk), ("dv", dv2, pv))}
+    plain = dict(out_max_abs_err=(cat(o2).float() - po).abs().max().item(),
+                 lse_max_abs_err=(torch.cat(l2, dim=2) - plse).abs().max().item(),
+                 grad_excess=plain_excess)
+    del pq, pk, pv, po, plse
+    plain_ok = (plain["out_max_abs_err"] <= OUT_ATOL and plain["lse_max_abs_err"] <= LSE_ATOL
+                and max(plain_excess.values()) <= 0)
+    rows.append(dict(phase="parallel", part="ring_vs_fp32_plain", T=Tp, ring=n, **plain,
+                     ok=plain_ok, nvidia_smi=smi))
+
+    # device time: each rank's steps, the single call, SDPA, the bound
+    delta = [R.ring_delta(o, x) for o, x in zip(outs, gs)]
+
+    def fwd(my):
+        o_run, lse_run = R._initial(qs[my])
+        for i in range(n):
+            src = (my - i) % n
+            o_run, lse_run = R.ring_step_forward(qs[my], ks[src], vs[src], o_run, lse_run,
+                                                 (my - src) * Tl)
+
+    def bwd(my):
+        for i in range(n):
+            src = (my - i) % n
+            R.ring_step_backward(qs[my], ks[src], vs[src], outs[my], lses[my], delta[my],
+                                 gs[my], (my - src) * Tl)
+
+    fwd_ms = [device_ms(lambda my=my: fwd(my), calls=5) for my in range(n)]
+    bwd_ms = [device_ms(lambda my=my: bwd(my), calls=5) for my in range(n)]
+    single_fwd = device_ms(lambda: A.flash_attention_with_lse(q, k, v, causal=True), calls=5)
+    ref_delta = A._delta(g, out_ref.detach(), None)
+    live_full, off_full = A._live_and_offset(B, T, T, None, None, dev)
+    single_bwd = device_ms(lambda: (A.flash_bwd_dq(q, k, v, g, lse_ref, ref_delta, live_full,
+                                                   off_full, True, None),
+                                    A.flash_bwd_dkv(q, k, v, g, lse_ref, ref_delta, live_full,
+                                                    off_full, True, None)), calls=5)
+    (sq, sk, sv), kw, _ = sdpa_call(q, k, v, dict(causal=True))
+    sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, **kw), calls=5)
+    sq2, sk2, sv2 = (x.detach().clone().requires_grad_(True) for x in (sq, sk, sv))
+    sdpa_out = F.scaled_dot_product_attention(sq2, sk2, sv2, **kw)
+    gh = g.transpose(1, 2)
+    sdpa_bwd = device_ms(lambda: torch.autograd.grad(sdpa_out, (sq2, sk2, sv2), gh,
+                                                     retain_graph=True), calls=5)
+    pairs = live_pairs(B, T, T, True)
+    flops = 4.0 * pairs * Hq * D
+    io = 2.0 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) + 4.0 * B * Hq * T
+    fbound, bbound = bound_ms(io, flops), bound_ms(2 * io, 2.5 * flops)
+    diag_gflop = 4.0 * B * Hq * D * Tl * (Tl + 1) / 2 / 1e9
+    past_gflop = 4.0 * B * Hq * D * Tl * Tl / 1e9
+    rows.append(dict(
+        phase="parallel", part="ring_time", fwd_device_ms_per_rank=fwd_ms,
+        bwd_device_ms_per_rank=bwd_ms, fwd_device_ms_total=sum(fwd_ms),
+        bwd_device_ms_total=sum(bwd_ms), single_call_fwd_device_ms=single_fwd,
+        single_call_bwd_device_ms=single_bwd, sdpa_fwd_device_ms=sdpa_fwd,
+        sdpa_bwd_device_ms=sdpa_bwd, fwd_bound_ms=fbound["bound_ms"],
+        fwd_bound_by=fbound["bound_by"], bwd_bound_ms=bbound["bound_ms"],
+        fwd_gflop=flops / 1e9, diagonal_block_gflop=diag_gflop, past_block_gflop=past_gflop,
+        live_blocks_per_rank=[0.5 + my for my in range(n)], ok=True, nvidia_smi=smi))
+    del outs, lses, dqs, dks, dvs, qr, kr, vr, out_ref, lse_ref
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def parallel_world_of_one_rows(dev, mesh, smi: str):
+    """ring_attention, moe_ffn_expert_parallel and gpipe through the NCCL
+    world of one: each the bits of its one-device form."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from spider_tpu_torch.common import dist
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.ops.attention import flash_attention
+    from spider_tpu_torch.ops.ring_attention import ring_attention
+    from spider_tpu_torch.parallel.collectives import group_of
+    from spider_tpu_torch.parallel.moe import (MoEConfig, init_moe_params,
+                                               moe_ffn_expert_parallel, moe_ffn_local)
+    from spider_tpu_torch.parallel.pipeline import gpipe
+
+    B, _, Hq, Hkv, D, _ = PARALLEL_RING
+    (q, k, v, g), _ = _ring_inputs(dev, 53, B, PARALLEL_RING_PLAIN_T, Hq, Hkv, D, 1)
+    grads = []
+    for fn in (lambda a, b, c: ring_attention(a, b, c, group_of(mesh, (dist.AXIS_CONTEXT,))),
+               lambda a, b, c: flash_attention(a, b, c, causal=True)):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        grads.append([out.detach()] + [x.grad for x in leaves])
+    ring_same = all(torch.equal(a, b) for a, b in zip(*grads))
+
+    cfg8 = L.llama3_8b()
+    mcfg = MoEConfig(num_experts=MOE_EXPERTS, d_model=cfg8.hidden_size,
+                     d_ff=cfg8.intermediate_size, capacity_factor=2.0, dtype=torch.bfloat16)
+    params = init_moe_params(mcfg, torch.Generator(device=dev).manual_seed(54), device=dev)
+    x = torch.randn((PARALLEL_MOE_TOKENS, cfg8.hidden_size),
+                    generator=torch.Generator(device=dev).manual_seed(55),
+                    device=dev).to(torch.bfloat16)
+    ep_out, ep_aux = moe_ffn_expert_parallel(params, x, mcfg,
+                                             group_of(mesh, (dist.AXIS_EXPERT,)))
+    loc_out, loc_aux = moe_ffn_local(params, x, mcfg)
+    ep_same = torch.equal(ep_out, loc_out) and torch.equal(ep_aux, loc_aux)
+
+    w = params["w1"][0]                      # [4096, 14336]: a stage maps h -> gelu(h w) w^T
+    stage = lambda p, h: F.gelu(h @ p, approximate="tanh") @ p.T
+    mbs = x.reshape(4, PARALLEL_MOE_TOKENS // 4, cfg8.hidden_size)
+    pipe_out = gpipe(stage, w, mbs, group_of(mesh, (dist.AXIS_MODEL,)))
+    pipe_same = torch.equal(pipe_out, torch.stack([stage(w, mbs[i]) for i in range(4)]))
+    del params, x, ep_out, loc_out, pipe_out, w, grads
+    torch.cuda.empty_cache()
+    return [dict(phase="parallel", part="world_of_one", ring_equals_flash_attention=ring_same,
+                 expert_parallel_equals_local=ep_same, gpipe_equals_stage=pipe_same,
+                 moe=dict(tokens=PARALLEL_MOE_TOKENS, experts=MOE_EXPERTS,
+                          d_model=cfg8.hidden_size, d_ff=cfg8.intermediate_size),
+                 ok=ring_same and ep_same and pipe_same, nvidia_smi=smi)]
+
+
+def parallel_config(out_dir: str, mesh):
+    """train_configs/spider_longctx_train.py with model.preset=full: its
+    datasets at ImageBind-huge's 224 px, run.mesh as given (None: as the
+    file writes it; {}: none)."""
+    from spider_tpu_torch.common.config import Config, apply_overrides
+
+    opts = ["model.preset='full'", f"run.output_dir='{out_dir}'",
+            f"run.iters_per_epoch={PARALLEL_STEPS}", "model.with_pipes=False"]
+    opts += [f"datasets.{name}.build_info.image_size={TRAIN_IMAGE_SIZE}"
+             for name in ("i2t_cc_sbu", "t2i_ts_cc_sbu")]
+    if mesh is not None:
+        opts.append(f"run.mesh={mesh!r}")
+    return apply_overrides(Config.fromfile(os.path.join(ROOT, PARALLEL_CONFIG)), opts)
+
+
+def parallel_runner_steps(dev, out_dir: str, mesh, smi: str):
+    """PARALLEL_STEPS train_steps of the train entry's build_runner on the
+    config; (row, losses, launches)."""
+    import gc
+
+    import torch
+
+    from spider_tpu_torch import train as ttrain
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = ttrain.build_runner(parallel_config(out_dir, mesh), dev, "parallel")
+    build_s = time.perf_counter() - t0
+    loader = runner.dataloaders["train"]
+    batches = [next(loader) for _ in range(PARALLEL_STEPS)]
+    reset_launches()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(runner.train_step(b))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches, routes = read_launches(), read_route_launches()
+    wrapped = runner.mesh is not None
+    row = dict(phase="parallel", part="runner_wrapped" if wrapped else "runner_unwrapped",
+               mesh=None if runner.mesh is None else dict(zip(runner.mesh.mesh_dim_names,
+                                                              runner.mesh.mesh.shape)),
+               fsdp=wrapped and hasattr(runner.model.llm.model.layers[0], "unshard"),
+               build_s=build_s, step_s=step_s, losses=losses,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tasks=[b["TaskPrompt"][0] for b in batches], launches=launches,
+               route_launches=routes, nvidia_smi=smi)
+    row["ok"] = (all(all(v == v and abs(v) < float("inf") for v in l.values()) for l in losses)
+                 and on_ruled_route(routes) and launches["flash_fwd"] > 0
+                 and (row["fsdp"] or not wrapped))
+    del runner, loader, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, losses, launches
+
+
+def phase_parallel(dev, smi: str):
+    """The training side of the multi-card code on one card: the NCCL
+    bootstrap at a world of one, the ring at 8B width (four ranks' block steps
+    in one process), ring attention / EP / GPipe through the world of one, and
+    the sharded runner (spider_longctx_train.py, preset full) against the
+    unwrapped one. Returns (rows, main-path launches)."""
+    import tempfile
+
+    import torch
+
+    from spider_tpu_torch import train as ttrain
+    from spider_tpu_torch.common import dist
+
+    rows = []
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    device = dist.init_distributed_mode(dev)           # raises where NCCL does not start
+    mesh = dist.make_mesh()
+    boot_ok = (torch.distributed.get_backend() == "nccl" and mesh.device_type == "cuda"
+               and mesh.mesh_dim_names == dist.AXES and tuple(mesh.mesh.shape) == (1,) * 5
+               and device == dev)
+    rows.append(dict(phase="parallel", part="bootstrap", backend=torch.distributed.get_backend(),
+                     device_type=mesh.device_type, axes=list(mesh.mesh_dim_names),
+                     shape=list(mesh.mesh.shape), seconds=time.perf_counter() - t0,
+                     ok=boot_ok, nvidia_smi=smi))
+    ring_rows, launches = parallel_ring_rows(dev, smi)
+    rows += ring_rows
+    _add_launches(total, launches)
+    rows += parallel_world_of_one_rows(dev, mesh, smi)
+
+    with tempfile.TemporaryDirectory(prefix="spider_parallel_") as d:
+        try:                                # as the file writes it: data 2 x context 4
+            ttrain.build_runner(parallel_config(d, None), dev, "parallel")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        rows.append(dict(phase="parallel", part="mesh_refused", mesh=dict(data=2, context=4),
+                         error=refused, ok=refused is not None and "rank count 1" in refused,
+                         nvidia_smi=smi))
+        ones = {a: 1 for a in dist.AXES}
+        wrapped, wrapped_losses, launches = parallel_runner_steps(dev, d, ones, smi)
+        _add_launches(total, launches)
+        dist.destroy()                      # the unwrapped runner needs no process group
+        plain, plain_losses, launches = parallel_runner_steps(dev, d, {}, smi)
+        _add_launches(total, launches)
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+              for a, b in zip(wrapped_losses, plain_losses) for k in b if k.endswith("loss"))
+    wrapped["loss_rel_to_unwrapped"] = rel
+    wrapped["ok"] = wrapped["ok"] and rel <= PARALLEL_LOSS_REL and \
+        set(wrapped_losses[0]) == set(plain_losses[0])
+    rows += [wrapped, plain]
+    rows.append(dict(phase="parallel", part="total", seconds=time.perf_counter() - t0,
+                     launches=total, ok=all(r["ok"] for r in rows), nvidia_smi=smi))
+    return rows, total
+
+
 def build_report(cuda_build) -> dict:
     """What ptxas said of each library built or found by this process, from
     the log kept beside it: spilled bytes over all kernels, and whether it
@@ -5874,10 +6234,11 @@ def main() -> int:
     grounding_only = sys.argv[1:] == ["grounding"]
     omni_only = sys.argv[1:] == ["omni"]
     data_only = sys.argv[1:] == ["data"]
+    parallel_only = sys.argv[1:] == ["parallel"]
     if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only
-                             or grounding_only or omni_only or data_only):
+                             or grounding_only or omni_only or data_only or parallel_only):
         print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding | omni"
-              " | data]", file=sys.stderr)
+              " | data | parallel]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -6009,6 +6370,17 @@ def main() -> int:
                   file=sys.stderr)
         return 0 if ok else 1
 
+    if parallel_only:
+        for row in phase_parallel(dev, smi)[0]:
+            emit(row)
+            ok &= row["ok"]
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a parallel row failed (see the JSON lines above)",
+                  file=sys.stderr)
+        return 0 if ok else 1
+
     if family_only:
         model, tokenizer = factory.from_pretrained("llama", device=dev, seed=0)
         for row in family_phases(model, tokenizer, dev, smi):
@@ -6132,10 +6504,18 @@ def main() -> int:
     _add_launches(main_launches, data_launches)
     del data_rows
 
-    # The checkpoint slice: real layouts written at full size and loaded;
-    # the card's memory goes to the 8B checkpoint and the Spider built on it.
+    # The training side of the multi-card code on this one card: the NCCL
+    # world of one, the ring at 8B width, the sharded runner against the
+    # unwrapped one; then the checkpoint slice: real layouts written at full
+    # size and loaded; the card's memory goes to the 8B checkpoint and the
+    # Spider built on it.
     del sd, ad, vd
     torch.cuda.empty_cache()
+    par_rows, par_launches = phase_parallel(dev, smi)
+    for row in par_rows:
+        emit(row)
+        ok &= row["ok"]
+    _add_launches(main_launches, par_launches)
     ckpt_ok, ckpt_launches = phase_checkpoint(dev, smi)
     ok &= ckpt_ok
     for name in KERNELS:

@@ -1,6 +1,8 @@
 """Host-side metric logging: ``MetricLogger``, ``SmoothedValue`` and
-``setup_logger`` (counterpart of spider_tpu/common/logger.py). One process:
-the cross-process sums of the reference wait for the multi-card slice.
+``setup_logger`` (counterpart of spider_tpu/common/logger.py). Across the
+ranks of a process group, ``synchronize_between_processes`` sums each
+meter's (count, total) in float64; ``setup_logger`` writes log.txt and logs
+below WARNING on rank 0 only.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from collections import defaultdict, deque
 from typing import Dict, Iterable, Optional
 
 import numpy as np
+import torch
+
+from spider_tpu_torch.common import dist
 
 
 class SmoothedValue:
@@ -29,6 +34,17 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self) -> None:
+        """Sum count and total over every rank (float64 all_reduce); the
+        window stays this rank's."""
+        if dist.get_world_size() == 1:
+            return
+        backend = torch.distributed.get_backend()
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device="cuda" if backend == "nccl" else "cpu")
+        torch.distributed.all_reduce(t)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self) -> float:
@@ -81,6 +97,10 @@ class MetricLogger:
     def __str__(self) -> str:
         return self.delimiter.join(f"{name}: {meter}" for name, meter in self.meters.items())
 
+    def synchronize_between_processes(self) -> None:
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
+
     def add_meter(self, name: str, meter: SmoothedValue) -> None:
         self.meters[name] = meter
 
@@ -126,15 +146,17 @@ class MetricLogger:
 
 
 def setup_logger(output_dir: Optional[str] = None, level=logging.INFO) -> None:
-    """Logging to the stream and, given `output_dir`, to its log.txt."""
+    """Logging to the stream and, on rank 0 given `output_dir`, to its
+    log.txt; ranks other than 0 log WARNING and above."""
+    main = dist.is_main_process()
     handlers = [logging.StreamHandler(sys.stdout)]
-    if output_dir:
+    if output_dir and main:
         import os
 
         os.makedirs(output_dir, exist_ok=True)
         handlers.append(logging.FileHandler(f"{output_dir}/log.txt"))
     logging.basicConfig(
-        level=level,
+        level=level if main else logging.WARNING,
         format="%(asctime)s [%(levelname)s] %(message)s",
         handlers=handlers,
         force=True,

@@ -215,6 +215,8 @@ def _unleaf(mod: nn.Module, name: str, arr: np.ndarray):
         if arr.ndim != 2:
             raise NotImplementedError(f"no JAX layout rule for a {type(mod).__name__} weight")
         return "kernel", arr.T
+    if name == "kernel_q":
+        return "kernel_q", arr.T
     return name, arr
 
 

@@ -30,8 +30,11 @@ a bias on q/k/v, none on o or the MLP); ``tie_word_embeddings`` (no
 ``lm_head``; the logits are the hidden state times the embedding matrix);
 ``mrope_section`` (Qwen2-VL's 3-D RoPE, taken when positions are
 [3, B, T]); ``num_experts > 0`` (every MLP becomes the capacity-gated MoE
-FFN of parallel/moe.py, ``LlamaMoEMLP``). Context parallelism waits for the
-multi-card slice.
+FFN of parallel/moe.py, ``LlamaMoEMLP``); ``context_mesh`` (context
+parallelism: the cache-free training forward holds T / n consecutive rows
+of each sequence on each rank of the mesh's ``context_axis`` and attends through
+ops/ring_attention.py; its RoPE positions are global, rank r's rows start
+at r * T_local).
 """
 
 from __future__ import annotations
@@ -48,7 +51,10 @@ from spider_tpu_torch.ops.attention import flash_attention, mha_reference
 from spider_tpu_torch.ops.norms import rms_norm
 from spider_tpu_torch.ops.paged_attention import paged_decode_attention
 from spider_tpu_torch.ops.quant import int4_matmul
+from spider_tpu_torch.ops.ring_attention import ring_attention
 from spider_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_inv_freq
+from spider_tpu_torch.parallel.collectives import group_of, rank_in
+from spider_tpu_torch.parallel.loss_shards import LOCAL, LossShards
 from spider_tpu_torch.parallel.moe import MoEConfig, moe_ffn_local
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
@@ -95,6 +101,22 @@ class LlamaConfig:
     moe_top_k: int = 1
     moe_capacity_factor: float = 2.0
     moe_aux_weight: float = 0.01
+    # Context parallelism: the ranks of `context_axis` of this DeviceMesh hold
+    # consecutive pieces of each sequence (with_context_parallel); None is
+    # one piece.
+    context_mesh: Optional[object] = dataclasses.field(default=None, compare=False,
+                                                       repr=False)
+    context_axis: str = "context"
+
+    def with_context_parallel(self, mesh, axis: str = "context") -> "LlamaConfig":
+        return dataclasses.replace(self, context_mesh=mesh, context_axis=axis)
+
+    @property
+    def context_group(self):
+        """The process group of this rank's context peers (None without)."""
+        if self.context_mesh is None:
+            return None
+        return group_of(self.context_mesh, (self.context_axis,))
 
     @property
     def head_dim_(self) -> int:
@@ -307,6 +329,8 @@ class LlamaAttention(nn.Module):
             else:
                 out = flash_attention(q, ck, cv, causal=True, kv_len=kv_len,
                                       q_offset=kv_write_index)
+        elif cfg.context_mesh is not None:
+            out = ring_attention(q, k, v, cfg.context_group, causal=True)
         else:
             out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(B, T, Hq * D)), kv_cache
@@ -421,6 +445,8 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    shards = LOCAL      # this rank's piece of a batch (train_step.shard_model sets it)
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.config = cfg
@@ -434,6 +460,16 @@ class LlamaForCausalLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
+
+    def replace_config(self, cfg: LlamaConfig) -> None:
+        """Hand every module that reads the config a new one (a context
+        group, or tensor parallelism's local head counts)."""
+        self.config = cfg
+        self.model.cfg = cfg
+        for layer in self.model.layers:
+            layer.cfg = layer.self_attn.cfg = cfg
+            if hasattr(layer.mlp, "cfg"):
+                layer.mlp.cfg = cfg
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids).to(self.config.dtype)
@@ -458,6 +494,9 @@ class LlamaForCausalLM(nn.Module):
         if positions is not None:
             return positions
         T = inputs_embeds.shape[1]
+        if self.config.context_mesh is not None:
+            # rank r of the context group holds rows r*T .. (r+1)*T - 1
+            kv_write_index = kv_write_index + rank_in(self.config.context_group) * T
         return (torch.arange(T, dtype=torch.int32, device=inputs_embeds.device)[None]
                 + kv_write_index)
 
@@ -490,16 +529,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Shifted LM loss and token accuracy. logits [B, T, V]; labels [B, T]
     with ignore_index outside answer spans. Log-softmax in fp32; both are
     divided by max(number of live targets, 1)."""
-    logits = logits[:, :-1].float()
-    targets = labels[:, 1:].to(logits.device)
-    mask = targets != ignore_index
-    denom = mask.sum().clamp_min(1)
-    # F.cross_entropy fuses the fp32 log-softmax with the gather: at a 128k
-    # vocabulary the log-probabilities are never a tensor of their own.
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
-                           ignore_index=ignore_index, reduction="sum") / denom
-    acc = ((logits.argmax(-1) == targets) & mask).sum() / denom
-    return loss, acc
+    return LOCAL.token_loss(logits, LossShards.shift(labels, ignore_index), ignore_index)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import random
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -50,8 +51,9 @@ from torch import nn
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.models import tags
 from spider_tpu_torch.models.decode import GenerateConfig, generate
-from spider_tpu_torch.models.llama import LlamaForCausalLM, cross_entropy_loss
+from spider_tpu_torch.models.llama import LlamaForCausalLM
 from spider_tpu_torch.models.tokenizer import DEFAULT_MODALITY_TOKENS
+from spider_tpu_torch.parallel.loss_shards import LOCAL
 
 IGNORE = -100
 
@@ -136,6 +138,27 @@ def get_llm_text_res_train(string: str, modality: str) -> List[str]:
     return re.findall(rf"<{modality}>(.*?)\[{modality}0\]", string)
 
 
+def pad_to_bucket(batch: PreparedBatch, bucket: int, pad_id: int) -> PreparedBatch:
+    """Pad the sequence length to the next multiple of `bucket`, so a run
+    meets a bounded number of sequence lengths."""
+    B, L = batch.input_ids.shape
+    target = ((L + bucket - 1) // bucket) * bucket
+    if target == L:
+        return batch
+    padl = target - L
+
+    def pad2(a, fill):
+        return np.pad(a, ((0, 0), (0, padl)), constant_values=fill)
+
+    return dataclasses.replace(
+        batch,
+        input_ids=pad2(batch.input_ids, pad_id),
+        targets=pad2(batch.targets, IGNORE),
+        slot_mask={m: pad2(v, False) for m, v in batch.slot_mask.items()},
+        slot_index={m: pad2(v, 0) for m, v in batch.slot_index.items()},
+    )
+
+
 @registry.register_model("spider")
 class Spider(nn.Module):
     """The trainable model with its host-side orchestration.
@@ -153,6 +176,8 @@ class Spider(nn.Module):
       sam: models/sam.py's Sam, or None; its image and prompt encoders are
         frozen here, its mask decoder trains
     """
+
+    shards = LOCAL      # this rank's piece of a batch (train_step.shard_model sets it)
 
     @classmethod
     def from_config(cls, model_config: Dict[str, Any], *, device) -> "Spider":
@@ -396,17 +421,38 @@ class Spider(nn.Module):
             return self.moe_aligner(hidden, modality=modality)
         return self.aligners[modality](hidden, modality=modality)
 
+    def _rank_rows(self, batch: PreparedBatch) -> PreparedBatch:
+        """The batch with its targets shifted on the whole sequence (row t
+        scores token t + 1) and every [B, L] array cut to this context
+        rank's rows."""
+        cut = lambda a: np.ascontiguousarray(self.shards.cut(a))
+        return dataclasses.replace(
+            batch, input_ids=cut(batch.input_ids),
+            targets=cut(self.shards.shift(batch.targets, IGNORE)),
+            slot_mask={m: cut(v) for m, v in batch.slot_mask.items()},
+            slot_index={m: cut(v) for m, v in batch.slot_index.items()})
+
     def compute_loss(self, batch: PreparedBatch, modality_embeds: Dict[str, torch.Tensor],
                      cond_embeds: Optional[torch.Tensor], task: str,
                      aux_arrays: Optional[Dict[str, np.ndarray]] = None
                      ) -> Dict[str, torch.Tensor]:
         """cond_embeds: frozen text-conditioning target of the task decoder
         for this batch's captions (None for TEXT/BOX/MASK). aux_arrays, for
-        MASK: IMAGE_SAM [B, 3, s, s] and MASK_GT [B, s, s]."""
+        MASK: IMAGE_SAM [B, 3, s, s] and MASK_GT [B, s, s].
+
+        batch holds whole sequences (this data-parallel rank's, under a
+        mesh). ``self.shards`` (parallel/loss_shards.py, set by
+        ``train_step.shard_model``) keeps this context rank's rows, and every
+        term returned is this rank's share of the whole batch's: the hidden
+        states at signal positions are gathered along the sequence, the
+        aligner's outputs and targets along the batch. Over no mesh the
+        terms are the batch's."""
+        shards = self.shards
+        batch = self._rank_rows(batch)
         embeds = self._splice_embeds(batch, modality_embeds)
         targets = self._tensor(batch.targets)
         logits, hidden_states, _ = self.llm(inputs_embeds=embeds, output_hidden_states=True)
-        gen_loss, gen_acc = cross_entropy_loss(logits, targets)
+        gen_loss, gen_acc = shards.token_loss(logits, targets)
         out = {"gen_loss": gen_loss, "gen_acc": gen_acc}
 
         no_decoder_loss = (self.only_llm_gen_loss
@@ -422,8 +468,9 @@ class Spider(nn.Module):
         H = embeds.shape[-1]
         sig = self._tensor(batch.signal_pos)[..., None].expand(-1, -1, H)   # [B, n_sig, H]
         proj_sum = None
+        full = shards.full_sequence
         for layer in self.alignment_layer:
-            fused = hidden_states[layer].gather(1, sig) + embeds.gather(1, sig)
+            fused = full(hidden_states[layer]).gather(1, sig) + full(embeds).gather(1, sig)
             proj = self._apply_aligner(task, fused)
             proj_sum = proj if proj_sum is None else proj_sum + proj
 
@@ -434,8 +481,9 @@ class Spider(nn.Module):
         if target.ndim == 2:  # AUDIO pooled -> (N, 1, D)
             target = target[:, None, :]
         target = self._frozen_target(target)
-        semantic = l2_loss(proj_sum, target) + clip_align_loss(proj_sum, target,
-                                                               self.logit_scale)
+        proj_sum, target = shards.full_batch(proj_sum), shards.full_batch(target)
+        semantic = (l2_loss(proj_sum, target) + clip_align_loss(proj_sum, target,
+                                                                self.logit_scale)) * shards.share
         out[f"{task}_semantic_align_mse_loss"] = semantic
         out["loss"] = gen_loss + semantic
         return out
@@ -444,7 +492,8 @@ class Spider(nn.Module):
                    proj_sum: torch.Tensor, aux_arrays) -> Dict[str, torch.Tensor]:
         """SAM mask-decoder training: the projected [MASK0] state prompts
         the decoder as text embeddings; 2 * BCE + 0.5 * dice against the
-        ground truth, each over the batch (spider_tpu/models/spider.py:440-470)."""
+        ground truth, each over the batch (spider_tpu/models/spider.py:440-470),
+        times ``shards.share`` (a rank's share of equal data-parallel batches)."""
         from spider_tpu_torch.models.sam import postprocess_masks
 
         if self.sam is None or aux_arrays is None:
@@ -456,8 +505,8 @@ class Spider(nn.Module):
         s = gt.shape[-1]
         pred = postprocess_masks(masks, (s, s), (s, s), img_size=s)[:, 0]
         n = max(gt.shape[0], 1)
-        out["bce_loss"] = 2.0 * sigmoid_bce_loss(pred, gt) / n
-        out["dice_loss"] = 0.5 * dice_loss(pred, gt) / n
+        out["bce_loss"] = 2.0 * sigmoid_bce_loss(pred, gt) / n * self.shards.share
+        out["dice_loss"] = 0.5 * dice_loss(pred, gt) / n * self.shards.share
         out["loss"] = gen_loss + out["bce_loss"].to(gen_loss.device) \
             + out["dice_loss"].to(gen_loss.device)
         return out
@@ -470,11 +519,41 @@ class Spider(nn.Module):
         return {"IMAGE_SAM": np.stack([np.asarray(x) for x in samples["IMAGE_SAM"]]),
                 "MASK_GT": np.stack([np.asarray(x) for x in samples["MASK"]])}
 
+    def _loss_task(self, samples: Dict[str, Any]) -> str:
+        """The batch's task as the loss takes it: MASK without SAM or
+        without IMAGE_SAM trains the text loss only, as TEXT."""
+        task = samples.get("TaskPrompt", ["[TEXT]"])[0][1:-1]
+        if task == "MASK" and self.mask_arrays(samples) is None:
+            return "TEXT"
+        return task
+
+    # ---------------------------------------------------------- forward API
+    def batch_loss(self, samples: Dict[str, Any], length_bucket: int = 1
+                   ) -> Dict[str, torch.Tensor]:
+        """One batch's loss dict, as the training step takes it: the batch
+        prepared on the host and padded to a multiple of `length_bucket` and
+        of the context size, its modalities encoded by the frozen encoder,
+        the task decoder's text conditioning as the target, then
+        ``compute_loss``."""
+        task = self._loss_task(samples)
+        batch = pad_to_bucket(self.prepare_batch(samples),
+                              math.lcm(length_bucket, self.shards.cp_size),
+                              self.tokenizer.pad_token_id)
+        modality_embeds = self.encode_modalities(batch)
+        cond_embeds = None
+        if task in ("IMAGE", "VIDEO", "AUDIO") and task in self.diffusion_pipes \
+                and "Caption" in samples:
+            cond_embeds = self.diffusion_pipes[task](prompt=samples["Caption"],
+                                                     return_prompts_only=True)
+        aux_arrays = self.mask_arrays(samples) if task == "MASK" else None
+        return self.compute_loss(batch, modality_embeds, cond_embeds, task, aux_arrays)
+
     # ---------------------------------------------------------- forward API
     def forward(self, samples: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Training forward: samples dict -> loss dict."""
-        task_prompt = samples.get("TaskPrompt", ["[TEXT]"])[0]
-        task = task_prompt[1:-1]
+        """Training forward: samples dict -> loss dict (``batch_loss`` with
+        the embedding-alignment terms where they are on). Under a mesh,
+        this rank's shares, as ``compute_loss`` gives them."""
+        task = self._loss_task(samples)
 
         embed_align = None
         if "Caption" in samples and self.use_embed_align_loss:
@@ -494,23 +573,12 @@ class Spider(nn.Module):
                         picks.append(random.choice(words))
                     word_total = word_total + self.loss_text_encoder_align(picks)
                 embed_align = (embed_align + word_total / float(select)) / 2.0
+            embed_align = embed_align * self.shards.share
             if self.only_embed_align_loss:
                 return {"loss": embed_align, "gen_loss": embed_align,
                         "gen_acc": torch.zeros((), device=self.device)}
 
-        batch = self.prepare_batch(samples)
-        modality_embeds = self.encode_modalities(batch)
-
-        cond_embeds = None
-        if task in ("IMAGE", "VIDEO", "AUDIO") and task in self.diffusion_pipes \
-                and "Caption" in samples:
-            cond_embeds = self.diffusion_pipes[task](prompt=samples["Caption"],
-                                                     return_prompts_only=True)
-        aux_arrays = self.mask_arrays(samples) if task == "MASK" else None
-        if task == "MASK" and aux_arrays is None:
-            task = "TEXT"  # no SAM: MASK degrades to gen_loss only
-
-        out = self.compute_loss(batch, modality_embeds, cond_embeds, task, aux_arrays)
+        out = self.batch_loss(samples)
         if embed_align is not None:
             out["loss"] = out["loss"] + embed_align
             out[f"{task}_embed_align_mse_loss"] = embed_align

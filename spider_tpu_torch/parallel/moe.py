@@ -1,8 +1,10 @@
-"""Mixture-of-experts FFN on one device (counterpart of
-spider_tpu/parallel/moe.py without its expert-parallel form, which waits for
-the multi-card slice): capacity-based top-1/top-2 gating in fp32 and one-hot
-dispatch and combine einsums, the arithmetic of torchscale's xmoe
-(routing.py top1gating / top2gating) as the JAX package writes it.
+"""Mixture-of-experts FFN (counterpart of spider_tpu/parallel/moe.py):
+capacity-based top-1/top-2 gating in fp32 and one-hot dispatch and combine
+einsums, the arithmetic of torchscale's xmoe (routing.py top1gating /
+top2gating) as the JAX package writes it; on one device
+(``moe_ffn_local``) or with the experts split over the ranks of an
+``expert`` group (``moe_ffn_expert_parallel``: two all-to-alls, each the
+other's backward).
 
 A token past its expert's capacity gets a zero combine weight, so the FFN
 gives it exactly zero. The expert FFN is ``gelu(x W1) W2`` with the tanh
@@ -17,6 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from spider_tpu_torch.parallel.collectives import all_to_all, size_of, sum_to_all
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,3 +104,49 @@ def moe_ffn_local(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConf
     ye = torch.einsum("ecf,efm->ecm", h, params["w2"])
     out = torch.einsum("tec,ecm->tm", combine.to(ye.dtype), ye)
     return out, aux
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (differentiable); a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def moe_ffn_expert_parallel(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
+                            group=None, train: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN with the experts split over the n ranks of `group`: this
+    rank's tokens x [T_local, M] -> (out [T_local, M], aux_loss averaged
+    over the group). params: wg [M, E] (replicated) and this rank's experts
+    of w1 and w2, [E/n, M, F] and [E/n, F, M] (rank j holds experts
+    j*E/n ..), either as local tensors or as the DTensors the partition
+    rules ``mlp/w1`` and ``mlp/w2`` place (sharded on the expert dim).
+
+    Gating and capacity are this rank's, over its T_local tokens, as under
+    the JAX package's shard_map, so the result is ``moe_ffn_local`` on each
+    rank's tokens. The dispatched [E, cap, M] slab goes out by one
+    all-to-all (chunk j to the owner of experts j*E/n ..), the experts run
+    on [E/n, n*cap, M], and a second all-to-all brings each token's outputs
+    home; both are differentiable, each the other's backward."""
+    n = size_of(group)
+    E = cfg.num_experts
+    if E % n:
+        raise ValueError(f"{E} experts do not split over {n} ranks")
+    e_local = E // n
+    wg, w1, w2 = _local(params["wg"]), _local(params["w1"]), _local(params["w2"])
+    if w1.shape[0] != e_local or w2.shape[0] != e_local:
+        raise ValueError(f"expected {e_local} local experts, got w1 {tuple(w1.shape)} "
+                         f"w2 {tuple(w2.shape)}")
+    T_local, M = x.shape
+    cap = _capacity(T_local, E, cfg.capacity_factor if train else cfg.eval_capacity_factor,
+                    cfg.top_k)
+    combine, dispatch, aux = topk_gating(x.float() @ wg, cap, cfg.top_k)
+    xe = torch.einsum("tec,tm->ecm", dispatch.to(x.dtype), x)       # [E, cap, M]
+    # chunk j (experts of rank j) goes to rank j; arrives as [n(src), e_local, cap, M]
+    xe = all_to_all(xe.reshape(n, e_local, cap, M).contiguous(), group)
+    xe = xe.transpose(0, 1).reshape(e_local, n * cap, M)
+    h = F.gelu(torch.einsum("ecm,emf->ecf", xe, w1), approximate="tanh")
+    ye = torch.einsum("ecf,efm->ecm", h, w2)                        # [e_local, n*cap, M]
+    ye = ye.reshape(e_local, n, cap, M).transpose(0, 1).contiguous()
+    ye = all_to_all(ye, group).reshape(E, cap, M)                  # [owner, e_local, ..]
+    out = torch.einsum("tec,ecm->tm", combine.to(ye.dtype), ye)
+    return out, sum_to_all(aux, group) / n

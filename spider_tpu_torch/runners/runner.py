@@ -1,6 +1,4 @@
-"""Training runner on one device (counterpart of spider_tpu/runners/runner.py
-without its mesh: sharded state and the context axis wait for the multi-card
-slice).
+"""Training runner (counterpart of spider_tpu/runners/runner.py).
 
 Responsibilities: ratio-mixed dataloaders, the train step over Spider's
 trainable parameters (prepare the batch on the host, pad it to a length
@@ -10,11 +8,28 @@ warmup-decay and frozen embedding rows, metric logging with a
 ``metrics.jsonl`` stream, checkpoint save and resume (``torch.save`` of the
 trainable parameters, the optimizer state, the step and the epoch), eval
 epochs, and a checkpoint on SIGTERM.
+
+``run.mesh`` ({"data": 2, "context": 4, ...}) is honoured over the ranks of
+the process group (``build_mesh``; a world of several ranks with no
+``run.mesh`` puts them all on ``data``): a mesh the world cannot hold raises
+ValueError and is never run on fewer ranks. The model is then sharded
+(``train_step.shard_model``: TP over ``model``, ring attention over
+``context`` when it is > 1, FSDP2/HSDP over data x fsdp). Each data-parallel
+rank draws its own batch of ``batch_size`` (the task's seeds are offset by
+its rank) and context peers draw the same one, so the global batch is the
+concatenation over data-parallel ranks, as in the JAX package's multi-host
+model. The whole sequence is prepared on the host, padded to a multiple of
+the bucket and of the context size, its targets shifted, and then cut to
+this context rank's rows (``Spider.batch_loss``, through the model's
+``shards``). Losses are token-weighted across ranks; the metrics written and
+the eval losses compared for the best checkpoint are the whole batch's,
+alike on every rank. Rank 0 writes ``metrics.jsonl`` and the checkpoints,
+which hold whole tensors. Without a mesh (one process, no ``run.mesh``)
+nothing is wrapped, and the same step runs on the whole batch.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import logging
 import os
@@ -25,38 +40,35 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from spider_tpu_torch.common import dist
 from spider_tpu_torch.common.logger import MetricLogger, SmoothedValue
 from spider_tpu_torch.common.optims import build_schedule
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.datasets.utils.loaders import MultiIterLoader, batched
-from spider_tpu_torch.models.spider import IGNORE, PreparedBatch, Spider
-from spider_tpu_torch.runners.train_step import backward_and_step, build_optimizer
+from spider_tpu_torch.models.spider import Spider
+from spider_tpu_torch.parallel import partition
+from spider_tpu_torch.runners.train_step import backward_and_step, build_optimizer, shard_model
 
 
-def _pad_to_bucket(batch: PreparedBatch, bucket: int, pad_id: int) -> PreparedBatch:
-    """Pad the sequence length to the next multiple of `bucket`, so a run
-    meets a bounded number of sequence lengths."""
-    B, L = batch.input_ids.shape
-    target = ((L + bucket - 1) // bucket) * bucket
-    if target == L:
-        return batch
-    padl = target - L
-
-    def pad2(a, fill):
-        return np.pad(a, ((0, 0), (0, padl)), constant_values=fill)
-
-    return dataclasses.replace(
-        batch,
-        input_ids=pad2(batch.input_ids, pad_id),
-        targets=pad2(batch.targets, IGNORE),
-        slot_mask={m: pad2(v, False) for m, v in batch.slot_mask.items()},
-        slot_index={m: pad2(v, 0) for m, v in batch.slot_index.items()},
-    )
+def build_mesh(run, device):
+    """The DeviceMesh ``run.mesh`` asks for over the process group, or None
+    for one process without ``run.mesh``. Starts the group where none is
+    (torchrun's environment, else a world of one on `device`). Raises
+    ValueError where the world cannot hold the mesh."""
+    mesh_cfg = dict(run.get("mesh") or {})
+    if not mesh_cfg and int(os.environ.get("WORLD_SIZE", 1)) == 1 \
+            and not dist.is_dist_avail_and_initialized():
+        return None
+    if not dist.is_dist_avail_and_initialized():
+        dist.init_distributed_mode(device)
+    return dist.make_mesh(**mesh_cfg)
 
 
 @registry.register_runner("runner_base")
 class RunnerBase:
-    def __init__(self, cfg, task, model: Spider, datasets, job_id: str):
+    mesh = None         # the DeviceMesh the model is sharded over, if any
+
+    def __init__(self, cfg, task, model: Spider, datasets, job_id: str, mesh=None):
         self.config = cfg
         self.task = task
         self.model = model
@@ -83,6 +95,17 @@ class RunnerBase:
             steps_per_epoch=self.iters_per_epoch,
         )
         trainable_patterns = run.get("trainable_patterns")
+        patterns = tuple(trainable_patterns) if trainable_patterns else None
+        # What the optimizer does not hold never moves: take it out of
+        # autograd too, so its gradient is neither computed nor stored.
+        if patterns is not None:
+            keep = partition.trainable_mask(model, patterns)
+            for name, p in model.trainable_params().items():
+                if not keep[name]:
+                    p.requires_grad_(False)
+        self.mesh = mesh if mesh is not None else build_mesh(run, model.device)
+        if self.mesh is not None:
+            shard_model(model, self.mesh, partition.SPIDER_RULES)
         self.optimizer = build_optimizer(
             self.schedule,
             params=model.trainable_params(),
@@ -90,13 +113,8 @@ class RunnerBase:
             max_grad_norm=float(run.get("max_grad_norm", 1.0)),
             grad_accum_steps=int(run.get("accum_grad_iters", 1)),
             num_frozen_embed_rows=int(run.get("num_frozen_embed_rows", 0)),
-            trainable_patterns=tuple(trainable_patterns) if trainable_patterns else None,
+            trainable_patterns=patterns,
         )
-        # What the optimizer does not hold never moves: take it out of
-        # autograd too, so its gradient is neither computed nor stored.
-        for name, p in model.trainable_params().items():
-            if name not in self.optimizer.params:
-                p.requires_grad_(False)
         self.global_step = 0
         self._loaders: Optional[Dict[str, Any]] = None
 
@@ -115,29 +133,18 @@ class RunnerBase:
 
     # ---------------------------------------------------------- train step
     def loss_dict(self, samples: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The step's forward: samples -> Spider.compute_loss's dict, with
-        the batch padded to the length bucket."""
-        spider = self.model
-        task = samples.get("TaskPrompt", ["[TEXT]"])[0][1:-1]
-        batch = spider.prepare_batch(samples)
-        batch = _pad_to_bucket(batch, self.length_bucket, spider.tokenizer.pad_token_id)
-        modality_embeds = spider.encode_modalities(batch)
-        cond = None
-        if task in ("IMAGE", "VIDEO", "AUDIO") \
-                and task in spider.diffusion_pipes and "Caption" in samples:
-            cond = spider.diffusion_pipes[task](prompt=samples["Caption"],
-                                                return_prompts_only=True)
-        aux = spider.mask_arrays(samples) if task == "MASK" else None
-        if task == "MASK" and aux is None:
-            task = "TEXT"       # no SAM: MASK trains the text loss only
-        return spider.compute_loss(batch, modality_embeds, cond, task, aux)
+        """The step's forward: samples -> this rank's shares of
+        ``Spider.compute_loss``'s dict, the batch padded to the length bucket."""
+        return self.model.batch_loss(samples, self.length_bucket)
 
     def train_step(self, samples: Dict[str, Any]) -> Dict[str, float]:
         self.model.train()
+        shards = self.model.shards
         out = self.loss_dict(samples)
-        backward_and_step(out["loss"], self.optimizer)
+        backward_and_step(out["loss"], self.optimizer, shards)
+        out = shards.reduce_metrics(out)
         self.global_step += 1
-        return {k: float(v.detach()) for k, v in out.items()}
+        return {k: float(v) for k, v in out.items()}
 
     # -------------------------------------------------------------- epochs
     def train_epoch(self, epoch: int) -> Dict[str, str]:
@@ -146,23 +153,35 @@ class RunnerBase:
         loader = self.dataloaders["train"]
         header = f"Train: data epoch: [{epoch}]"
         metrics_path = os.path.join(self.output_dir, "metrics.jsonl")
-        with open(metrics_path, "a") as mf:
+        mf = open(metrics_path, "a") if dist.is_main_process() else None
+        try:
             for _ in metric_logger.log_every(range(self.iters_per_epoch), self.log_freq,
                                              header):
                 metrics = self.train_step(next(loader))
                 lr = float(self.schedule(self.global_step))
                 metric_logger.update(**metrics)
                 metric_logger.update(lr=lr)
-                # per-iteration scalar stream
-                mf.write(json.dumps({"step": self.global_step, "epoch": epoch, "lr": lr,
-                                     **metrics}) + "\n")
+                if mf is not None:      # per-iteration scalar stream, rank 0's
+                    mf.write(json.dumps({"step": self.global_step, "epoch": epoch, "lr": lr,
+                                         **metrics}) + "\n")
+        finally:
+            if mf is not None:
+                mf.close()
+        metric_logger.synchronize_between_processes()
         return {k: f"{m.global_avg:.3f}" for k, m in metric_logger.meters.items()}
 
     def eval_epoch(self, split: str = "val", max_batches: int = 8):
+        """The task's evaluation; each batch's values are the whole batch's
+        (every rank scored its piece), alike on every rank, so that every
+        rank takes the same branch at the best checkpoint."""
         if split not in self.dataloaders:
             return None
         self.model.eval()
-        return self.task.evaluation(self.model, self.dataloaders[split], max_batches)
+        results = self.task.evaluation(self.model, self.dataloaders[split], max_batches)
+        device = self.model.device
+        return [{k: float(v) for k, v in self.model.shards.reduce_metrics(
+                    {k: torch.tensor(v, device=device) for k, v in r.items()}).items()}
+                for r in results]
 
     def install_preemption_handler(self) -> None:
         """Save a checkpoint on SIGTERM (preemption), then exit 143."""
@@ -205,19 +224,26 @@ class RunnerBase:
         return os.path.join(os.path.abspath(self.output_dir), f"checkpoint_{name}.pt")
 
     def _params_state(self) -> Dict[str, torch.Tensor]:
-        return {n: p.detach() for n, p in self.optimizer.params.items()}
+        """Whole tensors (a sharded parameter is gathered: every rank calls)."""
+        return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach()
+                for n, p in self.optimizer.params.items()}
 
     def save_checkpoint_best(self, epoch: int) -> str:
         path = self._ckpt_path("best")
-        torch.save(dict(params=self._params_state(), epoch=epoch), path)
+        state = dict(params=self._params_state(), epoch=epoch)
+        if dist.is_main_process():
+            torch.save(state, path)
+        dist.barrier()
         return path
 
     def save_checkpoint(self, epoch: int) -> str:
         path = self._ckpt_path(str(epoch))
-        torch.save(dict(params=self._params_state(),
-                        opt_state=self.optimizer.state_dict(),
-                        step=self.global_step, epoch=epoch), path)
-        logging.info("Saved checkpoint to %s", path)
+        state = dict(params=self._params_state(), opt_state=self.optimizer.state_dict(),
+                     step=self.global_step, epoch=epoch)
+        if dist.is_main_process():
+            torch.save(state, path)
+            logging.info("Saved checkpoint to %s", path)
+        dist.barrier()
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -229,7 +255,9 @@ class RunnerBase:
             raise KeyError("checkpoint parameters do not match the trainable parameters")
         with torch.no_grad():
             for n, t in state["params"].items():
-                params[n].copy_(t)
+                local = params[n]._local_tensor if hasattr(params[n], "_local_tensor") \
+                    else params[n]
+                local.copy_(self.optimizer.shard(n, t))
         self.optimizer.load_state_dict(state["opt_state"])
         self.global_step = int(state["step"])
         self.start_epoch = int(state["epoch"]) + 1

@@ -1,8 +1,9 @@
 """Task layer (counterpart of spider_tpu/tasks/base_task.py): builds the model
 from cfg.model.type via the registry on an explicit device, builds
 {split: {name: dataset}} dicts with batch_size and sample_ratio attached, and
-evaluates by loss. One process until the multi-card slice: rank 0 of a world
-of one, for the per-source seed offsets and for ``save_result``'s shards."""
+evaluates by loss. Each data-parallel rank draws its own samples (seeds
+offset by that rank); ``save_result`` writes every rank's shard and merges
+them on rank 0 after a barrier."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict
 
 import torch
 
+from spider_tpu_torch.common import dist
 from spider_tpu_torch.common.registry import registry
 
 
@@ -31,22 +33,25 @@ class BaseTask:
             return model_cls.from_config(model_config, device=device)
         return model_cls(**model_config)
 
-    def build_datasets(self, cfg) -> Dict[str, Dict[str, Any]]:
+    def build_datasets(self, cfg, data_rank: int = 0) -> Dict[str, Dict[str, Any]]:
         """cfg.datasets: {name: {batch_size, sample_ratio, build_info, ...}}
-        -> {split: {name: dict(dataset, batch_size, sample_ratio)}}."""
+        -> {split: {name: dict(dataset, batch_size, sample_ratio)}}.
+        data_rank: this rank's index over data x fsdp
+        (``dist.data_parallel_rank``); context peers share it."""
         datasets: Dict[str, Dict[str, Any]] = {}
         for name, dataset_cfg in cfg.datasets.items():
             builder_cls = registry.get_builder_class(name)
             if builder_cls is None:
                 raise KeyError(f"unknown dataset builder {name}")
             # Every data-parallel rank draws its own samples: a per-source
-            # seed offset of rank * 9973, as in the JAX package. Every
+            # seed offset of rank * 9973, as in the JAX package (which
+            # offsets by process; here the data-parallel rank, so that the
+            # ranks of a context group draw the same sequences). Every
             # builder gets an explicit seed, so one whose own default is not
             # 0 (flintstones) draws what the JAX task's does.
-            rank = 0        # one process until the multi-card slice
             dataset_cfg = dict(dataset_cfg)
             build_info = dict(dataset_cfg.get("build_info", {}))
-            build_info["seed"] = build_info.get("seed", 0) + rank * 9973
+            build_info["seed"] = build_info.get("seed", 0) + data_rank * 9973
             dataset_cfg["build_info"] = build_info
             dataset = builder_cls(dataset_cfg).build_datasets()
             if dataset is None:
@@ -69,15 +74,17 @@ class BaseTask:
         return results
 
     def save_result(self, results, result_dir, filename) -> str:
-        """Per-process shards merged by process 0: one process here (rank 0,
-        world size 1) until the multi-card slice brings common/dist.py.
-        Returns the merged file's path."""
-        rank, world_size = 0, 1
+        """Every rank writes its shard; after a barrier (which the JAX
+        package lacks, C20: its process 0 could merge before the others had
+        written) rank 0 merges them in rank order. Returns the merged
+        file's path."""
+        rank, world_size = dist.get_rank(), dist.get_world_size()
         os.makedirs(result_dir, exist_ok=True)
         shard = os.path.join(result_dir, f"{filename}_rank{rank}.json")
         with open(shard, "w") as f:
             json.dump(results, f)
         final = os.path.join(result_dir, f"{filename}.json")
+        dist.barrier()
         if rank == 0:
             merged = []
             for r in range(world_size):
@@ -87,6 +94,7 @@ class BaseTask:
                         merged.extend(json.load(f))
             with open(final, "w") as f:
                 json.dump(merged, f)
+        dist.barrier()
         return final
 
 

@@ -36,7 +36,8 @@ from spider_tpu_torch.models import tokenizer as tT
 from spider_tpu_torch.models.convert import (load_jax_params, load_jax_spider,
                                              spider_trainable_to_jax, to_jax_tree)
 from spider_tpu_torch.runners import train_step as tTS
-from spider_tpu_torch.runners.runner import RunnerBase, _pad_to_bucket
+from spider_tpu_torch.models.spider import pad_to_bucket
+from spider_tpu_torch.runners.runner import RunnerBase
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO_CFG = os.path.join(ROOT, "train_configs", "spider_demo_train.py")
@@ -349,7 +350,7 @@ def test_pad_to_bucket_equals_the_reference():
     ts = tF.build_tiny_spider(device="cpu", with_pipes=False)
     js = jF.build_tiny_spider(with_pipes=False)
     samples = _image_samples(0)
-    a = _pad_to_bucket(ts.prepare_batch(samples), 32, 0)
+    a = pad_to_bucket(ts.prepare_batch(samples), 32, 0)
     b = jpad(js.prepare_batch(samples), 32, 0)
     assert a.input_ids.shape[1] % 32 == 0
     for f in ("input_ids", "targets", "signal_pos"):
