@@ -175,6 +175,21 @@ Phases, each printing one JSON line:
                layer at a time), the unet_check rule
   omni_profile device time by kernel of the towers' encodes with one thinker prefill, and
                of one DiT call, with the share of the towers' and the DiT's plain attention
+  video_sharded  the sharded video denoise and decode (pipelines/vd.py __call__(mesh=)):
+               the temporal kernel against its plain version at the shapes one rank of
+               a cfg 2 x sp 4 mesh runs (B 1, F 16, every frame of P / 4 pixels: 720,
+               180, 45, 12 padded) with bounds, and the bytes that rank would send a
+               denoise step (all-to-all, halo, GroupNorm moments, cfg join: computed
+               from the configuration, not timed); then over the NCCL world of one
+               (a cfg 1 x sp 1 mesh) one CFG UNet3D call through the frame-split code
+               and the plain call, each against fp32 (the unet_check rule), and the
+               whole ZeroScope call (576x320, 16 frames, 40 steps, CFG 7.5) sharded and
+               unsharded on the same latents: seconds, the frames' difference in
+               levels, launches by route equal, 34 tattn launches a UNet3D call on
+               "ring", and each call's denoised latents against the same 40 steps
+               through the fp32 copy (the unet_check rule); and the 40 steps through
+               the fp32 copy sharded and unsharded, within VIDEO_SHARDED_FP32_REL
+               (relative L2) of each other
   parallel     the training side of the multi-card code on this one card (one H100:
                no cross-card collective can run): init_distributed_mode at a world of
                one (nccl on 127.0.0.1, a free port) and the five-axis DeviceMesh;
@@ -194,7 +209,13 @@ Phases, each printing one JSON line:
                x context 4) it raises the ValueError naming the world of one; with
                run.mesh all ones 2 steps through the FSDP2/HSDP wrapping (losses,
                s/step, peak GB), then, the process group destroyed, the unwrapped
-               runner's 2 steps on the same batches (losses within 2e-3 relative)
+               runner's 2 steps on the same batches (losses within 2e-3 relative);
+               between them the MoE Llama (llama3_8b widths, 2 layers, 4 experts,
+               top-2) through shard_model over the world of one against the same model
+               unsharded (a forward at [4, 512], one make_lm_train_step: loss and aux
+               within 2e-3 relative, its layers gating through moe_ffn_sharded), and the
+               int4 Llama (4 layers) through parallelize_llama at model 1: 16 greedy
+               tokens after a 128-token prompt equal to the unwrapped model's
   checkpoint   HF/diffusers checkpoints in their real layouts, synthetic (seeded
                random weights), written at full size to a temporary directory by the
                port's own safetensors writer, their key lists equal to the real
@@ -227,7 +248,8 @@ and power limit, and as the last line {"ok": true, "device": {...}}.
 Each main-path phase (chat, request, any_to_many, http, orchestrator, each serving
 configuration, speculative to moe, story, story_http, story_photomaker, grounding, mask, omni, the
 train steps (the MASK step among them), spider_generate, train_data's steps and epoch, the
-parallel phase's ring and runner steps, the checkpoint decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
+two video_sharded calls, the parallel phase's ring, MoE, int4 and runner steps, the
+checkpoint decodes and the r1 twins) sets every kernel's launch count to 0 just before it runs and
 reads the counts just after; the kernel summary's `launches` is their sum. Launches made to compare a kernel with its
 plain version are not counted. Every kernel's count is also read per route,
 and the run fails if a main-path launch took a general route: every bf16
@@ -248,8 +270,9 @@ chip_smoke.py omni` the build, the wgmma probe, the flash rows at the Omni prefi
 shapes, the omni phases and the Omni checkpoint; `python3 chip_smoke.py data` the
 build, the wgmma probe and train_data (with the three pipelines it needs as alignment
 targets); `python3 chip_smoke.py parallel` the build, the wgmma probe and the parallel
-phase (run in the whole script after train_data, before checkpoint). None prints the
-final line.
+phase (run in the whole script after train_data and video_sharded, before checkpoint);
+`python3 chip_smoke.py video_sharded` the build, the wgmma probe and the video_sharded
+phase (on the ZeroScope pipeline it builds). None prints the final line.
 
 A random-weight LLM never emits tags, so the requests' chat function
 appends fixed tag spans to the model's real output, standing in for a
@@ -557,17 +580,35 @@ def tattn_launches_per_unet3d_call(cfg, lat_h: int, lat_w: int, frames: int) -> 
     TransformerTemporal whose level is inside the kernel's predicate."""
     from spider_tpu_torch.ops.temporal_attention import kernel_predicate
 
-    def tt(level: int) -> int:
-        P = (lat_h >> level) * (lat_w >> level)
-        return 2 * kernel_predicate(cfg.num_attention_heads[level], frames, P,
-                                    cfg.block_out_channels[level])
+    tt, _ = unet3d_temporal_layers(cfg)
+    return sum(2 * n * kernel_predicate(cfg.num_attention_heads[lvl], frames, P,
+                                        cfg.block_out_channels[lvl])
+               for lvl, (n, P) in enumerate(zip(tt, unet3d_level_pixels(cfg, lat_h, lat_w))))
 
-    n = len(cfg.block_out_channels)
-    total = tt(0) + tt(n - 1)                      # transformer_in, mid_tattn
+
+def unet3d_level_pixels(cfg, lat_h: int, lat_w: int):
+    """Pixels of each UNet3D level (a stride-2 conv with padding 1 halves
+    each side, rounding up)."""
+    out = []
+    for _ in cfg.block_out_channels:
+        out.append(lat_h * lat_w)
+        lat_h, lat_w = (lat_h + 1) // 2, (lat_w + 1) // 2
+    return out
+
+
+def unet3d_temporal_layers(cfg):
+    """(TransformerTemporal count, TemporalConv count) of each level of a UNet3D
+    configuration, the mid block's on the last level."""
+    n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+    tt, tc = [0] * n, [0] * n
+    tt[0] += 1                                             # transformer_in
     for lvl in range(n):
+        tc[lvl] += 2 * lpb + 1                             # down + up blocks
         if cfg.cross_attn_blocks[lvl]:
-            total += (2 * cfg.layers_per_block + 1) * tt(lvl)   # down + up blocks
-    return total
+            tt[lvl] += 2 * lpb + 1
+    tt[-1] += 1                                            # mid_tattn
+    tc[-1] += 2                                            # mid_tconv_0, _1
+    return tt, tc
 
 
 # ---------------------------------------------------------------------------
@@ -983,7 +1024,18 @@ def routing_row(dev, seed: int, model: str, level: str, kind: str, blocks: int, 
     return row
 
 
-def phase_kernel_tattn(dev):
+# (name, B, F, P, C, H, layout): ZeroScope's four levels (CFG batch 2, 16
+# frames, 8 heads), one pixel-major case and a P that is not a multiple of any
+# pixel tile the kernel picks.
+TATTN_CASES = [("zeroscope_L0_D40", 2, 16, 2880, 320, 8, "bfpc"),
+               ("zeroscope_L1_D80", 2, 16, 720, 640, 8, "bfpc"),
+               ("zeroscope_L2_D160", 2, 16, 180, 1280, 8, "bfpc"),
+               ("zeroscope_mid_D160", 2, 16, 45, 1280, 8, "bfpc"),
+               ("bpfc_L1_D80", 2, 16, 720, 640, 8, "bpfc"),
+               ("ragged_P1001_D80", 2, 16, 1001, 640, 8, "bfpc")]
+
+
+def phase_kernel_tattn(dev, cases=TATTN_CASES):
     """The temporal kernel against its plain version, both routes of
     ops/temporal_attention.py::tattn_route on the same inputs: `ms` /
     `device_ms` are the route the rule names ("ring"), `previous_*` the first,
@@ -992,15 +1044,6 @@ def phase_kernel_tattn(dev):
 
     from spider_tpu_torch.ops import temporal_attention as TA
 
-    # (name, B, F, P, C, H, layout): ZeroScope's four levels (CFG batch 2,
-    # 16 frames, 8 heads), one pixel-major case and a P that is not a
-    # multiple of any pixel tile the kernel picks.
-    cases = [("zeroscope_L0_D40", 2, 16, 2880, 320, 8, "bfpc"),
-             ("zeroscope_L1_D80", 2, 16, 720, 640, 8, "bfpc"),
-             ("zeroscope_L2_D160", 2, 16, 180, 1280, 8, "bfpc"),
-             ("zeroscope_mid_D160", 2, 16, 45, 1280, 8, "bfpc"),
-             ("bpfc_L1_D80", 2, 16, 720, 640, 8, "bpfc"),
-             ("ragged_P1001_D80", 2, 16, 1001, 640, 8, "bfpc")]
     rows = []
     for i, (name, B, F, P, C, H, layout) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(200 + i)
@@ -1517,6 +1560,184 @@ def phase_video_profile(pipe, dev):
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+
+VIDEO_SHARDED_MESH = (2, 4)            # the (cfg, sp) mesh the computed rows are for
+# The 40-step latents of the fp32 copy (plain attention, no TF32) through the
+# sharded loop at the world of one against the unsharded loop, relative L2:
+# the 2e-4 that tests/test_torch_video_sharded.py holds 6 fp32 steps to. The
+# two differ only in the frame-split arithmetic (two-pass GroupNorms, halo
+# convs, the reshard), so what the bf16 paths part by beyond this is rounding
+# carried through the steps.
+VIDEO_SHARDED_FP32_REL = 2e-4
+
+
+def video_sharded_bytes(cfg, lat_h: int, lat_w: int, frames: int, videos: int, n_cfg: int,
+                        n_sp: int, elem: int) -> dict:
+    """What one inner rank of a (cfg, sp) mesh sends in one denoise step of
+    pipelines/vd.py's sharded loop, COMPUTED from the UNet3D configuration
+    (not timed): each TransformerTemporal's all-to-all pair (n_sp - 1 of its
+    n_sp chunks of [rows, F / n_sp, ceil(P / n_sp), C], there and back), each
+    TemporalConv's four halos (a [rows, C, P] frame to each neighbour), the
+    temporal GroupNorms' two all-reduced [rows, groups] fp32 moments (the
+    payload), and the cfg join of the noise prediction [rows, F / n_sp, h, w,
+    out]. rows = 2 * videos / n_cfg; elem: bytes of the UNet's dtype."""
+    rows, fl = 2 * videos // n_cfg, frames // n_sp
+    tt, tc = unet3d_temporal_layers(cfg)
+    a2a = halo = norm = 0
+    for lvl, P in enumerate(unet3d_level_pixels(cfg, lat_h, lat_w)):
+        C = cfg.block_out_channels[lvl]
+        a2a += tt[lvl] * 2 * (n_sp - 1) * rows * fl * -(-P // n_sp) * C * elem
+        halo += tc[lvl] * 4 * min(n_sp - 1, 2) * rows * C * P * elem
+        if n_sp > 1:
+            norm += (tt[lvl] + 4 * tc[lvl]) * 2 * rows * cfg.norm_num_groups * 4
+    join = (n_cfg - 1) * rows * fl * lat_h * lat_w * cfg.out_channels * elem
+    return dict(all_to_all_bytes=a2a, halo_bytes=halo, group_norm_bytes=norm,
+                cfg_join_bytes=join, total_bytes=a2a + halo + norm + join)
+
+
+def sharded_tattn_cases(cfg, lat_h: int, lat_w: int, frames: int, videos: int, n_cfg: int,
+                        n_sp: int):
+    """The temporal attention shapes one rank of a (cfg, sp) mesh runs: every
+    frame of ceil(P / n_sp) pixels (padded) at each level that holds a
+    TransformerTemporal, in TATTN_CASES' form."""
+    tt, _ = unet3d_temporal_layers(cfg)
+    names = [f"L{lvl}" for lvl in range(len(tt) - 1)] + ["mid"]
+    out = []
+    for lvl, P in enumerate(unet3d_level_pixels(cfg, lat_h, lat_w)):
+        if not tt[lvl]:
+            continue
+        C, H = cfg.block_out_channels[lvl], cfg.num_attention_heads[lvl]
+        out.append((f"sharded_cfg{n_cfg}_sp{n_sp}_{names[lvl]}_P{-(-P // n_sp)}_D{C // H}",
+                    2 * videos // n_cfg, frames, -(-P // n_sp), C, H, "bfpc"))
+    return out
+
+
+def phase_video_sharded(pipe, dev, smi: str):
+    """The sharded video denoise and decode (pipelines/vd.py ``__call__(mesh=)``)
+    on one card: the temporal kernel at the shapes one rank of a cfg 2 x sp 4
+    mesh gives it, with the bytes such a rank would send a step (computed);
+    then, over the NCCL world of one (a cfg 1 x sp 1 mesh), one CFG UNet3D
+    call through the frame-split code (two-pass GroupNorms, halo convs, the
+    frame/pixel reshard) and the plain call, each against an fp32 copy (the
+    unet_check rule), and the whole ZeroScope call (576x320, 16 frames, 40
+    steps, CFG 7.5) sharded and unsharded on the same latents: seconds, the
+    frames, launches by route equal, and the denoised latents of each against
+    the same 40 steps through the fp32 copy (the unet_check rule again: over
+    40 steps at CFG 7.5 two bf16 paths part by several percent, so the rule is
+    relative to what the unsharded path's own rounding gives); and the same
+    40 steps through the fp32 copy sharded, against the unsharded fp32 steps
+    within VIDEO_SHARDED_FP32_REL. Leaves the process group up (the parallel
+    phase joins it)."""
+    import dataclasses
+
+    import torch
+
+    from spider_tpu_torch.common import dist
+    from spider_tpu_torch.models.unet2d import spatial_flash_config
+    from spider_tpu_torch.models.unet3d import UNet3DConditionModel
+    from spider_tpu_torch.ops.temporal_attention import temporal_attention_config
+    from spider_tpu_torch.parallel.collectives import group_of
+
+    h, w, frames = VIDEO_HW_FRAMES
+    cfg = pipe.unet.config
+    n_cfg, n_sp = VIDEO_SHARDED_MESH
+    rows = []
+    for row in phase_kernel_tattn(dev, sharded_tattn_cases(cfg, h // 8, w // 8, frames, 1,
+                                                           n_cfg, n_sp)):
+        rows.append(dict(phase="video_sharded", part="kernel", nvidia_smi=smi, **row))
+    rows.append(dict(phase="video_sharded", part="bytes_per_step_computed",
+                     mesh=dict(cfg=n_cfg, sp=n_sp), videos=1, dtype="bfloat16",
+                     **video_sharded_bytes(cfg, h // 8, w // 8, frames, 1, n_cfg, n_sp, 2),
+                     ok=True, nvidia_smi=smi))
+
+    dist.init_distributed_mode(dev)
+    mesh = dist.make_video_mesh(cfg=1, sp=1)
+    g = torch.Generator(device=dev).manual_seed(9)
+    lat = torch.randn((2, frames, h // 8, w // 8, 4), generator=g, device=dev)
+    ctx = torch.cat([pipe.encode_prompt([""]), pipe.encode_prompt([VIDEO_CAPTION])])
+    t = torch.full((2,), 981, dtype=torch.int32, device=dev)
+    ref_unet = UNet3DConditionModel(dataclasses.replace(cfg, dtype=torch.float32), dev).eval()
+    ref_unet.load_state_dict(pipe.unet.state_dict())
+    start = lat[:1].clone()
+    with torch.inference_mode():
+        sharded = pipe.unet(lat, t, ctx, sp_group=group_of(mesh, ("sp",))).float()
+        plain = pipe.unet(lat, t, ctx).float()
+    bf16_unet, pipe.unet = pipe.unet, ref_unet          # the fp32 copy, plain attention
+    try:
+        with torch.inference_mode(), temporal_attention_config("plain"), \
+                spatial_flash_config("einsum"):
+            ref = ref_unet(lat, t, ctx.float())
+            fp32 = pipe._denoise_fn(STEPS, GUIDANCE, tuple(start.shape))(
+                start, ctx[1:].float(), ctx[:1].float())        # 40 steps: cond, uncond
+            fp32_sharded = pipe._denoise_fn_sharded(STEPS, GUIDANCE, tuple(start.shape), mesh)(
+                start, ctx[1:].float(), ctx[:1].float())
+    finally:
+        pipe.unet = bf16_unet
+    del ref_unet
+    torch.cuda.empty_cache()
+    err_sharded, err_plain = _rel_errors(sharded, plain, ref)
+    rows.append(dict(phase="video_sharded", part="unet3d_check",
+                     rel_err_sharded_vs_fp32=err_sharded, rel_err_unsharded_vs_fp32=err_plain,
+                     nvidia_smi=smi, ok=bool(torch.isfinite(sharded).all())
+                     and err_sharded <= UNET_REL_SLACK * err_plain + 1e-3))
+    del sharded, plain, ref
+    fp32_rel = ((fp32_sharded - fp32).norm() / fp32.norm()).item()
+    rows.append(dict(phase="video_sharded", part="fp32_sharded_vs_unsharded", steps=STEPS,
+                     latent_rel_l2=fp32_rel,
+                     latent_max_abs_diff=(fp32_sharded - fp32).abs().max().item(),
+                     bound_rel_l2=VIDEO_SHARDED_FP32_REL, nvidia_smi=smi,
+                     ok=bool(torch.isfinite(fp32_sharded).all())
+                     and fp32_rel <= VIDEO_SHARDED_FP32_REL))
+    del fp32_sharded
+
+    seen = {}
+    for name, kw, decode in (("unsharded", {}, "_decode_latents"),
+                             ("sharded", dict(mesh=mesh), "_decode_latents_sharded")):
+        real = getattr(pipe, decode)
+
+        def record(latents, *rest, name=name, real=real):
+            seen[name] = latents.clone()
+            return real(latents, *rest)
+
+        setattr(pipe, decode, record)
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe(prompt=[VIDEO_CAPTION], num_inference_steps=STEPS,
+                       guidance_scale=GUIDANCE, height=h, width=w, num_frames=frames,
+                       latents=start, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            delattr(pipe, decode)
+        launches, routes = read_launches(), read_route_launches()
+        seen[name + "_frames"] = out
+        rows.append(dict(phase="video_sharded", part=name, seconds=seconds,
+                         mesh=dict(cfg=1, sp=1) if kw else None, frames_shape=list(out.shape),
+                         frames_dtype=str(out.dtype), launches=launches, route_launches=routes,
+                         nvidia_smi=smi, ok=out.shape == (1, frames, h, w, 3)
+                         and str(out.dtype) == "uint8" and on_ruled_route(routes)))
+    a, b = seen["sharded"], seen["unsharded"]
+    err_sharded, err_plain = _rel_errors(a, b, fp32)
+    fa, fb = (seen[k + "_frames"].astype("int16") for k in ("sharded", "unsharded"))
+    want_tattn = STEPS * tattn_launches_per_unet3d_call(cfg, h // 8, w // 8, frames)
+    same = (rows[-1]["launches"] == rows[-2]["launches"]
+            and rows[-1]["route_launches"] == rows[-2]["route_launches"])
+    rows.append(dict(phase="video_sharded", part="sharded_vs_unsharded",
+                     latent_rel_l2=((a - b).norm() / b.norm()).item(),
+                     latent_max_abs_diff=(a - b).abs().max().item(),
+                     latent_rel_err_sharded_vs_fp32=err_sharded,
+                     latent_rel_err_unsharded_vs_fp32=err_plain,
+                     frames_mean_abs_levels=float(abs(fa - fb).mean()),
+                     frames_max_abs_levels=int(abs(fa - fb).max()),
+                     tattn_launches=rows[-1]["launches"]["tattn_fwd"],
+                     tattn_launches_expected=want_tattn, launches_equal=same, nvidia_smi=smi,
+                     ok=bool(torch.isfinite(a).all())
+                     and err_sharded <= UNET_REL_SLACK * err_plain + 1e-3
+                     and same and rows[-1]["launches"]["tattn_fwd"] == want_tattn))
+    return rows
+
 
 def timed_chat(chat_fn, prompt):
     import torch
@@ -6035,6 +6256,120 @@ def parallel_world_of_one_rows(dev, mesh, smi: str):
                  ok=ring_same and ep_same and pipe_same, nvidia_smi=smi)]
 
 
+PARALLEL_INT4_LAYERS = 4                     # of llama3_8b's 32 (the TP row's int4 model)
+PARALLEL_INT4_TOKENS = 16
+
+
+def parallel_moe_rows(dev, mesh, smi: str):
+    """The MoE Llama (llama3_8b widths, MOE_LAYERS layers, MOE_EXPERTS experts,
+    top-2) through shard_model over the world of one, against the same model
+    unsharded: a forward at [4, 512] (logits, aux terms) and one
+    make_lm_train_step (loss, aux within PARALLEL_LOSS_REL); the sharded model's
+    MoE layers gate through parallel.moe.moe_ffn_sharded. Returns (rows,
+    launches of the sharded run)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.runners import train_step as TS
+
+    cfg = dataclasses.replace(L.llama3_8b(), num_hidden_layers=MOE_LAYERS,
+                              num_experts=MOE_EXPERTS, moe_top_k=2)
+    B, T = TRAIN_LM_SHAPE
+    g = torch.Generator(device=dev).manual_seed(56)
+    ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=dev)
+    labels = ids.clone()
+    labels[:, : T // 4] = -100
+    got = {}
+    for name in ("unsharded", "sharded"):
+        model = factory.build_llama(cfg, dev, seed=57)
+        for p in (model.embed_tokens.weight, model.lm_head.weight):
+            p.requires_grad_(False)
+        if name == "sharded":
+            TS.shard_model(model, mesh)
+        reset_launches()
+        with torch.no_grad():          # FSDP2's unsharded storage must not be an inference tensor
+            logits = model(input_ids=ids)[0].float()
+        aux = model.moe_aux_losses().tolist()
+        opt = TS.build_optimizer(3e-4, params={n: p for n, p in model.named_parameters()
+                                               if p.requires_grad}, weight_decay=0.01)
+        model.train()
+        metrics, seconds = _sync_s(lambda: TS.make_lm_train_step(model, opt)(
+            dict(input_ids=ids, labels=labels)))
+        got[name] = dict(logits=logits, aux=aux, seconds=seconds, launches=read_launches(),
+                         routes=read_route_launches(),
+                         metrics={k: float(v) for k, v in metrics.items()},
+                         gated_over_mesh=model.model.layers[0].mlp.mesh is not None)
+        del model, opt, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = got["sharded"], got["unsharded"]
+    rel = lambda x, y: abs(x - y) / max(abs(y), 1e-6)
+    loss_rel = max(rel(a["metrics"][k], b["metrics"][k]) for k in ("loss", "moe_aux"))
+    aux_rel = max(rel(x, y) for x, y in zip(a["aux"], b["aux"]))
+    logit_diff = (a["logits"] - b["logits"]).abs().max().item()
+    want = dict(flash_fwd=2 * MOE_LAYERS, flash_bwd_dq=MOE_LAYERS, flash_bwd_dkv=MOE_LAYERS,
+                tattn_fwd=0, paged_decode=0, int4_matmul=0)
+    row = dict(phase="parallel", part="moe_llama_world_of_one",
+               model=f"llama3_8b widths, {MOE_LAYERS} of 32 layers (cut), {MOE_EXPERTS} "
+               "experts, top-2", batch=B, seq_len=T, aux_sharded=a["aux"], aux_unsharded=b["aux"],
+               aux_rel=aux_rel, logits_max_abs_diff=logit_diff,
+               metrics_sharded=a["metrics"], metrics_unsharded=b["metrics"],
+               loss_aux_rel=loss_rel, step_s_sharded=a["seconds"], step_s_unsharded=b["seconds"],
+               gated_over_mesh=a["gated_over_mesh"], launches=a["launches"],
+               launches_expected=want, route_launches=a["routes"],
+               bounds=dict(loss_rel=PARALLEL_LOSS_REL, logits_atol=LOGIT_ATOL), nvidia_smi=smi,
+               ok=a["gated_over_mesh"] and loss_rel <= PARALLEL_LOSS_REL
+               and aux_rel <= PARALLEL_LOSS_REL and logit_diff <= LOGIT_ATOL
+               and a["launches"] == want == b["launches"] and on_ruled_route(a["routes"]))
+    return [row], a["launches"]
+
+
+def parallel_int4_row(dev, mesh, smi: str):
+    """The int4 Llama (llama3_8b widths, PARALLEL_INT4_LAYERS layers) through
+    partition.parallelize_llama over the world of one's model axis: greedy
+    tokens after a 128-token prompt equal to the unwrapped model's, int4
+    launches by route equal. Returns (row, launches of the parallel run)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from spider_tpu_torch.common import dist
+    from spider_tpu_torch.models import factory
+    from spider_tpu_torch.parallel import partition
+
+    cfg = dataclasses.replace(factory.llama3_8b_quantized("int4"),
+                              num_hidden_layers=PARALLEL_INT4_LAYERS)
+    model = factory.build_llama(cfg, dev, seed=58)
+    g = torch.Generator(device=dev).manual_seed(59)
+    ids = torch.randint(3, cfg.vocab_size, (1, PROMPT_TOKENS), generator=g, device=dev)
+    got = {}
+    for name in ("unwrapped", "parallel"):
+        if name == "parallel":
+            partition.parallelize_llama(model, mesh[dist.AXIS_MODEL])
+        reset_launches()
+        tokens, seconds = _sync_s(lambda: _greedy(model, ids, PARALLEL_INT4_TOKENS))
+        got[name] = dict(tokens=tokens, seconds=seconds, launches=read_launches(),
+                         routes=read_route_launches())
+    a, b = got["parallel"], got["unwrapped"]
+    row = dict(phase="parallel", part="int4_tensor_parallel_world_of_one",
+               model=f"llama3_8b int4, {PARALLEL_INT4_LAYERS} of 32 layers (cut)",
+               prompt_tokens=PROMPT_TOKENS, new_tokens=PARALLEL_INT4_TOKENS,
+               tokens_equal=a["tokens"] == b["tokens"], seconds_parallel=a["seconds"],
+               seconds_unwrapped=b["seconds"], launches=a["launches"],
+               route_launches=a["routes"], route_launches_unwrapped=b["routes"], nvidia_smi=smi,
+               ok=a["tokens"] == b["tokens"] and a["routes"] == b["routes"]
+               and a["launches"]["int4_matmul"] > 0)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, a["launches"]
+
+
 def parallel_config(out_dir: str, mesh):
     """train_configs/spider_longctx_train.py with model.preset=full: its
     datasets at ImageBind-huge's 224 px, run.mesh as given (None: as the
@@ -6121,6 +6456,12 @@ def phase_parallel(dev, smi: str):
     rows += ring_rows
     _add_launches(total, launches)
     rows += parallel_world_of_one_rows(dev, mesh, smi)
+    moe_rows, launches = parallel_moe_rows(dev, mesh, smi)
+    rows += moe_rows
+    _add_launches(total, launches)
+    int4_row, launches = parallel_int4_row(dev, mesh, smi)
+    rows.append(int4_row)
+    _add_launches(total, launches)
 
     with tempfile.TemporaryDirectory(prefix="spider_parallel_") as d:
         try:                                # as the file writes it: data 2 x context 4
@@ -6235,10 +6576,12 @@ def main() -> int:
     omni_only = sys.argv[1:] == ["omni"]
     data_only = sys.argv[1:] == ["data"]
     parallel_only = sys.argv[1:] == ["parallel"]
+    video_sharded_only = sys.argv[1:] == ["video_sharded"]
     if sys.argv[1:] and not (kernels_only or checkpoint_only or family_only or story_only
-                             or grounding_only or omni_only or data_only or parallel_only):
+                             or grounding_only or omni_only or data_only or parallel_only
+                             or video_sharded_only):
         print("usage: chip_smoke.py [kernels | checkpoint | family | story | grounding | omni"
-              " | data | parallel]", file=sys.stderr)
+              " | data | parallel | video_sharded]", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     # Nothing here may reach a network: a checkpoint directory without
@@ -6367,6 +6710,21 @@ def main() -> int:
         print(smi, flush=True)
         if not ok:
             print("chip_smoke: a train_data row failed (see the JSON lines above)",
+                  file=sys.stderr)
+        return 0 if ok else 1
+
+    if video_sharded_only:
+        vd = factory.from_pretrained("zeroscope", device=dev, dtype=torch.bfloat16, seed=1)
+        for row in phase_video_sharded(vd, dev, smi):
+            emit(row)
+            ok &= row["ok"]
+        from spider_tpu_torch.common import dist
+
+        dist.destroy()
+        emit(dict(phase="total", seconds=time.perf_counter() - started))
+        print(smi, flush=True)
+        if not ok:
+            print("chip_smoke: a video_sharded row failed (see the JSON lines above)",
                   file=sys.stderr)
         return 0 if ok else 1
 
@@ -6503,6 +6861,14 @@ def main() -> int:
         ok &= row["ok"]
     _add_launches(main_launches, data_launches)
     del data_rows
+
+    # The sharded video denoise and decode over the NCCL world of one (the
+    # process group it starts stays up for the parallel phase)
+    for row in phase_video_sharded(vd, dev, smi):
+        emit(row)
+        ok &= row["ok"]
+        if "launches" in row:
+            _add_launches(main_launches, row["launches"])
 
     # The training side of the multi-card code on this one card: the NCCL
     # world of one, the ring at 8B width, the sharded runner against the

@@ -179,6 +179,24 @@ def make_mesh(data: Optional[int] = None, fsdp: int = 1, model: int = 1, expert:
     return init_device_mesh(device_type, shape, mesh_dim_names=AXES)
 
 
+VIDEO_AXES = ("cfg", "sp")
+
+
+def make_video_mesh(cfg: int = 1, sp: Optional[int] = None):
+    """The ``DeviceMesh`` of the sharded video denoise
+    (``TextToVideoSDPipeline.__call__(mesh=)``), dimensions (cfg, sp), cfg
+    outermost: the CFG pair split over ``cfg``, the frames over ``sp``. sp
+    None takes the ranks cfg leaves; raises ValueError where the world
+    cannot hold the shape exactly."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not is_dist_avail_and_initialized():
+        raise RuntimeError("make_video_mesh needs the process group: call init_distributed_mode")
+    shape = _factorize(get_world_size(), [cfg, sp])
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=VIDEO_AXES)
+
+
 def default_mesh():
     """Every rank on the data axis (pure data parallelism)."""
     return make_mesh(data=None)

@@ -55,7 +55,7 @@ from spider_tpu_torch.ops.ring_attention import ring_attention
 from spider_tpu_torch.ops.rope import apply_mrope, apply_rope, rope_inv_freq
 from spider_tpu_torch.parallel.collectives import group_of, rank_in
 from spider_tpu_torch.parallel.loss_shards import LOCAL, LossShards
-from spider_tpu_torch.parallel.moe import MoEConfig, moe_ffn_local
+from spider_tpu_torch.parallel.moe import MoEConfig, moe_ffn_sharded
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -64,6 +64,7 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 class LoraConfig:
     r: int = 0                      # 0 disables LoRA
     alpha: float = 21.0
+    dropout: float = 0.0            # as in the reference: a field that nothing reads
     targets: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
 
 
@@ -354,10 +355,15 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaMoEMLP(nn.Module):
-    """The capacity-gated MoE FFN in place of LlamaMLP (parallel/moe.py's
-    ``moe_ffn_local`` over the call's B*T tokens). Parameters as in the JAX
-    tree: ``wg`` [H, E] fp32, ``w1`` [E, H, I] and ``w2`` [E, I, H] in
-    param_dtype, cast to dtype for the products. Capacity uses
+    """The capacity-gated MoE FFN in place of LlamaMLP: parallel/moe.py's
+    ``moe_ffn_sharded`` over ``mesh``, the training mesh that
+    ``runners.train_step.shard_model`` sets, which gives this rank's tokens
+    what ``moe_ffn_local`` gives them on the global batch and splits the
+    experts over the mesh's ``expert`` axis; without a mesh the call's B*T
+    tokens are the whole batch (``moe_ffn_local``'s result). Parameters as
+    in the JAX tree: ``wg`` [H, E] fp32, ``w1`` [E, H, I] and ``w2`` [E, I, H] in
+    param_dtype (under ``partition.parallelize_experts`` the expert rank's
+    rows), cast to dtype for the products. Capacity uses
     ``moe_capacity_factor`` at inference too: the JAX module always calls
     ``moe_ffn_local`` with train=True.
 
@@ -373,16 +379,16 @@ class LlamaMoEMLP(nn.Module):
         self.w1 = nn.Parameter(torch.zeros(E, H, I, dtype=cfg.param_dtype, device=device))
         self.w2 = nn.Parameter(torch.zeros(E, I, H, dtype=cfg.param_dtype, device=device))
         self.aux_loss: Optional[torch.Tensor] = None
+        self.mesh = None
 
     def forward(self, x):
         cfg = self.cfg
-        B, T, H = x.shape
-        mcfg = MoEConfig(num_experts=cfg.num_experts, d_model=H, d_ff=cfg.intermediate_size,
-                         capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
-                         dtype=cfg.dtype)
+        mcfg = MoEConfig(num_experts=cfg.num_experts, d_model=x.shape[-1],
+                         d_ff=cfg.intermediate_size, capacity_factor=cfg.moe_capacity_factor,
+                         top_k=cfg.moe_top_k, dtype=cfg.dtype)
         params = dict(wg=self.wg, w1=self.w1.to(cfg.dtype), w2=self.w2.to(cfg.dtype))
-        out, self.aux_loss = moe_ffn_local(params, x.reshape(B * T, H), mcfg)
-        return out.reshape(B, T, H)
+        out, self.aux_loss = moe_ffn_sharded(params, x, mcfg, self.mesh)
+        return out
 
 
 class LlamaBlock(nn.Module):
@@ -484,7 +490,8 @@ class LlamaForCausalLM(nn.Module):
 
     def moe_aux_losses(self) -> Optional[torch.Tensor]:
         """[L] fp32: each MoE layer's load-balancing term from the last
-        forward (the JAX model's sown ``losses/moe_aux``); None without
+        forward (the JAX model's sown ``losses/moe_aux``; under a training
+        mesh the global batch's, alike on every rank); None without
         experts."""
         if self.config.num_experts <= 0:
             return None

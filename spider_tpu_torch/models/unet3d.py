@@ -19,6 +19,18 @@ Numerics held to the reference:
     context F times (``repeat_interleave``), matching the b-major fold.
 The frame-axis attention goes through ops/temporal_attention.py, which
 launches the CUDA kernel on the card.
+
+Frames split over ranks (``forward(..., sp_group=)``, the sharded video
+denoise of pipelines/vd.py; inference only): each rank holds F / n
+consecutive frames of every video, and the spatial layers run on them as
+they are. The temporal GroupNorms take their moments over all F frames (a
+two-pass mean and centred second moment in fp32, each summed over the
+group); the frame conv takes one frame of halo from each neighbour (zeros
+at the first and the last frame); a TransformerTemporal reshards once after
+its norm from frames to pixels (every frame of P / n pixels, the split
+allowed to be uneven), runs proj_in, its blocks and proj_out there, and
+reshards back before the residual. The temporal attention's routing reads
+the whole frame's P.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from torch import nn
 from spider_tpu_torch.models.schedulers import timestep_embedding
 from spider_tpu_torch.models.unet2d import ResnetBlock2D, Transformer2D
 from spider_tpu_torch.ops.temporal_attention import temporal_attention
+from spider_tpu_torch.parallel.collectives import (all_reduce_sum_, frame_halo,
+                                                   frames_to_pixels, pixels_to_frames, size_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +84,25 @@ def _frames_view(h: torch.Tensor, shape) -> torch.Tensor:
     return h.transpose(1, 2).reshape(shape)
 
 
+def group_norm_frames(h: torch.Tensor, norm: nn.GroupNorm, group) -> torch.Tensor:
+    """``norm`` of [B, C, F_local, P] with the moments of each (video,
+    group of channels) taken over the frames of every rank of `group`: the
+    mean, then the centred second moment, each summed over the ranks, in
+    fp32; the affine in fp32, the result in h's dtype."""
+    B, C, Fl, P = h.shape
+    G = norm.num_groups
+    x = h.float().reshape(B, G, -1)
+    count = x.shape[-1] * size_of(group)
+    s = x.sum(-1)
+    all_reduce_sum_([s], group)
+    d = x - (s / count)[..., None]
+    v = (d * d).sum(-1)
+    all_reduce_sum_([v], group)
+    y = (d * torch.rsqrt(v / count + norm.eps)[..., None]).reshape(B, C, Fl, P)
+    y = y * norm.weight.float()[:, None, None] + norm.bias.float()[:, None, None]
+    return y.to(h.dtype)
+
+
 class TemporalConv(nn.Module):
     """diffusers TemporalConvLayer: 4 x (GroupNorm -> SiLU -> conv over F),
     residual; the reference zero-inits the last conv."""
@@ -82,10 +115,17 @@ class TemporalConv(nn.Module):
             self.add_module(f"conv{i}", nn.Conv2d(ch, ch, (3, 1), padding=(1, 0), dtype=dt,
                                                   device=device))
 
-    def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: int, group=None) -> torch.Tensor:
+        """frames: this rank's; group: the ranks holding the others (None:
+        all frames here)."""
         h = _video_view(x, frames)
         for i in range(1, 5):
-            h = getattr(self, f"conv{i}")(F.silu(getattr(self, f"norm{i}")(h)))
+            norm, conv = getattr(self, f"norm{i}"), getattr(self, f"conv{i}")
+            if group is None:
+                h = conv(F.silu(norm(h)))
+            else:
+                h = F.silu(group_norm_frames(h, norm, group))
+                h = F.conv2d(frame_halo(h, group, 2), conv.weight, conv.bias)
         return x + _frames_view(h, x.shape)
 
 
@@ -106,14 +146,16 @@ class TemporalBasicBlock(nn.Module):
         self.ff_proj_in = nn.Linear(ch, ch * 8, dtype=dt, device=device)
         self.ff_proj_out = nn.Linear(ch * 4, ch, dtype=dt, device=device)
 
-    def _attn(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _attn(self, name: str, x: torch.Tensor, pixels) -> torch.Tensor:
         proj = lambda p: getattr(self, f"{name}_{p}")(x)
-        out = temporal_attention(proj("q"), proj("k"), proj("v"), self.heads, layout="bfpc")
+        out = temporal_attention(proj("q"), proj("k"), proj("v"), self.heads, layout="bfpc",
+                                 pixels=pixels)
         return getattr(self, f"{name}_out")(out)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = h + self._attn("attn1", self.norm1(h))
-        h = h + self._attn("attn2", self.norm2(h))
+    def forward(self, h: torch.Tensor, pixels=None) -> torch.Tensor:
+        """pixels: the whole frame's P where h holds a rank's share."""
+        h = h + self._attn("attn1", self.norm1(h), pixels)
+        h = h + self._attn("attn2", self.norm2(h), pixels)
         a, b = self.ff_proj_in(self.norm3(h)).chunk(2, dim=-1)
         return h + self.ff_proj_out(a * F.gelu(b, approximate="tanh"))
 
@@ -131,8 +173,18 @@ class TransformerTemporal(nn.Module):
             self.add_module(f"block_{i}", TemporalBasicBlock(ch, heads, dt, device))
         self.proj_out = nn.Linear(ch, ch, dtype=dt, device=device)
 
-    def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames: int, group=None) -> torch.Tensor:
+        """frames: this rank's; group: the ranks holding the others (None:
+        all frames here)."""
         BF, C, H, W = x.shape
+        if group is not None:
+            h = group_norm_frames(_video_view(x, frames), self.norm, group)
+            h = frames_to_pixels(h.permute(0, 2, 3, 1), group)     # [B, F, P/n, C]
+            h = self.proj_in(h)
+            for i in range(self.depth):
+                h = getattr(self, f"block_{i}")(h, pixels=H * W)
+            h = pixels_to_frames(self.proj_out(h), group, H * W)   # [B, F_local, P, C]
+            return x + h.permute(0, 1, 3, 2).reshape(BF, C, H, W)
         h = self.norm(_video_view(x, frames))              # [B, C, F, P]
         h = self.proj_in(h.permute(0, 2, 3, 1))            # [B, F, P, C]
         for i in range(self.depth):
@@ -197,9 +249,12 @@ class UNet3DConditionModel(nn.Module):
         self.conv_out = nn.Conv2d(cur, cfg.out_channels, 3, padding=1, dtype=dt, device=device)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, sp_group=None) -> torch.Tensor:
         """sample [B,F,H,W,Cin]; timesteps [B]; encoder_hidden_states
-        [B,S,Dctx] -> [B,F,H,W,Cout] in the model's dtype."""
+        [B,S,Dctx] -> [B,F,H,W,Cout] in the model's dtype. With `sp_group`,
+        F is this rank's consecutive frames of each video and the group's
+        ranks hold the others, in rank order (inference only)."""
+        g = sp_group
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
@@ -209,29 +264,29 @@ class UNet3DConditionModel(nn.Module):
         temb_f = temb.repeat_interleave(Fr, dim=0)                       # row b*F + f
         ctx_f = encoder_hidden_states.to(dt).repeat_interleave(Fr, dim=0)
         x = sample.to(dt).reshape(B * Fr, H, W, Cin).permute(0, 3, 1, 2).contiguous()
-        x = self.transformer_in(self.conv_in(x), Fr)
+        x = self.transformer_in(self.conv_in(x), Fr, g)
         skips = [x]
         for i in range(n):
             for j in range(cfg.layers_per_block):
                 x = getattr(self, f"down_{i}_res_{j}")(x, temb_f)
-                x = getattr(self, f"down_{i}_tconv_{j}")(x, Fr)
+                x = getattr(self, f"down_{i}_tconv_{j}")(x, Fr, g)
                 if cfg.cross_attn_blocks[i]:
                     x = getattr(self, f"down_{i}_attn_{j}")(x, ctx_f)
-                    x = getattr(self, f"down_{i}_tattn_{j}")(x, Fr)
+                    x = getattr(self, f"down_{i}_tattn_{j}")(x, Fr, g)
                 skips.append(x)
             if i < n - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
                 skips.append(x)
-        x = self.mid_tconv_0(self.mid_res_0(x, temb_f), Fr)
-        x = self.mid_tattn(self.mid_attn(x, ctx_f), Fr)
-        x = self.mid_tconv_1(self.mid_res_1(x, temb_f), Fr)
+        x = self.mid_tconv_0(self.mid_res_0(x, temb_f), Fr, g)
+        x = self.mid_tattn(self.mid_attn(x, ctx_f), Fr, g)
+        x = self.mid_tconv_1(self.mid_res_1(x, temb_f), Fr, g)
         for i in range(n):
             for j in range(cfg.layers_per_block + 1):
                 x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1), temb_f)
-                x = getattr(self, f"up_{i}_tconv_{j}")(x, Fr)
+                x = getattr(self, f"up_{i}_tconv_{j}")(x, Fr, g)
                 if cfg.cross_attn_blocks[n - 1 - i]:
                     x = getattr(self, f"up_{i}_attn_{j}")(x, ctx_f)
-                    x = getattr(self, f"up_{i}_tattn_{j}")(x, Fr)
+                    x = getattr(self, f"up_{i}_tattn_{j}")(x, Fr, g)
             if i < n - 1:
                 x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
                                                                     mode="nearest"))

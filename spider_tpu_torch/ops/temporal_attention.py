@@ -209,17 +209,20 @@ class TemporalAttentionFunction(torch.autograd.Function):
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
-                       scale: Optional[float] = None, layout: str = "bfpc") -> torch.Tensor:
+                       scale: Optional[float] = None, layout: str = "bfpc",
+                       pixels: Optional[int] = None) -> torch.Tensor:
     """Frame-axis attention at every pixel. CPU tensors, and CUDA tensors
     outside the reference's predicate, take the einsum form; CUDA tensors
     inside it launch the kernel through ``TemporalAttentionFunction``
     (differentiable in q, k and v) and add one to
-    ``temporal_attention.launches``."""
+    ``temporal_attention.launches``. `pixels` is the P the predicate reads
+    (q's by default): a call on one rank's share of a frame's pixels passes
+    the whole frame's, as the reference decides on the global array."""
     B, F, P, C = _dims(q, layout)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"temporal_attention runs on cpu or cuda tensors, got {q.device}")
     if (q.device.type == "cuda" and _MODE.get() == "auto"
-            and kernel_predicate(heads, F, P, C)):
+            and kernel_predicate(heads, F, P if pixels is None else pixels, C)):
         return TemporalAttentionFunction.apply(q, k, v, heads, scale, layout)
     return temporal_attention_reference(q, k, v, heads, scale=scale, layout=layout)
 

@@ -25,7 +25,12 @@ them. The tensor-parallel plan of the Llama is read from the same table
 (``tensor_parallel_plan``): a projection whose spec puts ``model`` on its
 output dim is column-wise, on its input dim row-wise, and the embedding,
 sharded on its vocabulary, is vocabulary-parallel; ``parallelize_llama``
-applies it with ``parallelize_module``.
+applies it with ``parallelize_module``. An int4 projection is sharded by hand
+(``_shard_int4``), since the int4 kernel takes local tensors: each rank keeps
+plain local shards, a column-wise one its output channels, a row-wise one
+its contiguous input columns, repacked (a packed byte holds input columns
+i and i + in/2, so a contiguous split of the packed axis would not give a
+rank the contiguous columns its activations hold).
 
 ``freeze_embedding_rows`` zeroes the update of the first rows of the
 vocabulary matrices by their GLOBAL row index, so a shard holding rows
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from spider_tpu_torch.common.dist import AXIS_MODEL
+from spider_tpu_torch.common.dist import AXIS_EXPERT, AXIS_MODEL
 from spider_tpu_torch.models import convert
 
 Spec = Tuple                  # entries: None, an axis name, or a tuple of names
@@ -328,30 +333,79 @@ def _lora_style(kind: str, rules, root, prefix: str, gather_output: bool):
     return LoraParallel()
 
 
+def _shard_int4(mod: nn.Module, kind: str, group, gather_output: bool) -> None:
+    """An int4 LoraDense made tensor-parallel over `group` in place, with
+    plain local tensors (the int4 kernel takes no DTensor). Column-wise:
+    rank r keeps output channels r*out/n .. of kernel_q, kernel_scale, the
+    bias and lora_b, and its output is that slice of the features (all of
+    them gathered, for gather_output). Row-wise: rank r keeps the input
+    columns r*in/n .. that its activations hold, kernel_q unpacked, sliced
+    and packed again (split-half over the local columns) and lora_a's rows;
+    its output, a partial sum, is summed over the group. For serving: the
+    shards are not DTensors, so an optimizer would not see them as shards."""
+    from spider_tpu_torch.ops.quant import pack_int4, unpack_int4
+    from spider_tpu_torch.parallel.collectives import (gather_replicated, rank_in, size_of,
+                                                       sum_to_all)
+
+    n, r = size_of(group), rank_in(group)
+    out_f, packed = mod.kernel_q.shape
+    take = lambda t, dim, size: t.narrow(dim, r * size, size).clone()
+    if kind == "colwise":
+        if out_f % n:
+            raise ValueError(f"{out_f} output channels do not split over {n} model ranks")
+        m = out_f // n
+        mod.kernel_q = take(mod.kernel_q, 0, m)
+        mod.kernel_scale = take(mod.kernel_scale, 0, m)
+        if mod.bias is not None:
+            mod.bias = nn.Parameter(take(mod.bias.detach(), 0, m),
+                                    requires_grad=mod.bias.requires_grad)
+        if mod.lora_scale:
+            mod.lora_b = nn.Parameter(take(mod.lora_b.detach(), 1, m),
+                                      requires_grad=mod.lora_b.requires_grad)
+        if gather_output:
+            mod.register_forward_hook(lambda _m, _i, y: gather_replicated(y, group, y.dim() - 1))
+        return
+    if mod.bias is not None:
+        raise ValueError("a row-wise int4 projection with a bias is not sharded")
+    in_f = 2 * packed
+    if in_f % (2 * n):
+        raise ValueError(f"{in_f} input columns do not split into even pieces over {n} ranks")
+    k = in_f // n
+    cols = unpack_int4(mod.kernel_q.t(), torch.int8)            # [in, out], split-half order
+    mod.kernel_q = pack_int4(take(cols, 0, k)).t().contiguous()
+    if mod.lora_scale:
+        mod.lora_a = nn.Parameter(take(mod.lora_a.detach(), 0, k),
+                                  requires_grad=mod.lora_a.requires_grad)
+    mod.register_forward_hook(lambda _m, _i, y: sum_to_all(y, group))
+
+
 def parallelize_llama(model: nn.Module, model_mesh, rules: Optional[List[Tuple[str, Spec]]] = None
                       ) -> nn.Module:
     """Tensor-parallel LlamaForCausalLM over the 1-D ``model`` mesh, by
     ``tensor_parallel_plan``: q/k/v/gate/up column-wise, o/down row-wise,
     the embedding vocabulary-parallel, lm_head column-wise with its logits
     gathered. Each attention keeps its Hq/n and Hkv/n local heads (the
-    config's head counts become the local ones; both must divide). In place;
-    returns the model. Not for int4 projections (the int4 kernel takes local
-    tensors only)."""
+    config's head counts become the local ones; both must divide). int4
+    projections are sharded by ``_shard_int4`` into plain local tensors,
+    the rest into DTensors. In place; returns the model."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.parallel import RowwiseParallel, parallelize_module
+
+    from spider_tpu_torch.models.llama import LoraDense
 
     rules = rules or LLAMA_RULES
     cfg = model.config
     n = model_mesh.size()
-    if cfg.quantization == "int4":
-        raise NotImplementedError("tensor parallelism of int4 projections is not ported")
     if cfg.num_attention_heads % n or cfg.num_key_value_heads % n:
         raise ValueError(f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads do not "
                          f"split over {n} model ranks")
     plan = {}
     for name, kind in tensor_parallel_plan(model, rules).items():
+        mod = model.get_submodule(name)
         if kind == "vocab":
             plan[name] = RowwiseParallel(input_layouts=Replicate(), output_layouts=Replicate())
+        elif isinstance(mod, LoraDense) and mod.quantization == "int4":
+            _shard_int4(mod, kind, model_mesh.get_group(), gather_output=name == "lm_head")
         else:
             plan[name] = _lora_style(kind, rules, model, name + ".",
                                      gather_output=name == "lm_head")
@@ -360,4 +414,33 @@ def parallelize_llama(model: nn.Module, model_mesh, rules: Optional[List[Tuple[s
                                 num_key_value_heads=cfg.num_key_value_heads // n,
                                 head_dim=cfg.head_dim_)
     model.replace_config(local)
+    return model
+
+
+def parallelize_experts(model: nn.Module, expert_mesh,
+                        rules: Optional[List[Tuple[str, Spec]]] = None) -> nn.Module:
+    """Split the experts of every MoE layer of a LlamaForCausalLM over the
+    1-D ``expert`` mesh: each parameter whose rule names ``expert`` on a dim
+    (``mlp/w1``, ``mlp/w2``: the expert dim) becomes a DTensor sharded
+    there, rank r holding experts r*E/n ..; ``parallel.moe.moe_ffn_sharded``
+    runs that rank's experts. In place; returns the model."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from spider_tpu_torch.models.llama import LlamaMoEMLP
+
+    rules = rules or LLAMA_RULES
+    n = expert_mesh.size()
+    for mname, mod in model.named_modules():
+        if not isinstance(mod, LlamaMoEMLP):
+            continue
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            spec = param_spec(model, f"{mname}.{leaf}", rules)
+            dims = [d for d, e in enumerate(spec) if _names(e, AXIS_EXPERT)]
+            if not dims:
+                continue
+            if p.shape[dims[0]] % n:
+                raise ValueError(f"{p.shape[dims[0]]} experts of {mname}.{leaf} do not split "
+                                 f"over {n} expert ranks")
+            d = distribute_tensor(p.detach(), expert_mesh, [Shard(dims[0])])
+            setattr(mod, leaf, nn.Parameter(d, requires_grad=p.requires_grad))
     return model

@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from spider_tpu_torch.common import dist
-from spider_tpu_torch.models.llama import LlamaForCausalLM
+from spider_tpu_torch.models.llama import LlamaForCausalLM, LlamaMoEMLP
 from spider_tpu_torch.parallel import partition
 from spider_tpu_torch.parallel.loss_shards import LOCAL, LossShards
 
@@ -259,8 +259,13 @@ def make_lm_train_step(model: LlamaForCausalLM, optimizer: Optimizer):
     -100 outside answer spans); under a mesh (``shard_model``) this
     data-parallel rank's whole sequences, of which the step keeps this
     context rank's rows. With experts the loss is cross entropy +
-    moe_aux_weight * moe_aux, as the JAX step adds it; each rank's aux term
-    is over its own tokens (capacity too), weighted by ``shards.share``."""
+    moe_aux_weight * moe_aux, as the JAX step adds it. Under a mesh each MoE
+    layer gates over the global batch (capacity, queue places and the aux
+    term: ``parallel.moe.moe_ffn_sharded``), so moe_aux is the whole batch's
+    value, alike on every rank; its backward reaches each rank's own tokens
+    only, so every rank adds it whole to the loss it backpropagates and the
+    sum of the ranks' gradients counts it once. The metrics are shares summed
+    over the batch group: moe_aux enters them times ``shards.share``."""
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         shards = model.shards
@@ -271,9 +276,11 @@ def make_lm_train_step(model: LlamaForCausalLM, optimizer: Optimizer):
         out = dict(loss=loss, gen_acc=acc)
         aux = model.moe_aux_losses()
         if aux is not None:
-            out["moe_aux"] = aux.mean() * shards.share
-            loss = loss + model.config.moe_aux_weight * out["moe_aux"]
-            out["loss"] = loss
+            weight = model.config.moe_aux_weight
+            aux = aux.mean()
+            out["moe_aux"] = aux * shards.share
+            out["loss"] = loss + weight * out["moe_aux"]
+            loss = loss + weight * aux
         grad_norm = backward_and_step(loss, optimizer, shards)
         metrics = shards.reduce_metrics(out)
         metrics["grad_norm"] = grad_norm
@@ -310,19 +317,26 @@ def _fsdp_units(model: nn.Module) -> List[nn.Module]:
 def shard_model(model: nn.Module, mesh, rules=None) -> nn.Module:
     """Shard a LlamaForCausalLM or a Spider (its LLM) over `mesh`, in place:
     tensor parallelism over ``model`` (``partition.parallelize_llama``,
-    read from the rules), ring attention over ``context`` when it is > 1,
-    then FSDP2 over (data, fsdp), HSDP, with gradient sums (divide factor
-    1); ``model.shards`` becomes this rank's ``LossShards``. Parameters
-    that must not train are to be frozen before: FSDP2 needs one dtype
-    among a unit's trainable parameters."""
+    read from the rules), the experts of a MoE Llama over ``expert``
+    (``partition.parallelize_experts``), ring attention over ``context``
+    when it is > 1, the mesh on every MoE layer (gating over the global
+    batch), then FSDP2 over (data, fsdp), HSDP, with gradient
+    sums (divide factor 1); ``model.shards`` becomes this rank's
+    ``LossShards``. Parameters that must not train are to be frozen before:
+    FSDP2 needs one dtype among a unit's trainable parameters."""
     from torch.distributed.fsdp import fully_shard
 
     llm = model if isinstance(model, LlamaForCausalLM) else model.llm
     if dist.axis_size(mesh, dist.AXIS_MODEL) > 1:
         partition.parallelize_llama(llm, mesh[dist.AXIS_MODEL],
                                     rules or partition.LLAMA_RULES)
+    if dist.axis_size(mesh, dist.AXIS_EXPERT) > 1:
+        partition.parallelize_experts(llm, mesh[dist.AXIS_EXPERT], rules or partition.LLAMA_RULES)
     if dist.axis_size(mesh, dist.AXIS_CONTEXT) > 1:
         llm.replace_config(llm.config.with_context_parallel(mesh, dist.AXIS_CONTEXT))
+    for mod in llm.modules():
+        if isinstance(mod, LlamaMoEMLP):
+            mod.mesh = mesh
     dp_mesh = mesh[(dist.AXIS_DATA, dist.AXIS_FSDP)]
     for unit in _fsdp_units(model):
         fully_shard(unit, mesh=dp_mesh)

@@ -223,6 +223,31 @@ def tp_generate(params, ids, new_tokens):
     return dict(plan=plan, tokens=out["tokens"].numpy())
 
 
+def tp_generate_int4(params, ids, new_tokens):
+    """Greedy tokens of the tiny int4 Llama from `params` (an int4 JAX
+    tree) made tensor-parallel over a model axis of the whole world, and
+    the local shapes its o_proj and q_proj kept."""
+    import dataclasses
+
+    from spider_tpu_torch.common import dist
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.models.convert import load_jax_params
+    from spider_tpu_torch.models.decode import GenerateConfig, generate
+    from spider_tpu_torch.parallel import partition
+
+    mesh = dist.make_mesh(data=1, model=-1)
+    cfg = dataclasses.replace(L.llama_tiny(vocab_size=64), quantization="int4")
+    model = load_jax_params(L.LlamaForCausalLM(cfg), params)
+    partition.parallelize_llama(model, mesh["model"])
+    ids = torch.from_numpy(ids)
+    with torch.no_grad():
+        out = generate(model, model.embed(ids), torch.tensor([ids.shape[1]], dtype=torch.int32),
+                       GenerateConfig(max_new_tokens=new_tokens))
+    attn = model.model.layers[0].self_attn
+    return dict(tokens=out["tokens"].numpy(), o_q=tuple(attn.o_proj.kernel_q.shape),
+                q_q=tuple(attn.q_proj.kernel_q.shape))
+
+
 def expert_parallel(wg, w1, w2, x, g, cfg_kw):
     """moe_ffn_expert_parallel over an expert group of the whole world, the
     experts placed by the partition rules' mlp/w1, mlp/w2 rows (as the MoE
@@ -389,6 +414,170 @@ def spider_image_steps(trainable, encoder, batches, val_batches, mesh, out_dir, 
     runner.task = BaseTask()
     runner._loaders = {"val": iter([b[d] for b in val_batches])}
     return dict(losses=losses, params=params, val=runner.eval_epoch("val"))
+
+
+def moe_kept_hooks(model, kept, mesh):
+    """Forward hooks on every MoE layer that record how many of its top_k
+    picks each of this rank's tokens kept ([N] int): the dispatch of the
+    global batch's gating over `mesh` (the port's ``topk_gating``)."""
+    from spider_tpu_torch.parallel import moe
+
+    def hook(mod, inputs, _):
+        cfg = mod.cfg
+        x = inputs[0].detach()
+        shards = moe.TokenShards.of(mesh)
+        n = x.shape[0] * x.shape[1] * shards.dp_size * shards.cp_size
+        cap = moe._capacity(n, cfg.num_experts, cfg.moe_capacity_factor, cfg.moe_top_k)
+        logits = x.float() @ mod.wg.detach()
+        _, dispatch, _ = moe.topk_gating(logits, cap, cfg.moe_top_k, shards)
+        kept.append(dispatch.sum(dim=(1, 2)))
+
+    return [layer.mlp.register_forward_hook(hook) for layer in model.model.layers]
+
+
+def moe_llama_run(model, batch, mesh):
+    """The MoE Llama's logits, aux terms and kept counts on this rank's
+    tokens of `batch` (the whole batch without a mesh), then one
+    make_lm_train_step on them: its metrics and the gradients the optimizer
+    was handed, whole."""
+    from spider_tpu_torch.runners import train_step as TS
+
+    rows = batch if mesh is None else data_parallel_rows(batch, mesh)
+    rows = {k: torch.as_tensor(v) for k, v in rows.items()}
+    kept = []
+    hooks = moe_kept_hooks(model, kept, mesh)
+    with torch.no_grad():
+        logits, _, _ = model(input_ids=model.shards.cut(rows["input_ids"]))
+    for h in hooks:
+        h.remove()
+    aux = model.moe_aux_losses().detach().clone()
+    opt = TS.build_optimizer(params=dict(model.named_parameters()), learning_rate=1e-2,
+                             max_grad_norm=0.0)
+    grads, real = {}, opt.step
+
+    def capture(g):
+        for n, t in g.items():          # the same order on every rank: collectives match
+            if t is not None:
+                grads[n] = (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+        real(g)
+
+    opt.step = capture
+    metrics = {k: float(v) for k, v in TS.make_lm_train_step(model, opt)(rows).items()}
+    return dict(logits=logits, aux=aux, kept=kept, metrics=metrics, grads=grads)
+
+
+def moe_llama_world(params, batch, cases):
+    """For each (mesh_kw, cfg_kw): the tiny MoE Llama with LoRA from
+    `params` sharded over the mesh by shard_model, through moe_llama_run."""
+    import dataclasses
+
+    from spider_tpu_torch.common import dist
+    from spider_tpu_torch.models import llama as L
+    from spider_tpu_torch.models.convert import load_jax_params
+    from spider_tpu_torch.runners import train_step as TS
+
+    out = []
+    for mesh_kw, cfg_kw in cases:
+        mesh = dist.make_mesh(**mesh_kw)
+        cfg = dataclasses.replace(L.llama_tiny(vocab_size=64, lora_r=2), **cfg_kw)
+        model = load_jax_params(L.LlamaForCausalLM(cfg), params)
+        TS.shard_model(model, mesh)
+        res = moe_llama_run(model, batch, mesh)
+        res["w1_place"] = placement_key(model.model.layers[0].mlp.w1.placements)
+        out.append(res)
+    return out
+
+
+def tiny_vd(text, unet, vae):
+    """The port's tiny ZeroScope pipeline with the JAX pipeline's weights."""
+    from spider_tpu_torch.models.convert import load_jax_params
+    from spider_tpu_torch.models.pipelines import vd
+    from spider_tpu_torch.models.tokenizer import TinyTokenizer
+
+    pipe = vd.build_tiny_vd(tokenizer=TinyTokenizer(), device="cpu")
+    for module, tree in ((pipe.text_encoder, text), (pipe.unet, unet), (pipe.vae, vae)):
+        load_jax_params(module, tree)
+    return pipe
+
+
+def counted_unet_call(pipe, latents, cond, uncond, mesh):
+    """The bytes this rank sends in one UNet3D call of the sharded denoise's
+    first step, counted at the torch.distributed calls: all-to-all (the
+    chunks that leave the rank), halo sends, all-reduced payloads."""
+    import torch.distributed as tdist
+
+    from spider_tpu_torch.parallel.collectives import group_of, rank_in, size_of
+
+    cfg_group, sp_group = group_of(mesh, ("cfg",)), group_of(mesh, ("sp",))
+    rows = 2 * latents.shape[0] // size_of(cfg_group)
+    fl = latents.shape[1] // size_of(sp_group)
+    c, s = rank_in(cfg_group), rank_in(sp_group)
+    lat = torch.cat([latents, latents])[c * rows:(c + 1) * rows, s * fl:(s + 1) * fl]
+    ctx = torch.cat([uncond, cond])[c * rows:(c + 1) * rows]
+    counts = dict(all_to_all_bytes=0, halo_bytes=0, group_norm_bytes=0)
+    real = tdist.all_to_all_single, tdist.batch_isend_irecv, tdist.all_reduce
+    nbytes = lambda t: t.numel() * t.element_size()
+
+    def all_to_all_single(out, x, group=None, **kw):
+        n = tdist.get_world_size(group)
+        counts["all_to_all_bytes"] += nbytes(x) * (n - 1) // n
+        return real[0](out, x, group=group, **kw)
+
+    def batch_isend_irecv(ops):
+        counts["halo_bytes"] += sum(nbytes(op.tensor) for op in ops if op.op is tdist.isend)
+        return real[1](ops)
+
+    def all_reduce(t, *a, **kw):
+        counts["group_norm_bytes"] += nbytes(t)
+        return real[2](t, *a, **kw)
+
+    from spider_tpu_torch.models import unet3d
+
+    attention = unet3d.temporal_attention
+    pixels = []
+
+    def temporal_attention(q, k, v, heads, **kw):
+        pixels.append((q.shape[2], kw.get("pixels")))     # (this rank's P, the routed P)
+        return attention(q, k, v, heads, **kw)
+
+    tdist.all_to_all_single, tdist.batch_isend_irecv, tdist.all_reduce = (
+        all_to_all_single, batch_isend_irecv, all_reduce)
+    unet3d.temporal_attention = temporal_attention
+    try:
+        with torch.inference_mode():
+            pipe.unet(lat, torch.full((rows,), 981, dtype=torch.int32), ctx, sp_group=sp_group)
+    finally:
+        tdist.all_to_all_single, tdist.batch_isend_irecv, tdist.all_reduce = real
+        unet3d.temporal_attention = attention
+    return dict(counts, attention_pixels=pixels)
+
+
+def video_world(weights, latents, cond, uncond, steps, meshes, prompt):
+    """For each (cfg, sp) of `meshes`: the sharded denoise of `latents`
+    (every rank's whole result), ``__call__(mesh=)``'s frames on the same
+    latents, and the error a frame count that sp does not divide raises."""
+    from spider_tpu_torch.common import dist
+
+    pipe = tiny_vd(**weights)
+    lat = torch.from_numpy(latents)
+    out = []
+    for cfg, sp in meshes:
+        mesh = dist.make_video_mesh(cfg=cfg, sp=sp)
+        run = pipe._denoise_fn_sharded(steps, 7.5, lat.shape, mesh)
+        denoised = run(lat, torch.from_numpy(cond), torch.from_numpy(uncond))
+        factor = 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+        frames = pipe(prompt=[prompt], num_inference_steps=steps, height=factor * lat.shape[2],
+                      width=factor * lat.shape[3], num_frames=lat.shape[1], latents=lat,
+                      mesh=mesh)
+        try:
+            pipe._denoise_fn_sharded(steps, 7.5, (1, sp + 1) + tuple(lat.shape[2:]), mesh)
+            error = None
+        except ValueError as e:
+            error = str(e)
+        sent = counted_unet_call(pipe, lat, torch.from_numpy(cond), torch.from_numpy(uncond),
+                                 mesh)
+        out.append(dict(denoised=denoised, frames=frames, error=error, sent=sent))
+    return out
 
 
 def train_world(lm, spider, twin):
