@@ -3522,10 +3522,11 @@ def phase_train_data(sd, ad, vd, dev, smi: str):
         # ---- common/profiler.trace around one step: the device rows name the
         # three kernels (these launches are not counted)
         samples = batches["i2t_cc_sbu"]
-        with profiler.trace(os.path.join(work, "trace")) as prof:
-            with profiler.annotate("train_data::step"):
+        with profiler.trace(os.path.join(work, "trace")) as prof, profiler.recording():
+            with profiler.span("train_data::step"):
                 runner.train_step(samples)
             torch.cuda.synchronize()
+        profiler.drain()
         with open(prof.trace_path) as f:
             events = json.load(f)["traceEvents"]
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]

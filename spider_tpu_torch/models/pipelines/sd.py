@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.models.clip_text import CLIPTextModel
 from spider_tpu_torch.models.schedulers import DDIMScheduler
@@ -60,7 +61,8 @@ class StableDiffusionPipeline:
     @torch.inference_mode()
     def encode_prompt(self, prompts: Sequence[str]) -> torch.Tensor:
         """Text-conditioning embeddings [B, 77, D]."""
-        return self.text_encoder(self.tokenize(prompts))[0]
+        with span("pipeline.text_encode"):
+            return self.text_encoder(self.tokenize(prompts))[0]
 
     # --------------------------------------------------------------- denoise
     def _denoise_fn(self, num_steps: int, guidance_scale: float, shape, eta: float = 0.0):
@@ -75,28 +77,31 @@ class StableDiffusionPipeline:
         def run(latents, cond, uncond, generator=None):
             if tuple(latents.shape) != tuple(shape):
                 raise ValueError(f"latents {tuple(latents.shape)} vs shape {tuple(shape)}")
-            context = torch.cat([uncond, cond], dim=0)
-            for t in timesteps:
-                lat_in = torch.cat([latents, latents], dim=0)
-                tt = torch.full((lat_in.shape[0],), t, dtype=torch.int32,
-                                device=latents.device)
-                eps_u, eps_c = self.unet(lat_in, tt, context).chunk(2, dim=0)
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-                noise = None
-                if eta > 0.0:
-                    if generator is None:
-                        raise ValueError("eta > 0 needs an explicit torch.Generator")
-                    noise = torch.randn(latents.shape, generator=generator,
-                                        dtype=torch.float32, device=latents.device)
-                latents = sched.step(eps, t, latents, num_steps, eta=eta, noise=noise)
+            with span("pipeline.denoise"):
+                context = torch.cat([uncond, cond], dim=0)
+                for i, t in enumerate(timesteps):
+                    with span("pipeline.step", i=i):
+                        lat_in = torch.cat([latents, latents], dim=0)
+                        tt = torch.full((lat_in.shape[0],), t, dtype=torch.int32,
+                                        device=latents.device)
+                        eps_u, eps_c = self.unet(lat_in, tt, context).chunk(2, dim=0)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                        noise = None
+                        if eta > 0.0:
+                            if generator is None:
+                                raise ValueError("eta > 0 needs an explicit torch.Generator")
+                            noise = torch.randn(latents.shape, generator=generator,
+                                                dtype=torch.float32, device=latents.device)
+                        latents = sched.step(eps, t, latents, num_steps, eta=eta, noise=noise)
             return latents
 
         return run
 
     @torch.inference_mode()
     def _decode_latents(self, latents: torch.Tensor) -> np.ndarray:
-        img = (self.vae.decode(latents) / 2 + 0.5).clamp(0.0, 1.0)
-        return img.float().cpu().numpy()
+        with span("pipeline.vae_decode"):
+            img = (self.vae.decode(latents) / 2 + 0.5).clamp(0.0, 1.0)
+            return img.float().cpu().numpy()
 
     # ------------------------------------------------------------------ call
     def __call__(self, prompt: Optional[Sequence[str]] = None,

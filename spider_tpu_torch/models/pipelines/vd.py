@@ -26,6 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.models.clip_text import CLIPTextModel
 from spider_tpu_torch.parallel.collectives import gather, group_of, rank_in, size_of
@@ -53,8 +54,9 @@ class TextToVideoSDPipeline(StableDiffusionPipeline):
         """[B, F, h, w, 4] latents -> uint8 frames [B, F, H, W, 3], all
         frames in one VAE call."""
         B, F = latents.shape[:2]
-        frames = self._to_uint8(latents.reshape(B * F, *latents.shape[2:]))
-        return frames.cpu().numpy().reshape(B, F, *frames.shape[1:])
+        with span("pipeline.vae_decode"):
+            frames = self._to_uint8(latents.reshape(B * F, *latents.shape[2:]))
+            return frames.cpu().numpy().reshape(B, F, *frames.shape[1:])
 
     def _denoise_fn_sharded(self, num_steps: int, guidance_scale: float, shape, mesh):
         """run(latents, cond, uncond) -> latents: the CFG DDIM loop (eta 0)
@@ -80,16 +82,18 @@ class TextToVideoSDPipeline(StableDiffusionPipeline):
         def run(latents, cond, uncond):
             if tuple(latents.shape) != tuple(shape):
                 raise ValueError(f"latents {tuple(latents.shape)} vs shape {tuple(shape)}")
-            context = torch.cat([uncond, cond], dim=0)[pair]
-            latents = latents[:, frames]
-            for t in timesteps:
-                lat_in = torch.cat([latents, latents], dim=0)[pair]
-                tt = torch.full((rows,), t, dtype=torch.int32, device=latents.device)
-                eps = self.unet(lat_in, tt, context, sp_group=sp_group)
-                eps_u, eps_c = gather(eps, cfg_group, 0).chunk(2, dim=0)
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-                latents = sched.step(eps, t, latents, num_steps)
-            return gather(latents, sp_group, 1)
+            with span("pipeline.denoise"):
+                context = torch.cat([uncond, cond], dim=0)[pair]
+                latents = latents[:, frames]
+                for i, t in enumerate(timesteps):
+                    with span("pipeline.step", i=i):
+                        lat_in = torch.cat([latents, latents], dim=0)[pair]
+                        tt = torch.full((rows,), t, dtype=torch.int32, device=latents.device)
+                        eps = self.unet(lat_in, tt, context, sp_group=sp_group)
+                        eps_u, eps_c = gather(eps, cfg_group, 0).chunk(2, dim=0)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                        latents = sched.step(eps, t, latents, num_steps)
+                return gather(latents, sp_group, 1)
 
         return run
 
@@ -106,11 +110,12 @@ class TextToVideoSDPipeline(StableDiffusionPipeline):
         mine = flat[r * per:(r + 1) * per]
         factor = 2 ** (len(self.vae.config.block_out_channels) - 1)
         H, W = flat.shape[1] * factor, flat.shape[2] * factor
-        out = torch.zeros((per, H, W, 3), dtype=torch.uint8, device=flat.device)
-        if mine.shape[0]:
-            out[:mine.shape[0]] = self._to_uint8(mine)
-        frames = gather(out, group, 0)[:B * Fr]
-        return frames.cpu().numpy().reshape(B, Fr, H, W, 3)
+        with span("pipeline.vae_decode"):
+            out = torch.zeros((per, H, W, 3), dtype=torch.uint8, device=flat.device)
+            if mine.shape[0]:
+                out[:mine.shape[0]] = self._to_uint8(mine)
+            frames = gather(out, group, 0)[:B * Fr]
+            return frames.cpu().numpy().reshape(B, Fr, H, W, 3)
 
     def __call__(self, prompt: Optional[Sequence[str]] = None,
                  prompt_embeds: Optional[torch.Tensor] = None,

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.models import tags
 
@@ -175,26 +176,29 @@ class SpiderDecoder:
                 samples["llm_text_res"] = [llm_text_res]
                 preds = None
                 if modality != "IMAGESTORY":
-                    preds = self.decode_modality[modality](samples)
+                    with span("decoder.dispatch", modality=modality):
+                        preds = self.decode_modality[modality](samples)
                 yield modality, llm_text_res, preds
 
     def generate(self, samples: Dict[str, Any], answers: List[str],
                  predictions: Dict[str, Any], predictions_text: Dict[str, List]):
-        """Parse samples['llm_text_all'][0] and dispatch each tag span."""
-        output_texts = samples["llm_text_all"][0]
-        for modality, llm_text_res, preds in self.generate_stream(samples):
-            predictions_text[modality].append(llm_text_res)
-            if preds is None:
-                continue
-            if modality == "BOX":
-                predictions["BOX"]["bboxes"].append(preds["outputs_bboxes"][0])
-                predictions["BOX"]["label_names"].append(preds["outputs_label_names"][0])
-                predictions["BOX"]["scores"].append(preds["outputs_scores"][0])
-            elif modality in ("IMAGE", "AUDIO", "MASK"):
-                predictions[modality].append(preds[0])
-            else:  # VIDEO: whole clip
-                predictions[modality].append(preds)
-        answers.append(output_texts)
+        """Parse samples['llm_text_all'][0] and dispatch each tag span (one
+        ``decoder.request`` span, the root of the request's spans)."""
+        with span("decoder.request"):
+            output_texts = samples["llm_text_all"][0]
+            for modality, llm_text_res, preds in self.generate_stream(samples):
+                predictions_text[modality].append(llm_text_res)
+                if preds is None:
+                    continue
+                if modality == "BOX":
+                    predictions["BOX"]["bboxes"].append(preds["outputs_bboxes"][0])
+                    predictions["BOX"]["label_names"].append(preds["outputs_label_names"][0])
+                    predictions["BOX"]["scores"].append(preds["outputs_scores"][0])
+                elif modality in ("IMAGE", "AUDIO", "MASK"):
+                    predictions[modality].append(preds[0])
+                else:  # VIDEO: whole clip
+                    predictions[modality].append(preds)
+            answers.append(output_texts)
         return answers, predictions, predictions_text
 
 

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.models.schedulers import timestep_embedding
 from spider_tpu_torch.ops.attention import flash_attention, flash_attention_with_lse
 
@@ -394,12 +395,20 @@ class Transformer2D(nn.Module):
         return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
 
+def block_span_names(levels: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The spans of a UNet's down and up blocks: ``unet.down_<i>``,
+    ``unet.up_<i>`` for each of its `levels`."""
+    return (tuple(f"unet.down_{i}" for i in range(levels)),
+            tuple(f"unet.up_{i}" for i in range(levels)))
+
+
 class UNet2DConditionModel(nn.Module):
     def __init__(self, cfg: UNet2DConfig, device=None):
         super().__init__()
         self.config = cfg
         dt, g = cfg.dtype, cfg.norm_num_groups
         chs = cfg.block_out_channels
+        self.down_spans, self.up_spans = block_span_names(len(chs))
         ctx = cfg.cross_attention_dim
         tdim = chs[0] * 4
         self.time_embed_1 = nn.Linear(chs[0], tdim, dtype=dt, device=device)
@@ -475,7 +484,15 @@ class UNet2DConditionModel(nn.Module):
         story_kv: {block path: [B or g, K, C]} extra self-attention keys for
         any transformer block (``down_1_attn_0``, ``mid_attn``, ...).
         story: {up block path: dict(id_length, indices, num_groups)}
-        activating consistent self-attention in those up blocks."""
+        activating consistent self-attention in those up blocks.
+
+        The call is the span ``unet``; each level of blocks ``unet.down_<i>``,
+        ``unet.mid``, ``unet.up_<i>``."""
+        with span("unet"):
+            return self._forward(sample, timesteps, encoder_hidden_states, added_cond,
+                                 story_kv, story)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states, added_cond, story_kv, story):
         cfg = self.config
         dt = cfg.dtype
         n = len(cfg.block_out_channels)
@@ -501,27 +518,31 @@ class UNet2DConditionModel(nn.Module):
         x = self.conv_in(sample.to(dt).permute(0, 3, 1, 2).contiguous())
         skips = [x]
         for i in range(n):
-            for j in range(cfg.layers_per_block):
-                x = getattr(self, f"down_{i}_res_{j}")(x, temb)
-                if self._has_attn_down(i):
-                    path = f"down_{i}_attn_{j}"
-                    x = getattr(self, path)(x, ctx, story_kv.get(path))
-                skips.append(x)
-            if i < n - 1:
-                x = getattr(self, f"down_{i}_downsample")(x)
-                skips.append(x)
-        x = self.mid_res_0(x, temb)
-        if self.mid_attn is not None:
-            x = self.mid_attn(x, ctx, story_kv.get("mid_attn"))
-        x = self.mid_res_1(x, temb)
+            with span(self.down_spans[i]):
+                for j in range(cfg.layers_per_block):
+                    x = getattr(self, f"down_{i}_res_{j}")(x, temb)
+                    if self._has_attn_down(i):
+                        path = f"down_{i}_attn_{j}"
+                        x = getattr(self, path)(x, ctx, story_kv.get(path))
+                    skips.append(x)
+                if i < n - 1:
+                    x = getattr(self, f"down_{i}_downsample")(x)
+                    skips.append(x)
+        with span("unet.mid"):
+            x = self.mid_res_0(x, temb)
+            if self.mid_attn is not None:
+                x = self.mid_attn(x, ctx, story_kv.get("mid_attn"))
+            x = self.mid_res_1(x, temb)
         for i in range(n):
-            for j in range(cfg.layers_per_block + 1):
-                x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1), temb)
-                if self._has_attn_up(i):
-                    path = f"up_{i}_attn_{j}"
-                    x = getattr(self, path)(x, ctx, story_kv.get(path), story.get(path))
-            if i < n - 1:
-                x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
-                                                                    mode="nearest"))
+            with span(self.up_spans[i]):
+                for j in range(cfg.layers_per_block + 1):
+                    x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1),
+                                                         temb)
+                    if self._has_attn_up(i):
+                        path = f"up_{i}_attn_{j}"
+                        x = getattr(self, path)(x, ctx, story_kv.get(path), story.get(path))
+                if i < n - 1:
+                    x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
+                                                                        mode="nearest"))
         x = self.conv_out(F.silu(self.norm_out(x)))
         return x.permute(0, 2, 3, 1).contiguous()

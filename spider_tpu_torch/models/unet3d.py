@@ -42,8 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.models.schedulers import timestep_embedding
-from spider_tpu_torch.models.unet2d import ResnetBlock2D, Transformer2D
+from spider_tpu_torch.models.unet2d import ResnetBlock2D, Transformer2D, block_span_names
 from spider_tpu_torch.ops.temporal_attention import temporal_attention
 from spider_tpu_torch.parallel.collectives import (all_reduce_sum_, frame_halo,
                                                    frames_to_pixels, pixels_to_frames, size_of)
@@ -202,6 +203,7 @@ class UNet3DConditionModel(nn.Module):
         heads = cfg.num_attention_heads
         ctx = cfg.cross_attention_dim
         tdim = chs[0] * 4
+        self.down_spans, self.up_spans = block_span_names(len(chs))
 
         self.time_embed_1 = nn.Linear(chs[0], tdim, dtype=dt, device=device)
         self.time_embed_2 = nn.Linear(tdim, tdim, dtype=dt, device=device)
@@ -253,7 +255,14 @@ class UNet3DConditionModel(nn.Module):
         """sample [B,F,H,W,Cin]; timesteps [B]; encoder_hidden_states
         [B,S,Dctx] -> [B,F,H,W,Cout] in the model's dtype. With `sp_group`,
         F is this rank's consecutive frames of each video and the group's
-        ranks hold the others, in rank order (inference only)."""
+        ranks hold the others, in rank order (inference only).
+
+        The call is the span ``unet``; each level of blocks ``unet.down_<i>``,
+        ``unet.mid``, ``unet.up_<i>``."""
+        with span("unet"):
+            return self._forward(sample, timesteps, encoder_hidden_states, sp_group)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states, sp_group):
         g = sp_group
         cfg = self.config
         dt = cfg.dtype
@@ -267,28 +276,32 @@ class UNet3DConditionModel(nn.Module):
         x = self.transformer_in(self.conv_in(x), Fr, g)
         skips = [x]
         for i in range(n):
-            for j in range(cfg.layers_per_block):
-                x = getattr(self, f"down_{i}_res_{j}")(x, temb_f)
-                x = getattr(self, f"down_{i}_tconv_{j}")(x, Fr, g)
-                if cfg.cross_attn_blocks[i]:
-                    x = getattr(self, f"down_{i}_attn_{j}")(x, ctx_f)
-                    x = getattr(self, f"down_{i}_tattn_{j}")(x, Fr, g)
-                skips.append(x)
-            if i < n - 1:
-                x = getattr(self, f"down_{i}_downsample")(x)
-                skips.append(x)
-        x = self.mid_tconv_0(self.mid_res_0(x, temb_f), Fr, g)
-        x = self.mid_tattn(self.mid_attn(x, ctx_f), Fr, g)
-        x = self.mid_tconv_1(self.mid_res_1(x, temb_f), Fr, g)
+            with span(self.down_spans[i]):
+                for j in range(cfg.layers_per_block):
+                    x = getattr(self, f"down_{i}_res_{j}")(x, temb_f)
+                    x = getattr(self, f"down_{i}_tconv_{j}")(x, Fr, g)
+                    if cfg.cross_attn_blocks[i]:
+                        x = getattr(self, f"down_{i}_attn_{j}")(x, ctx_f)
+                        x = getattr(self, f"down_{i}_tattn_{j}")(x, Fr, g)
+                    skips.append(x)
+                if i < n - 1:
+                    x = getattr(self, f"down_{i}_downsample")(x)
+                    skips.append(x)
+        with span("unet.mid"):
+            x = self.mid_tconv_0(self.mid_res_0(x, temb_f), Fr, g)
+            x = self.mid_tattn(self.mid_attn(x, ctx_f), Fr, g)
+            x = self.mid_tconv_1(self.mid_res_1(x, temb_f), Fr, g)
         for i in range(n):
-            for j in range(cfg.layers_per_block + 1):
-                x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1), temb_f)
-                x = getattr(self, f"up_{i}_tconv_{j}")(x, Fr, g)
-                if cfg.cross_attn_blocks[n - 1 - i]:
-                    x = getattr(self, f"up_{i}_attn_{j}")(x, ctx_f)
-                    x = getattr(self, f"up_{i}_tattn_{j}")(x, Fr, g)
-            if i < n - 1:
-                x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
-                                                                    mode="nearest"))
+            with span(self.up_spans[i]):
+                for j in range(cfg.layers_per_block + 1):
+                    x = getattr(self, f"up_{i}_res_{j}")(torch.cat([x, skips.pop()], dim=1),
+                                                         temb_f)
+                    x = getattr(self, f"up_{i}_tconv_{j}")(x, Fr, g)
+                    if cfg.cross_attn_blocks[n - 1 - i]:
+                        x = getattr(self, f"up_{i}_attn_{j}")(x, ctx_f)
+                        x = getattr(self, f"up_{i}_tattn_{j}")(x, Fr, g)
+                if i < n - 1:
+                    x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
+                                                                        mode="nearest"))
         x = self.conv_out(F.silu(self.norm_out(x)))
         return x.permute(0, 2, 3, 1).reshape(B, Fr, H, W, cfg.out_channels)

@@ -40,6 +40,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from spider_tpu_torch.common import profiler
 from spider_tpu_torch.ops.launch_count import count_launch
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -262,7 +263,9 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset, route=None):
             err = _library().spider_flash_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"flash forward ({route}) launch failed with error {err}")
-    count_launch(flash_attention, route)
+    count_launch(flash_attention, route,
+                 dict(B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, D=D, causal=bool(causal),
+                      elem_bytes=q.element_size()) if profiler.recording_on() else None)
     return out, lse
 
 

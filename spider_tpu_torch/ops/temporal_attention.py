@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from spider_tpu_torch.common import profiler
 from spider_tpu_torch.ops.launch_count import count_launch
 
 LAYOUTS = ("bfpc", "bpfc")
@@ -172,7 +173,9 @@ def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = _library().spider_tattn_fwd(*args, int(q.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"temporal attention ({route}) launch failed with cudaError_t {err}")
-    count_launch(temporal_attention, route)
+    count_launch(temporal_attention, route,
+                 dict(B=B, F=F, P=P, C=C, heads=heads, elem_bytes=q.element_size())
+                 if profiler.recording_on() else None)
     return out
 
 

@@ -2,7 +2,7 @@
 (``get_cache_path``, ``makedir``, ``is_url``), ``gradcam.get_att_map``
 (within 1e-6), observability (the TensorBoard export, ``tree_bytes`` of
 tensors, modules and containers, ``HbmBudget``, which reads no device stats
-on the CPU), the profiler (a Chrome trace with the annotated region,
+on the CPU), the profiler (a Chrome trace with a recorded span as its region,
 ``StepTimer``, ``device_memory_stats``), ``BaseTask.save_result`` and
 ``RunnerBase.model_forward``."""
 
@@ -84,9 +84,10 @@ def test_hbm_budget_reports_components_and_no_device_stats_on_the_cpu():
 
 
 def test_trace_writes_a_chrome_trace_with_the_annotated_region(tmp_path):
-    with tP.trace(str(tmp_path / "prof")) as prof:
-        with tP.annotate("spider::data_step"):
+    with tP.trace(str(tmp_path / "prof")) as prof, tP.recording():
+        with tP.span("spider::data_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
+    assert [s.name for s in tP.drain().spans] == ["spider::data_step"]
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "prof")
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
