@@ -340,19 +340,24 @@ INT4_REL = 2.0 ** -7
 SERVING_REQUESTS = 24
 SERVING_NEW_TOKENS = 48
 SERVING_WARMUP = 4
-SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd", "wgmma_probe")
+SOURCES = ("flash_fwd", "tattn_fwd", "paged_decode", "int4_matmul", "flash_bwd", "wgmma_probe",
+           "group_norm")
 # Every kernel has routes, each with its general one, which no bf16 main-path
 # launch may take: the flash kernels' mma.sync forms, the temporal and paged
 # kernels' first, synchronous forms. The int4 kernel's first form is the rule's
 # own choice for down (K/2 = 7168) at up to 16 rows, so its main-path counts
-# are held route by route instead (int4_route_counts).
+# are held route by route instead (int4_route_counts). The GroupNorm kernel
+# has one form, and its wrapper takes every bf16 CUDA norm: a bf16 norm off
+# it takes the plain form, which counts nothing, so the checks hold its
+# launches to the model's norms instead (phase_unet_check, phase_unet3d_check).
 ROUTED = {"flash_fwd": "mma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma",
-          "tattn_fwd": "simple", "paged_decode": "simple", "int4_matmul": None}
+          "tattn_fwd": "simple", "paged_decode": "simple", "int4_matmul": None,
+          "group_norm": None}
 WRAPPER_CALLS = 1000
 SERVING_EARLIER_TOK_S = {"contiguous_bs8_int8": 102.8, "paged_bs16_int8": 141.1,
                          "paged_bs16_int4": 162.6}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "tattn_fwd", "paged_decode",
-           "int4_matmul")
+           "int4_matmul", "group_norm")
 # Flash backward kernels vs plain: the kernels round P and dS to bf16 for the
 # second products, sum in another order and round the gradients to bf16.
 BWD_ATOL = 2e-2
@@ -486,13 +491,15 @@ def sdpa_call(q, k, v, kw):
 
 def launch_counters():
     from spider_tpu_torch.ops.attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from spider_tpu_torch.ops.group_norm import group_norm
     from spider_tpu_torch.ops.paged_attention import paged_decode_attention
     from spider_tpu_torch.ops.quant import int4_matmul
     from spider_tpu_torch.ops.temporal_attention import temporal_attention
 
     return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "tattn_fwd": temporal_attention,
-            "paged_decode": paged_decode_attention, "int4_matmul": int4_matmul}
+            "paged_decode": paged_decode_attention, "int4_matmul": int4_matmul,
+            "group_norm": group_norm}
 
 
 def reset_launches() -> None:
@@ -1098,6 +1105,56 @@ def phase_kernel_tattn(dev, cases=TATTN_CASES):
     return rows
 
 
+# (name, shape) of the GroupNorm rows, both with the fused SiLU: ZeroScope's
+# per-video norm at level 0 (64 rows of 0.46 M elements) and its per-frame
+# norm at the 5 x 9 level (1,024 rows of 1,800).
+GROUP_NORM_CASES = [("zeroscope_video_L0", (2, 320, 16, 2880)),
+                    ("zeroscope_frame_5x9", (32, 1280, 5, 9))]
+
+
+def phase_kernel_group_norm(dev, cases=GROUP_NORM_CASES):
+    """The GroupNorm kernel (ops/group_norm.py, "split") with SiLU against
+    fp32 F.group_norm + F.silu. Its bound: x read once and y written once at
+    the HBM rate (`two_pass_bound_ms`: x read twice, what two passes over a
+    tensor beyond L2 move). The plain version and the library yardstick are
+    the same call here, bf16 F.group_norm then F.silu: three passes."""
+    import torch
+    import torch.nn.functional as F
+
+    from spider_tpu_torch.ops import group_norm as GN
+
+    rows = []
+    for i, (name, shape) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        C = shape[1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        w = (1 + 0.3 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+        b = (0.3 * torch.randn(C, generator=g, device=dev)).to(torch.bfloat16)
+        call = lambda: GN.group_norm_kernel(x, 32, w, b, 1e-5, silu=True)
+        out = call()
+        torch.cuda.synchronize()
+        want = F.silu(F.group_norm(x.float(), 32, w.float(), b.float(), 1e-5))
+        diff = (out.float() - want).abs()
+        err, excess = diff.max().item(), (diff - (1e-4 + BF16_EPS * want.abs())).max().item()
+        same = _same_bits(call, out)
+        del out, diff, want
+        library = lambda: F.silu(F.group_norm(x, 32, w, b, 1e-5))
+        moved = 2 * x.numel() * x.element_size()              # x read, y written
+        bound = bound_ms(moved, 0.0)
+        ms, dev_ms = cuda_ms(call), device_ms(call)
+        rows.append(dict(kernel="group_norm", name=name, shape=list(shape), G=32, silu=True,
+                         route="split", max_abs_err=err, excess_over_bound=excess,
+                         same_bits=same, ms=ms, device_ms=dev_ms, plain_ms=None,
+                         library_ms=cuda_ms(library), library_device_ms=device_ms(library),
+                         library_call="F.group_norm + F.silu (bf16)", **bound,
+                         two_pass_bound_ms=1.5 * bound["bound_ms"],
+                         share_of_bound=bound["bound_ms"] / dev_ms,
+                         gb_per_s=moved / (dev_ms * 1e-3) / 1e9,
+                         ok=excess <= 0 and same))
+        del x
+    return rows
+
+
 def _same_bits(call, first) -> bool:
     """A second run of `call` gives the bits of `first`."""
     import torch
@@ -1452,16 +1509,17 @@ def _rel_errors(routed, plain, ref):
 
 def phase_unet_check(pipe, dev):
     """One full-size CFG UNet call in bf16 routed as the main path routes it
-    (the kernel where unet2d.spatial_flash_predicate holds), and the same call
-    with plain bf16 attention
-    everywhere, each against an fp32 copy of the UNet with plain attention:
-    the kernel inside the real model at its real shapes must be no less
-    accurate than the plain path it replaces."""
+    (the kernel where unet2d.spatial_flash_predicate holds, every GroupNorm
+    on its kernel), and the same call with plain bf16 attention and plain
+    GroupNorms everywhere, each against an fp32 copy of the UNet (plain
+    attention, plain GroupNorms): the kernels inside the real model at its
+    real shapes must be no less accurate than the plain path they replace."""
     import dataclasses
 
     import torch
 
     from spider_tpu_torch.models.unet2d import UNet2DConditionModel, spatial_flash_config
+    from spider_tpu_torch.ops.group_norm import group_norm, group_norm_config
 
     g = torch.Generator(device=dev).manual_seed(7)
     lat = torch.randn((2, 64, 64, 4), generator=g, device=dev)
@@ -1470,25 +1528,38 @@ def phase_unet_check(pipe, dev):
     ref_unet = UNet2DConditionModel(
         dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
     ref_unet.load_state_dict(pipe.unet.state_dict())
+    norms = count_group_norms(pipe.unet)
     with torch.inference_mode():
+        before = group_norm.launches
         routed = pipe.unet(lat, t, ctx).float()
-        with spatial_flash_config("einsum"):
+        norm_launches = group_norm.launches - before
+        with spatial_flash_config("einsum"), group_norm_config("plain"):
             plain = pipe.unet(lat, t, ctx).float()
             ref = ref_unet(lat, t, ctx.float())
+        off_kernel = group_norm.launches - before - norm_launches
     del ref_unet
     err_kernel, err_plain = _rel_errors(routed, plain, ref)
     return dict(phase="unet_check", rel_err_kernel_vs_fp32=err_kernel,
-                rel_err_plain_vs_fp32=err_plain,
-                ok=bool(torch.isfinite(routed).all())
-                and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+                rel_err_plain_vs_fp32=err_plain, group_norm_launches=norm_launches,
+                group_norm_launches_expected=norms, group_norm_launches_plain=off_kernel,
+                ok=bool(torch.isfinite(routed).all()) and norm_launches == norms > 0
+                and off_kernel == 0 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
+
+
+def count_group_norms(model) -> int:
+    """The GroupNorms of `model`: a UNet or VAE call runs each once."""
+    from torch import nn
+
+    return sum(isinstance(m, nn.GroupNorm) for m in model.modules())
 
 
 def phase_unet3d_check(pipe, dev):
     """The same check for the ZeroScope UNet3D at full size (CFG batch 2,
     16 frames, 576x320): temporal attention through its kernel at all four
-    levels and spatial attention through the flash kernel where
-    unet2d.spatial_flash_predicate holds, then both plain, each against an
-    fp32 copy with plain attention."""
+    levels, spatial attention through the flash kernel where
+    unet2d.spatial_flash_predicate holds and every GroupNorm through its
+    kernel, then all three plain, each against an fp32 copy with plain
+    attention and plain GroupNorms."""
     import dataclasses
 
     import torch
@@ -1496,6 +1567,7 @@ def phase_unet3d_check(pipe, dev):
     from spider_tpu_torch.models.unet2d import spatial_flash_config
     from spider_tpu_torch.models.unet3d import UNet3DConditionModel
     from spider_tpu_torch.ops.attention import flash_attention
+    from spider_tpu_torch.ops.group_norm import group_norm, group_norm_config
     from spider_tpu_torch.ops.temporal_attention import (temporal_attention,
                                                          temporal_attention_config)
 
@@ -1507,14 +1579,18 @@ def phase_unet3d_check(pipe, dev):
     ref_unet = UNet3DConditionModel(
         dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
     ref_unet.load_state_dict(pipe.unet.state_dict())
+    norms = count_group_norms(pipe.unet)
     with torch.inference_mode():
-        before = temporal_attention.launches, flash_attention.launches
+        before = temporal_attention.launches, flash_attention.launches, group_norm.launches
         routed = pipe.unet(lat, t, ctx).float()
         launches = temporal_attention.launches - before[0]
         flash_launches = flash_attention.launches - before[1]
-        with temporal_attention_config("plain"), spatial_flash_config("einsum"):
+        norm_launches = group_norm.launches - before[2]
+        with temporal_attention_config("plain"), spatial_flash_config("einsum"), \
+                group_norm_config("plain"):
             plain = pipe.unet(lat, t, ctx).float()
             ref = ref_unet(lat, t, ctx.float())
+        off_kernel = group_norm.launches - before[2] - norm_launches
     del ref_unet
     torch.cuda.empty_cache()
     err_kernel, err_plain = _rel_errors(routed, plain, ref)
@@ -1524,9 +1600,11 @@ def phase_unet3d_check(pipe, dev):
     return dict(phase="unet3d_check", rel_err_kernel_vs_fp32=err_kernel,
                 rel_err_plain_vs_fp32=err_plain, tattn_launches=launches,
                 tattn_launches_expected=want, flash_launches=flash_launches,
-                flash_launches_expected=want_flash,
+                flash_launches_expected=want_flash, group_norm_launches=norm_launches,
+                group_norm_launches_expected=norms, group_norm_launches_plain=off_kernel,
                 ok=bool(torch.isfinite(routed).all()) and launches == want
                 and flash_launches == want_flash and flash_launches > 0
+                and norm_launches == norms > 0 and off_kernel == 0
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 
@@ -2234,7 +2312,7 @@ def phase_serving(model8, model4, tokenizer):
             # every prefill (each prefill bucket is at most 512 rows)
             int4_matmul=((7 * cfg.num_hidden_layers + 1) * (steps + prefills)
                          if cfg.quantization == "int4" else 0),
-            tattn_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+            tattn_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0, group_norm=0)
         got = [emitted[id(f)] for f in futs[:SERVING_WARMUP]]
         ref = _greedy_tokens(model, tokenizer, prompts[:SERVING_WARMUP], n_new)
         leading = []
@@ -4575,7 +4653,7 @@ def phase_qwen2(tokenizer, dev, smi: str):
         compared.append(dict(prompt_tokens=len(p_ids), leading_equal=n, equal=equal,
                              stepped_top2_gap_at_divergence=gap))
     want = dict(flash_fwd=Ln * prefills, paged_decode=Ln * steps, int4_matmul=0, tattn_fwd=0,
-                flash_bwd_dq=0, flash_bwd_dkv=0)
+                flash_bwd_dq=0, flash_bwd_dkv=0, group_norm=0)
     yield dict(phase="qwen2", part="paged_batcher", model="qwen2_7b int8", requests=len(prompts),
                new_tokens=N, seconds=seconds, tok_s=sum(len(v) for v in emitted.values()) / seconds,
                decode_steps=steps, prefills=prefills, launches=counts, launches_expected=want,
@@ -4774,7 +4852,7 @@ def phase_moe(dev, smi: str):
     counts, routes = read_launches(), read_route_launches()
     metrics = {k: float(v) for k, v in metrics.items()}
     want = dict(flash_fwd=MOE_LAYERS, flash_bwd_dq=MOE_LAYERS, flash_bwd_dkv=MOE_LAYERS,
-                tattn_fwd=0, paged_decode=0, int4_matmul=0)
+                tattn_fwd=0, paged_decode=0, int4_matmul=0, group_norm=0)
     row = dict(phase="moe", part="lm_train_step", batch=B, seq_len=T, seconds=s,
                trained_params=sum(p.numel() for p in opt.params.values()), metrics=metrics, peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
                launches=counts, launches_expected=want, route_launches=routes,
@@ -4977,16 +5055,18 @@ def phase_story_check(pipe, dev):
     """One full-size story UNet call (SDXL 768 px, 4 frames with id_length 4,
     batched CFG, consistent self-attention on the up blocks) in bf16 routed
     as the story path routes it (self-, cross- and bank attention where
-    spatial_flash_predicate holds), the same
-    call with plain bf16 attention everywhere, and an fp32 copy of the UNet
-    with plain attention: the kernel may be at most UNET_REL_SLACK (plus
-    1e-3) less accurate against fp32 than the plain path, and the routed call
-    launches exactly the derived count, all on the wgmma route."""
+    spatial_flash_predicate holds, every GroupNorm on its kernel), the same
+    call with plain bf16 attention and plain GroupNorms everywhere, and an
+    fp32 copy of the UNet (plain attention, plain GroupNorms): the kernels
+    may be at most UNET_REL_SLACK (plus 1e-3) less accurate against fp32
+    than the plain path, and the routed call launches exactly the derived
+    count, all on the wgmma route."""
     import dataclasses
 
     import torch
 
     from spider_tpu_torch.models.unet2d import UNet2DConditionModel, spatial_flash_config
+    from spider_tpu_torch.ops.group_norm import group_norm_config
 
     x, t, ctx, cond, story = _story_unet_inputs(pipe, dev)
     lat = STORY_HW // 8
@@ -4996,7 +5076,7 @@ def phase_story_check(pipe, dev):
         routed = pipe.unet(x, t, ctx, added_cond=cond, story=story).float()
         torch.cuda.synchronize()
         launches, routes = read_launches(), read_route_launches()
-        with spatial_flash_config("einsum"):
+        with spatial_flash_config("einsum"), group_norm_config("plain"):
             plain = pipe.unet(x, t, ctx, added_cond=cond, story=story).float()
             torch.cuda.synchronize()
             plain_launches = read_launches()["flash_fwd"] - launches["flash_fwd"]
@@ -6313,7 +6393,7 @@ def parallel_moe_rows(dev, mesh, smi: str):
     aux_rel = max(rel(x, y) for x, y in zip(a["aux"], b["aux"]))
     logit_diff = (a["logits"] - b["logits"]).abs().max().item()
     want = dict(flash_fwd=2 * MOE_LAYERS, flash_bwd_dq=MOE_LAYERS, flash_bwd_dkv=MOE_LAYERS,
-                tattn_fwd=0, paged_decode=0, int4_matmul=0)
+                tattn_fwd=0, paged_decode=0, int4_matmul=0, group_norm=0)
     row = dict(phase="parallel", part="moe_llama_world_of_one",
                model=f"llama3_8b widths, {MOE_LAYERS} of 32 layers (cut), {MOE_EXPERTS} "
                "experts, top-2", batch=B, seq_len=T, aux_sharded=a["aux"], aux_unsharded=b["aux"],
@@ -6754,7 +6834,8 @@ def main() -> int:
 
     # ---- kernel vs plain (these launches are not the main path's)
     rows = (phase_kernel_flash(dev, spider_free_T) + phase_kernel_flash_bwd(dev)
-            + phase_kernel_tattn(dev) + phase_kernel_paged(dev) + phase_kernel_int4(dev))
+            + phase_kernel_tattn(dev) + phase_kernel_paged(dev) + phase_kernel_int4(dev)
+            + phase_kernel_group_norm(dev))
     for row in rows:
         emit(dict(phase="kernel", nvidia_smi=smi, **row))
         ok &= row["ok"]
@@ -6899,18 +6980,20 @@ def main() -> int:
          "attention.py:299"),
         ("tattn_fwd", "zeroscope_L0_D40", "tattn_fwd", "temporal_attention.py:45"),
         ("paged_decode", "serving_B16_MP4", "paged_decode", "paged_attention.py:31"),
-        ("int4_matmul", "gate_up_M16", "int4_matmul", "quant.py:65")]
+        ("int4_matmul", "gate_up_M16", "int4_matmul", "quant.py:65"),
+        # port-only: the JAX package leaves GroupNorm to XLA
+        ("group_norm", "zeroscope_video_L0", "group_norm", None)]
     kernels = []
     for kernel, shape_row, source, replaces in summary:
         mine = [r for r in rows if r["kernel"] == kernel]
         row = next(r for r in mine if r["name"] == shape_row)
         entry = dict(
             name=kernel, route="cuda", source=f"spider_tpu_torch/csrc/{source}.cu",
-            replaces=f"spider_tpu/ops/{replaces}", launches=main_launches[kernel],
+            replaces=replaces and f"spider_tpu/ops/{replaces}", launches=main_launches[kernel],
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=shape_row, device_ms=row.get("device_ms"))
-        if kernel in ROUTED:       # which of the source's kernels, and the first one's time
+        if "previous_ms" in row:   # which of the source's kernels, and the first one's time
             entry.update(kernel_route=row["route"], previous_ms=row["previous_ms"],
                          previous_device_ms=row["previous_device_ms"],
                          max_abs_err=max(max(r["max_abs_err"], r["max_abs_err_previous"])

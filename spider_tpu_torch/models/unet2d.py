@@ -37,6 +37,7 @@ from torch import nn
 from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.models.schedulers import timestep_embedding
 from spider_tpu_torch.ops.attention import flash_attention, flash_attention_with_lse
+from spider_tpu_torch.ops.group_norm import group_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,9 +303,9 @@ class ResnetBlock2D(nn.Module):
                               if cin != cout else None)
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(group_norm(x, self.norm1, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(group_norm(h, self.norm2, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -387,7 +388,7 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context, story_kv=None, story=None):
         B, C, H, W = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = group_norm(x, self.norm).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, context, story_kv, story)
@@ -544,5 +545,5 @@ class UNet2DConditionModel(nn.Module):
                 if i < n - 1:
                     x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
                                                                         mode="nearest"))
-        x = self.conv_out(F.silu(self.norm_out(x)))
+        x = self.conv_out(group_norm(x, self.norm_out, silu=True))
         return x.permute(0, 2, 3, 1).contiguous()

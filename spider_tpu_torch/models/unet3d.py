@@ -45,6 +45,7 @@ from torch import nn
 from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.models.schedulers import timestep_embedding
 from spider_tpu_torch.models.unet2d import ResnetBlock2D, Transformer2D, block_span_names
+from spider_tpu_torch.ops.group_norm import group_norm
 from spider_tpu_torch.ops.temporal_attention import temporal_attention
 from spider_tpu_torch.parallel.collectives import (all_reduce_sum_, frame_halo,
                                                    frames_to_pixels, pixels_to_frames, size_of)
@@ -123,7 +124,7 @@ class TemporalConv(nn.Module):
         for i in range(1, 5):
             norm, conv = getattr(self, f"norm{i}"), getattr(self, f"conv{i}")
             if group is None:
-                h = conv(F.silu(norm(h)))
+                h = conv(group_norm(h, norm, silu=True))
             else:
                 h = F.silu(group_norm_frames(h, norm, group))
                 h = F.conv2d(frame_halo(h, group, 2), conv.weight, conv.bias)
@@ -186,7 +187,7 @@ class TransformerTemporal(nn.Module):
                 h = getattr(self, f"block_{i}")(h, pixels=H * W)
             h = pixels_to_frames(self.proj_out(h), group, H * W)   # [B, F_local, P, C]
             return x + h.permute(0, 1, 3, 2).reshape(BF, C, H, W)
-        h = self.norm(_video_view(x, frames))              # [B, C, F, P]
+        h = group_norm(_video_view(x, frames), self.norm)  # [B, C, F, P]
         h = self.proj_in(h.permute(0, 2, 3, 1))            # [B, F, P, C]
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h)
@@ -303,5 +304,5 @@ class UNet3DConditionModel(nn.Module):
                 if i < n - 1:
                     x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
                                                                         mode="nearest"))
-        x = self.conv_out(F.silu(self.norm_out(x)))
+        x = self.conv_out(group_norm(x, self.norm_out, silu=True))
         return x.permute(0, 2, 3, 1).reshape(B, Fr, H, W, cfg.out_channels)

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spider_tpu_torch.ops.group_norm import group_norm
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
@@ -63,8 +65,8 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = _conv(cin, cout, 1, dt, device) if cin != cout else None
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(group_norm(x, self.norm1, silu=True))
+        h = self.conv2(group_norm(h, self.norm2, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -84,7 +86,7 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         B, C, H, W = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = group_norm(x, self.norm).permute(0, 2, 3, 1).reshape(B, H * W, C)
         q, k, v = self.q(h), self.k(h), self.v(h)
         attn = torch.softmax(torch.einsum("btc,bsc->bts", q, k).float() / (C ** 0.5),
                              dim=-1).to(v.dtype)
@@ -123,7 +125,7 @@ class Encoder(nn.Module):
                 # Flax pads (0, 1) on each spatial axis before the stride-2 conv.
                 x = getattr(self, f"down_{i}_downsample")(F.pad(x, (0, 1, 0, 1)))
         x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
-        x = self.conv_out(F.silu(self.norm_out(x)))
+        x = self.conv_out(group_norm(x, self.norm_out, silu=True))
         mean, logvar = self.quant_conv(x).chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
 
@@ -160,7 +162,7 @@ class Decoder(nn.Module):
             if i < n - 1:
                 x = getattr(self, f"up_{i}_upsample")(F.interpolate(x, scale_factor=2,
                                                                     mode="nearest"))
-        return self.conv_out(F.silu(self.norm_out(x)))
+        return self.conv_out(group_norm(x, self.norm_out, silu=True))
 
 
 def _nchw(x):
