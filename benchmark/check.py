@@ -160,4 +160,5 @@ def control_numbers(ref: Reference, records: List[dict]) -> Dict[str, float]:
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
-    return all(numbers[n] <= limits[n] for n in NAMES)
+    """Every number within its limit, over the numbers the limits name."""
+    return all(numbers[n] <= limits[n] for n in limits)

@@ -17,9 +17,12 @@ latents, each a device copy (a few kernels a request).
 
 With ``trace`` the spans of each request are timed on the host (the request,
 each decoder call, its denoise loop, which then ends in a synchronise, and
-its decode, which ends in the copy to the host), and the request in flight at
-the window's end runs under ``torch.profiler`` with the shapes of the flash
-and temporal-attention launches recorded (``profiling.py``).
+its decode, which ends in the copy to the host); the warm-up and the window
+run under the program's ``profiler.recording()``, and the program's spans and
+launch records are drained after each request into the window's
+``program_spans`` (``profiling.compact``); and the request in flight at the
+window's end runs under ``torch.profiler`` (``profiling.Slice``). Without
+``trace`` nothing records.
 """
 
 from __future__ import annotations
@@ -34,7 +37,14 @@ from unittest import mock
 import numpy as np
 import torch
 
-from benchmark import check, profiling, traffic, weights
+from benchmark import check, flops, profiling, traffic, weights
+from spider_tpu_torch.common import profiler
+
+# The configuration's models for the count and the comparison: the SD-style
+# UNet, its text encoder and VAE.
+request_flops = flops.request_flops
+program_numbers = check.program_numbers
+CHECK_NAMES = check.NAMES
 
 
 def build_pipeline(config: dict, device):
@@ -173,6 +183,8 @@ class Cell:
 
         self.workload, self.config, self.seed = workload, config, seed
         self.device = torch.device(device)
+        self.trace = trace
+        self.program_spans: Dict[int, object] = {}
         self.point = workload["point"]
         self.modality = workload["modality"]
         self.pool = traffic.captions(workload)
@@ -223,8 +235,13 @@ class Cell:
         self.request = self.spans.index = index
         preds, preds_text = empty_predictions(), empty_predictions_text()
         t0 = time.perf_counter()
-        self.controller.generate({"llm_text_all": [text]}, [], preds, preds_text)
-        self.spans.add("request", t0, time.perf_counter())
+        try:
+            self.controller.generate({"llm_text_all": [text]}, [], preds, preds_text)
+        finally:
+            t1 = time.perf_counter()
+            if self.trace:
+                self.program_spans[index] = profiling.compact(profiler.drain())
+        self.spans.add("request", t0, t1)
         self.recorder.cur = None
         outs = preds[self.modality]
         for span, out in zip(self.recorder.records[index]["spans"], outs):
@@ -239,9 +256,21 @@ class Cell:
             torch.cuda.empty_cache()
 
 
-def run_window(cell: Cell, seconds: float, trace: bool) -> dict:
-    """The closed loop. -> latencies, completions and, traced, the spans and
-    the profiled slice."""
+def recording(cell: Cell):
+    """The program's ``profiler.recording()`` where the cell is traced, else
+    nothing."""
+    return profiler.recording() if cell.trace else contextlib.nullcontext()
+
+
+def run_window(cell: Cell, seconds: float) -> dict:
+    """The closed loop. -> latencies, completions and, traced, the spans,
+    the program's recordings and the profiled slice."""
+    with recording(cell):
+        return _window(cell, seconds)
+
+
+def _window(cell: Cell, seconds: float) -> dict:
+    trace = cell.trace
     lat: List[float] = []
     starts: List[float] = []
     failed: List[int] = []
@@ -277,16 +306,19 @@ def run_window(cell: Cell, seconds: float, trace: bool) -> dict:
         with profiling.Slice(cell.device) as prof_slice:
             cell.serve(index)
         profiled = index
-    return dict(window_s=end - t0, latencies=lat, attempted=len(lat), failed=len(failed), failed_requests=failed,
-                profiled=profiled, slice=prof_slice)
+    return dict(window_s=end - t0, latencies=lat, attempted=len(lat), failed=len(failed),
+                failed_requests=failed, profiled=profiled, slice=prof_slice,
+                program_spans=cell.program_spans if trace else None)
 
 
 def warm_up(cell: Cell) -> float:
     """One request at the cell's shapes, outside the window's indices."""
     t0 = time.perf_counter()
-    cell.serve(-1)
+    with recording(cell):
+        cell.serve(-1)
     cell.recorder.records.pop(-1, None)
     cell.spans.by_request.pop(-1, None)
+    cell.program_spans.pop(-1, None)
     return time.perf_counter() - t0
 
 

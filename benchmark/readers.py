@@ -1,13 +1,21 @@
 """The arithmetic behind the metric readers of ``metrics/``. Each takes the
 finished run (``run.Run``) and returns a number, or None where the run has
-nothing to read for it."""
+nothing to read for it.
+
+A traced run's window holds ``program_spans``: {request index: the
+program's spans and launch records drained after it, as a
+``profiling.Recorded``}. The kernels' rooflines read the profiled request's
+launch records (the shapes each wrapper passes to ``count_launch``) against
+the slice's device time of the kernels' operations."""
 
 from __future__ import annotations
 
 import statistics
 from typing import List, Optional
 
-from benchmark import roofline
+from benchmark import profiling, roofline
+
+UNET = "unet"
 
 
 def setup_s(run) -> float:
@@ -74,20 +82,30 @@ def mfu(run) -> Optional[float]:
     return 100.0 * ops / sec / roofline.BF16_FLOP_PER_S if sec > 0 else None
 
 
-def flash_fwd_roofline(run) -> Optional[float]:
-    sl = run.slice
-    if sl is None:
+def _launch_roofline(run, kernel: str, cost, *op_names: str) -> Optional[float]:
+    """100 x the least time of the profiled request's `kernel` launch
+    records over the slice's device time of the operations whose names hold
+    one of `op_names`."""
+    recs = run.window.get("program_spans")
+    rec = recs.get(run.window["profiled"]) if recs else None
+    if rec is None or run.slice is None:
         return None
-    return roofline.share_percent(sl.launches.get("flash_fwd"), roofline.flash_fwd_cost,
-                                  sl.kernel_s("flash_fwd"))
+    shapes = rec.launches.get(kernel)
+    return roofline.share_percent(shapes, cost, run.slice.kernel_s(*op_names))
+
+
+def flash_fwd_roofline(run) -> Optional[float]:
+    return _launch_roofline(run, "flash_attention", roofline.flash_fwd_cost, "flash_fwd")
 
 
 def tattn_fwd_roofline(run) -> Optional[float]:
-    sl = run.slice
-    if sl is None:
-        return None
-    return roofline.share_percent(sl.launches.get("tattn_fwd"), roofline.tattn_fwd_cost,
-                                  sl.kernel_s("tattn"))
+    return _launch_roofline(run, "temporal_attention", roofline.tattn_fwd_cost, "tattn")
+
+
+def group_norm_roofline(run) -> Optional[float]:
+    """``csrc/group_norm.cu``'s two passes, in either layout."""
+    return _launch_roofline(run, "group_norm", roofline.group_norm_cost, "stats_contig",
+                            "apply_contig", "stats_cl", "apply_cl")
 
 
 def device_idle(run) -> Optional[float]:
@@ -98,3 +116,36 @@ def device_idle(run) -> Optional[float]:
         return None
     busy = sl.busy_s()
     return 100.0 * (1.0 - busy / sl.wall_s) if busy > 0 else None
+
+
+def unet_host_ms(run) -> Optional[float]:
+    """Mean host length of the program's ``unet`` spans over the traced
+    requests outside the profiled slice (the warm-up left out)."""
+    recs = run.window.get("program_spans")
+    if not recs:
+        return None
+    lengths = [e - s for i, rec in recs.items() if i >= 0 and i != run.window["profiled"]
+               for name, _id, _parent, s, e in rec.spans if name == UNET]
+    return sum(lengths) / len(lengths) / 1e6 if lengths else None
+
+
+def unet_kernels(run) -> Optional[float]:
+    """Device operations launched inside one ``unet`` span, mean over the
+    profiled slice's UNet calls."""
+    p = profiling.profiled(run)
+    calls = sum(v[0] == UNET for v in p.spans.values()) if p else 0
+    if not calls:
+        return None
+    in_unet = profiling.under(p.spans, UNET)
+    return sum(in_unet.get(sid) is not None for sid in p.launched_in) / calls
+
+
+def unet_launch_idle(run) -> Optional[float]:
+    """100 x the profiled slice's device-idle seconds during which the host
+    was inside a ``unet`` span, over the slice's wall seconds."""
+    p = profiling.profiled(run)
+    if p is None or p.slice.wall_s <= 0:
+        return None
+    in_unet = profiling.under(p.spans, UNET)
+    ns = sum(v for sid, v in p.idle_by().items() if in_unet.get(sid) is not None)
+    return 100.0 * ns / 1e9 / p.slice.wall_s

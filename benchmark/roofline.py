@@ -3,7 +3,9 @@
 Frozen copies of ``bound_ms`` and ``live_pairs`` of the repository's
 ``chip_smoke.py``: each input byte read once and each output byte written
 once at the HBM rate, or the operations at the dense bf16 tensor rate,
-whichever is longer, over the (query, key) pairs the mask leaves live.
+whichever is longer, over the (query, key) pairs the mask leaves live. A
+``*_cost`` takes the shape a kernel wrapper records at its launch
+(``count_launch``), under the same keys.
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ def tattn_fwd_cost(B, F, P, C, heads, elem_bytes):
     """(bytes, operations) of one temporal attention: q, k, v read and out
     written, [B,F,P,C] each; QK^T and PV over the F frames at every pixel."""
     return 4 * B * F * P * C * elem_bytes, 4 * B * P * F * F * C
+
+
+def group_norm_cost(N, C, L, G, silu, elem_bytes):
+    """(bytes, operations) of one GroupNorm (with its SiLU or not): x
+    [N, C, L] read once and y written once; its few operations an element
+    count as none, since the bytes bound it by two orders."""
+    return 2 * N * C * L * elem_bytes, 0
 
 
 def share_percent(launches, cost, measured_s: float):

@@ -7,9 +7,19 @@ JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics with ``--trace 0``, its per-layer metrics with
 ``--trace 1``), ``device``, with ``--trace 1`` ``breakdown``, and last
 ``checks``, each number the comparison holds against its limit (also the
-last lines of standard error). Exits 2 without a result where CUDA is
-missing or the cell wants more cards than there are, and 3 where the process
-holds JAX or the JAX package once the window has closed.
+last lines of standard error). With ``--trace 1`` standard error also holds
+the profiled request's ``idle by span`` and ``device by span`` tables. Exits
+2 without a result where CUDA is missing or the cell wants more cards than
+there are, 3 where the process holds JAX or the JAX package once the window
+has closed, and 4 where the workload's ``check.limits`` do not name exactly
+the loop's check numbers.
+
+The cell's loop module (``loops/<loop>.py``) drives the program and brings
+its configuration's own models to the count and the comparison:
+``Cell(workload, config, seed, device, trace=...)``, ``warm_up(cell)``,
+``run_window(cell, seconds)``, ``check_sample``, ``records_of``,
+``reference_for(cell)``, ``request_flops(config, point)``,
+``program_numbers(ref, records)`` and ``CHECK_NAMES``.
 """
 
 from __future__ import annotations
@@ -113,9 +123,14 @@ def execute(args, bench, workload, config, loop, device) -> int:
     a card (the tests drive it on the CPU)."""
     import torch
 
-    from benchmark import cells, check
-    from benchmark.flops import request_flops
+    from benchmark import cells, check, profiling
 
+    names = tuple(loop.CHECK_NAMES)
+    limits = workload["check"]["limits"]
+    if set(limits) != set(names):
+        print(f"cell {workload['name']}: check.limits name {sorted(limits)}, but its loop "
+              f"{workload['loop']!r} compares {sorted(names)}", file=sys.stderr)
+        return 4
     trace = bool(args.trace)
     smi = power_limit() if device.type == "cuda" else "cpu"
     cell = loop.Cell(workload, config, args.seed, device, trace=trace,
@@ -125,7 +140,7 @@ def execute(args, bench, workload, config, loop, device) -> int:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     setup_s = time.perf_counter() - _T0 + _AGE_AT_T0
-    window = loop.run_window(cell, args.seconds, trace)
+    window = loop.run_window(cell, args.seconds)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     found = forbidden_modules()
     if found:
@@ -135,7 +150,7 @@ def execute(args, bench, workload, config, loop, device) -> int:
     sl = window["slice"]
     run = Run(workload=workload, config=config, window=window, setup_s=setup_s,
               spans=cell.spans.by_request if trace else None, slice=sl,
-              flops=request_flops(config, workload["point"]) if trace else None)
+              flops=loop.request_flops(config, workload["point"]) if trace else None)
     metrics = cells.read_metrics(cells.metrics_for(bench, workload["name"], trace), run)
 
     sample = loop.check_sample(workload, args.seed, completed)
@@ -144,20 +159,20 @@ def execute(args, bench, workload, config, loop, device) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ref = loop.reference_for(cell)
-    numbers = check.program_numbers(ref, records)
-    limits = workload["check"]["limits"]
+    numbers = loop.program_numbers(ref, records)
     correct = check.verdict(numbers, limits) and window["failed"] == 0 and bool(records)
-    checks = {n: {"value": numbers[n], "limit": limits[n]} for n in check.NAMES}
+    checks = {n: {"value": numbers[n], "limit": limits[n]} for n in names}
 
     dev = dict(platform="gpu" if device.type == "cuda" else device.type,
                kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
                count=1, memory_peak_bytes=int(peak), power_limit=smi)
     result = dict(correct=bool(correct), attempted=window["attempted"],
                   failed=window["failed"], metrics=metrics, device=dev)
+    p = profiling.profiled(run) if trace else None
     if trace and sl is not None:
         dev["busy_s"] = sl.busy_s()
         dev["window_s"] = sl.wall_s
-        result["breakdown"] = dict(device_ops=sl.device_ops(), idle_gaps=sl.idle_gaps())
+        result["breakdown"] = dict(device_ops=sl.device_ops(), idle_gaps=sl.idle_gaps(p))
     result["checks"] = checks
     print(f"cell {workload['name']} seed {args.seed}: set-up {setup_s:.3f} s (warm-up request "
           f"{warm_s:.3f} s), {window['attempted']} requests in {window['window_s']:.3f} s, "
@@ -165,7 +180,14 @@ def execute(args, bench, workload, config, loop, device) -> int:
     print("latencies s: " + " ".join(f"{x:.4f}" for x in window["latencies"]), file=sys.stderr)
     if trace and run.flops is not None:
         print(f"model operations a span: {json.dumps(run.flops)}", file=sys.stderr)
-    for n in check.NAMES:
+    if p is not None:
+        print("idle by span (s): " + "; ".join(
+            f"{n} {sec:.6f}" for n, sec in profiling.idle_by_span(p)), file=sys.stderr)
+        print("device by span (s, ops): " + "; ".join(
+            f"{n} {sec:.6f} {c}" for n, sec, c in profiling.device_by_span(p)), file=sys.stderr)
+        print("collections in the profiled request (s): " + " ".join(
+            f"{(e - s) / 1e9:.6f}" for s, e in sl.collections), file=sys.stderr)
+    for n in names:
         print(f"check {n} {numbers[n]!r} limit {limits[n]!r}", file=sys.stderr)
     print(json.dumps(result), flush=True)
     return 0

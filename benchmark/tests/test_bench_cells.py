@@ -27,7 +27,9 @@ def test_every_entry_of_benchmark_json_has_its_files():
 @pytest.mark.parametrize("trace,expected", [
     (False, {"video_request_s", "setup_s"}),
     (True, {"controller_ms.video", "denoise_ms.video", "vae_decode_ms.video", "mfu.video",
-            "flash_fwd_roofline.video", "tattn_fwd_roofline.video", "device_idle.video"}),
+            "flash_fwd_roofline.video", "tattn_fwd_roofline.video", "device_idle.video",
+            "unet_host_ms.video", "unet_kernels.video", "unet_launch_idle.video",
+            "group_norm_roofline.video"}),
 ])
 def test_metrics_for_follow_workloads_lists(trace, expected):
     names = {m["name"] for m in cells.metrics_for(cells.load_benchmark(),

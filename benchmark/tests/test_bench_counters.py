@@ -42,6 +42,16 @@ def test_tattn_cost_by_hand():
     assert ops == 4 * 1 * 10 * 4 * 4 * 16
 
 
+def test_group_norm_cost_by_hand():
+    # x [2, 8, 3*5] read once and y written once, 2 bytes an element
+    moved, ops = roofline.group_norm_cost(N=2, C=8, L=15, G=4, silu=True, elem_bytes=2)
+    assert (moved, ops) == (2 * (2 * 8 * 15 * 2), 0)
+    # ZeroScope's per-video level 0 (2, 320, 16, 2880): 59 MB each way, 0.0352 ms
+    moved, _ = roofline.group_norm_cost(N=2, C=320, L=16 * 2880, G=32, silu=True, elem_bytes=2)
+    assert moved == 2 * 58_982_400
+    assert roofline.bound_s(moved, 0) * 1e3 == pytest.approx(0.0352, rel=0.01)
+
+
 def test_share_percent():
     launch = dict(B=1, F=4, P=10, C=16, heads=2, elem_bytes=2)
     least = roofline.bound_s(*roofline.tattn_fwd_cost(**launch))

@@ -6,7 +6,7 @@ import statistics
 import pytest
 
 from benchmark import readers
-from benchmark.profiling import Slice
+from benchmark.profiling import Slice, compact
 
 
 class Run:
@@ -48,11 +48,14 @@ def test_span_readers_leave_out_the_profiled_request():
     assert readers.vae_decode_ms(run) == pytest.approx(1e3 * (0.09 + 0.19) / 2)
     assert readers.mfu(run) == pytest.approx(100 * 2e12 / 2.2 / 989e12)
     assert readers.device_idle(run) is None and readers.flash_fwd_roofline(run) is None
+    assert readers.unet_host_ms(run) is None and readers.unet_kernels(run) is None
 
 
-def _slice(events, wall_s):
+def _slice(ops_us, wall_s):
+    """A Slice holding device operations [(name, start us, end us)]."""
     s = Slice("cpu")
-    s.events, s.wall_s = events, wall_s
+    s.ops = [(n, round(a * 1e3), round(b * 1e3), None) for n, a, b in ops_us]
+    s.wall_s = wall_s
     return s
 
 
@@ -62,15 +65,37 @@ def test_idle_share_from_a_synthetic_timeline():
     s = _slice(ev, 1e-3)
     assert s.busy_s() == pytest.approx(250e-6)
     assert readers.device_idle(Run(slice=s)) == pytest.approx(75.0)
-    assert s.idle_gaps() == [["before k3", pytest.approx(250e-6)]]
+    assert s.idle_gaps() == [["outside any span: before k3", pytest.approx(250e-6)]]
     assert s.kernel_s("k") == pytest.approx(300e-6)
+    assert s.kernel_s("k1", "k3") == pytest.approx(200e-6)
     assert s.device_ops(2) == [["k1", pytest.approx(100e-6)], ["k2", pytest.approx(100e-6)]]
 
 
 def test_roofline_reader_uses_the_recorded_launches():
+    from spider_tpu_torch.common.profiler import LaunchRecord, Recording
+
     s = _slice([("flash_fwd_wgmma_kernel", 0.0, 10.0)], 1e-3)
-    s.launches = {"flash_fwd": [dict(B=2, T=4096, S=4096, Hq=8, Hkv=8, D=40, causal=False,
-                                     elem_bytes=2)], "tattn_fwd": []}
-    got = readers.flash_fwd_roofline(Run(slice=s))
+    shape = dict(B=2, T=4096, S=4096, Hq=8, Hkv=8, D=40, causal=False, elem_bytes=2)
+    rec = compact(Recording([], [LaunchRecord("flash_attention", "wgmma", shape, None, 0)],
+                            (0, 0)))
+    run = Run(slice=s, window=dict(profiled=3, program_spans={3: rec}))
+    got = readers.flash_fwd_roofline(run)
     assert got == pytest.approx(100 * (4 * 8 * 40 * 2 * 4096 * 4096 / 989e12) / 10e-6)
-    assert readers.tattn_fwd_roofline(Run(slice=s)) is None
+    assert readers.tattn_fwd_roofline(run) is None
+    assert readers.group_norm_roofline(run) is None
+    run.window["program_spans"] = {2: rec}          # another request's records
+    assert readers.flash_fwd_roofline(run) is None
+
+
+def test_the_slice_times_the_collections_inside_it():
+    import gc
+
+    enabled = gc.isenabled()
+    with Slice("cpu") as sl:
+        assert gc.isenabled() is enabled
+        gc.collect()
+    gc.collect()                                    # after the slice: not its
+    assert len(sl.collections) == 1
+    (s, e), = sl.collections
+    assert sl.t0_ns <= s <= e <= sl.t1_ns
+    assert sl._collection not in gc.callbacks
