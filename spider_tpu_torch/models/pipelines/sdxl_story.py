@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spider_tpu_torch.common.profiler import span
 from spider_tpu_torch.common.registry import registry
 from spider_tpu_torch.models.clip_text import CLIPTextModel
 from spider_tpu_torch.models.pipelines.sd import pad_ids
@@ -138,10 +139,12 @@ class StoryXLPipeline:
         concatenated [B, 77, 768 + 1280] and the projected pooled output of
         encoder 2 [B, 1280]."""
         c1, c2 = self.text_encoder.config, self.text_encoder_2.config
-        return self._encode(
-            self._tokenize(self.tokenizer, prompts, c1.max_position_embeddings, c1.eos_token_id),
-            self._tokenize(self.tokenizer_2, prompts, c2.max_position_embeddings,
-                           c2.eos_token_id))
+        with span("pipeline.text_encode"):
+            return self._encode(
+                self._tokenize(self.tokenizer, prompts, c1.max_position_embeddings,
+                               c1.eos_token_id),
+                self._tokenize(self.tokenizer_2, prompts, c2.max_position_embeddings,
+                               c2.eos_token_id))
 
     @torch.inference_mode()
     def encode_prompt_photomaker(self, prompts: Sequence[str], id_pixels: torch.Tensor,
@@ -161,9 +164,10 @@ class StoryXLPipeline:
         if not (mask1 == mask2).all():
             raise ValueError("the two tokenizers disagree on trigger positions")
         dev = self.device
-        ctx, pooled = self._encode(torch.from_numpy(ids1).long().to(dev),
-                                   torch.from_numpy(ids2).long().to(dev))
-        return id_encoder(id_pixels.to(dev), ctx, torch.from_numpy(mask1).to(dev)), pooled
+        with span("pipeline.text_encode"):
+            ctx, pooled = self._encode(torch.from_numpy(ids1).long().to(dev),
+                                       torch.from_numpy(ids2).long().to(dev))
+            return id_encoder(id_pixels.to(dev), ctx, torch.from_numpy(mask1).to(dev)), pooled
 
     # --------------------------------------------------------------- denoise
     def _denoise_fn(self, num_steps: int, guidance_scale: float, shape, id_length: int,
@@ -189,27 +193,31 @@ class StoryXLPipeline:
             groups = 2 if batched else 1
             story = {path: dict(id_length=id_length, indices=idx, num_groups=groups)
                      for path, idx in story_indices.items()} if story_indices else None
-            if batched:
-                ctx2 = torch.cat([uncond_ctx, ctx])
-                cond2 = dict(text_embeds=torch.cat([uncond_pooled, pooled]),
-                             time_ids=torch.cat([time_ids, time_ids]))
-            for i in range(num_steps):
-                sigma, sigma_next = sigmas[i], sigmas[i + 1]
-                t = int(timesteps[i])
-                lat_in = sched.scale_model_input(latents, sigma)
+            with span("pipeline.denoise"):
                 if batched:
-                    tt = torch.full((2 * B,), t, dtype=torch.int32, device=dev)
-                    eps2 = self.unet(torch.cat([lat_in, lat_in]), tt, ctx2, added_cond=cond2,
-                                     story=story)
-                    eps_u, eps_c = eps2[:B], eps2[B:]
-                else:
-                    tt = torch.full((B,), t, dtype=torch.int32, device=dev)
-                    eps_u = self.unet(lat_in, tt, uncond_ctx, story=story, added_cond=dict(
-                        text_embeds=uncond_pooled, time_ids=time_ids))
-                    eps_c = self.unet(lat_in, tt, ctx, story=story, added_cond=dict(
-                        text_embeds=pooled, time_ids=time_ids))
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-                latents = sched.step(eps, sigma, sigma_next, latents)
+                    ctx2 = torch.cat([uncond_ctx, ctx])
+                    cond2 = dict(text_embeds=torch.cat([uncond_pooled, pooled]),
+                                 time_ids=torch.cat([time_ids, time_ids]))
+                for i in range(num_steps):
+                    with span("pipeline.step", i=i):
+                        sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                        t = int(timesteps[i])
+                        lat_in = sched.scale_model_input(latents, sigma)
+                        if batched:
+                            tt = torch.full((2 * B,), t, dtype=torch.int32, device=dev)
+                            eps2 = self.unet(torch.cat([lat_in, lat_in]), tt, ctx2,
+                                             added_cond=cond2, story=story)
+                            eps_u, eps_c = eps2[:B], eps2[B:]
+                        else:
+                            tt = torch.full((B,), t, dtype=torch.int32, device=dev)
+                            eps_u = self.unet(lat_in, tt, uncond_ctx, story=story,
+                                              added_cond=dict(text_embeds=uncond_pooled,
+                                                              time_ids=time_ids))
+                            eps_c = self.unet(lat_in, tt, ctx, story=story,
+                                              added_cond=dict(text_embeds=pooled,
+                                                              time_ids=time_ids))
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                        latents = sched.step(eps, sigma, sigma_next, latents)
             return latents
 
         self._denoise_cache[key] = run
@@ -226,9 +234,10 @@ class StoryXLPipeline:
     def _decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """Images [B, H, W, 3] fp32 in [0, 1], decoded two at a time: the
         full-resolution VAE activations of a whole story batch are large."""
-        chunks = [(self.vae.decode(latents[i:i + 2]) / 2 + 0.5).clamp(0.0, 1.0)
-                  .float().cpu().numpy() for i in range(0, latents.shape[0], 2)]
-        return np.concatenate(chunks, axis=0)
+        with span("pipeline.vae_decode"):
+            chunks = [(self.vae.decode(latents[i:i + 2]) / 2 + 0.5).clamp(0.0, 1.0)
+                      .float().cpu().numpy() for i in range(0, latents.shape[0], 2)]
+            return np.concatenate(chunks, axis=0)
 
     # ------------------------------------------------------------------ call
     def __call__(self, prompt: Sequence[str], negative_prompt: str = "",

@@ -185,28 +185,35 @@ class SpiderDecoder:
         """Parse samples['llm_text_all'][0] and dispatch each tag span (one
         ``decoder.request`` span, the root of the request's spans)."""
         with span("decoder.request"):
-            output_texts = samples["llm_text_all"][0]
-            for modality, llm_text_res, preds in self.generate_stream(samples):
-                predictions_text[modality].append(llm_text_res)
-                if preds is None:
-                    continue
-                if modality == "BOX":
-                    predictions["BOX"]["bboxes"].append(preds["outputs_bboxes"][0])
-                    predictions["BOX"]["label_names"].append(preds["outputs_label_names"][0])
-                    predictions["BOX"]["scores"].append(preds["outputs_scores"][0])
-                elif modality in ("IMAGE", "AUDIO", "MASK"):
-                    predictions[modality].append(preds[0])
-                else:  # VIDEO: whole clip
-                    predictions[modality].append(preds)
-            answers.append(output_texts)
+            return self.collect(samples, answers, predictions, predictions_text)
+
+    def collect(self, samples: Dict[str, Any], answers: List[str],
+                predictions: Dict[str, Any], predictions_text: Dict[str, List]):
+        """``generate`` without its root span, for a caller that opens one
+        around more work (``SpiderDecoderInfer``: the story)."""
+        output_texts = samples["llm_text_all"][0]
+        for modality, llm_text_res, preds in self.generate_stream(samples):
+            predictions_text[modality].append(llm_text_res)
+            if preds is None:
+                continue
+            if modality == "BOX":
+                predictions["BOX"]["bboxes"].append(preds["outputs_bboxes"][0])
+                predictions["BOX"]["label_names"].append(preds["outputs_label_names"][0])
+                predictions["BOX"]["scores"].append(preds["outputs_scores"][0])
+            elif modality in ("IMAGE", "AUDIO", "MASK"):
+                predictions[modality].append(preds[0])
+            else:  # VIDEO: whole clip
+                predictions[modality].append(preds)
+        answers.append(output_texts)
         return answers, predictions, predictions_text
 
 
 def run_story_pipeline(story_fn, predictions: Dict[str, Any],
                        predictions_text: Dict[str, List]):
-    """If an IMAGESTORY span was parsed, run the story pipeline and record
-    its results (shared by SpiderDecoderInfer and the streaming chat path).
-    Returns the story images or None."""
+    """If an IMAGESTORY span was parsed, run the story pipeline (the span
+    ``decoder.dispatch`` with modality IMAGESTORY) and record its results
+    (shared by SpiderDecoderInfer and the streaming chat path). Returns the
+    story images or None."""
     if not predictions_text["IMAGESTORY"]:
         return None
     output_texts = predictions_text["IMAGESTORY"][0]
@@ -215,9 +222,10 @@ def run_story_pipeline(story_fn, predictions: Dict[str, Any],
     if (story_fn is not None and general_prompt and prompt_array
             and isinstance(prompt_array, list) and len(prompt_array) > 0
             and style_name):
-        preds = story_fn(general_prompt=general_prompt,
-                         prompt_array=prompt_array,
-                         style_name=style_name)
+        with span("decoder.dispatch", modality="IMAGESTORY"):
+            preds = story_fn(general_prompt=general_prompt,
+                             prompt_array=prompt_array,
+                             style_name=style_name)
         predictions["IMAGESTORY"].append(preds)
         predictions_text["IMAGESTORY_prompts"].append(prompt_array)
         return preds
@@ -228,7 +236,7 @@ def run_story_pipeline(story_fn, predictions: Dict[str, Any],
 
 class SpiderDecoderInfer:
     """End-to-end wrapper: run the controller, then the story pipeline on
-    any IMAGESTORY spans."""
+    any IMAGESTORY spans, all under one ``decoder.request`` span."""
 
     def __init__(self, cfg, decoders: Optional[Dict[str, Callable]] = None,
                  story_fn: Optional[Callable] = None):
@@ -243,7 +251,8 @@ class SpiderDecoderInfer:
         answers: List[str] = []
         predictions = empty_predictions()
         predictions_text = empty_predictions_text()
-        answers, predictions, predictions_text = self.spider_decoder.generate(
-            samples, answers, predictions, predictions_text)
-        run_story_pipeline(self.story_fn, predictions, predictions_text)
+        with span("decoder.request"):
+            answers, predictions, predictions_text = self.spider_decoder.collect(
+                samples, answers, predictions, predictions_text)
+            run_story_pipeline(self.story_fn, predictions, predictions_text)
         return answers, predictions, predictions_text

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.common.profiler import span
+from spider_tpu_torch.common.profiler import record_launch, recording_on, span
 from spider_tpu_torch.models.schedulers import timestep_embedding
 from spider_tpu_torch.ops.attention import flash_attention, flash_attention_with_lse
 from spider_tpu_torch.ops.group_norm import group_norm
@@ -267,28 +267,38 @@ def story_bank_config(impl: str):
 def _bank_attention(q, k, v, ek, ev, heads: int) -> torch.Tensor:
     """Self-attention of B rows over their own keys and a bank shared by
     each of g groups of B // g consecutive rows: q, k, v [B, T, C]; ek, ev
-    [g, K, C]. The softmax runs over the union of both key sets."""
+    [g, K, C]. The softmax runs over the union of both key sets.
+
+    The span ``unet.story_attn`` holds the whole of it (the self call, the
+    bank call and the merge); while recording, a launch record
+    ``story_attention`` keeps (B, g, T, K, heads, D, elem_bytes), K the bank
+    keys the form attends (0 under "self_only")."""
     g, K, C = ek.shape
     B, T, _ = q.shape
     rows, D = B // g, C // heads
     impl = _STORY_BANK_IMPL.get()
-    if impl == "self_only":
-        return _attention(q, k, v, heads)
-    if impl == "concat":
-        ekb = ek[:, None].expand(g, rows, K, C).reshape(B, K, C)
-        evb = ev[:, None].expand(g, rows, K, C).reshape(B, K, C)
-        return _attention(q, torch.cat([ekb, k], dim=1), torch.cat([evb, v], dim=1), heads)
-    # split: the bank side folds each group's rows into one call
-    # ([g, rows * T] queries over [g, K] keys), so the bank stays at group size.
-    o_self, l_self = _attention_lse(q, k, v, heads)
-    o_bank, l_bank = _attention_lse(q.reshape(g, rows * T, C), ek, ev, heads)
-    l_bank = l_bank.reshape(g, heads, rows, T).transpose(1, 2).reshape(B, heads, T)
-    l_tot = torch.logaddexp(l_self, l_bank)
-    w_self = torch.exp(l_self - l_tot).transpose(1, 2)[..., None]      # [B, T, heads, 1]
-    w_bank = torch.exp(l_bank - l_tot).transpose(1, 2)[..., None]
-    out = (o_self.reshape(B, T, heads, D).float() * w_self
-           + o_bank.reshape(B, T, heads, D).float() * w_bank)
-    return out.reshape(B, T, C).to(o_self.dtype)
+    with span("unet.story_attn"):
+        if recording_on():
+            record_launch("story_attention", impl, dict(
+                B=B, g=g, T=T, K=0 if impl == "self_only" else K, heads=heads, D=D,
+                elem_bytes=q.element_size()))
+        if impl == "self_only":
+            return _attention(q, k, v, heads)
+        if impl == "concat":
+            ekb = ek[:, None].expand(g, rows, K, C).reshape(B, K, C)
+            evb = ev[:, None].expand(g, rows, K, C).reshape(B, K, C)
+            return _attention(q, torch.cat([ekb, k], dim=1), torch.cat([evb, v], dim=1), heads)
+        # split: the bank side folds each group's rows into one call
+        # ([g, rows * T] queries over [g, K] keys), so the bank stays at group size.
+        o_self, l_self = _attention_lse(q, k, v, heads)
+        o_bank, l_bank = _attention_lse(q.reshape(g, rows * T, C), ek, ev, heads)
+        l_bank = l_bank.reshape(g, heads, rows, T).transpose(1, 2).reshape(B, heads, T)
+        l_tot = torch.logaddexp(l_self, l_bank)
+        w_self = torch.exp(l_self - l_tot).transpose(1, 2)[..., None]      # [B, T, heads, 1]
+        w_bank = torch.exp(l_bank - l_tot).transpose(1, 2)[..., None]
+        out = (o_self.reshape(B, T, heads, D).float() * w_self
+               + o_bank.reshape(B, T, heads, D).float() * w_bank)
+        return out.reshape(B, T, C).to(o_self.dtype)
 
 
 class ResnetBlock2D(nn.Module):
@@ -488,7 +498,8 @@ class UNet2DConditionModel(nn.Module):
         activating consistent self-attention in those up blocks.
 
         The call is the span ``unet``; each level of blocks ``unet.down_<i>``,
-        ``unet.mid``, ``unet.up_<i>``."""
+        ``unet.mid``, ``unet.up_<i>``; each consistent self-attention
+        ``unet.story_attn``."""
         with span("unet"):
             return self._forward(sample, timesteps, encoder_hidden_states, added_cond,
                                  story_kv, story)

@@ -1,10 +1,12 @@
 """The program's spans and launch records (``common/profiler.py``): the span
 tree of a tagged answer through ``SpiderDecoder.generate`` on the tiny SD and
-VD pipelines, recording off, many threads at once, the clock the spans are
+VD pipelines, of a story answer through ``SpiderDecoderInfer`` on the tiny
+SDXL beside an image answer's, recording off, many threads at once, the clock the spans are
 put on against torch.profiler's, and launch shapes kept under the open span
 (the card's side: ``test_torch_tracing_cuda.py``)."""
 
 import collections
+import functools
 import sys
 import threading
 
@@ -90,6 +92,67 @@ def test_span_tree_of_a_tagged_answer(modality):
             p = by_id[s.parent]
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
     assert len(rec.spans) == 6 + STEPS * (2 + 2 * levels + 1)
+
+
+STORY = ("Once. <IMAGESTORY><GENERALPROMPT>'a fox'</GENERALPROMPT>, <PROMPTARRAY>['wakes up', "
+         "'finds a map', 'sails', 'lands', 'sleeps']</PROMPTARRAY>, <STYLENAME>'Comic book'"
+         "</STYLENAME></IMAGESTORY>")
+
+
+def test_a_story_request_is_one_tree_and_an_image_request_keeps_its_spans():
+    """Through ``SpiderDecoderInfer``: a story answer records one
+    ``decoder.request`` root, one IMAGESTORY ``decoder.dispatch``, the four
+    pipeline spans and one ``unet.story_attn`` (with its ``story_attention``
+    launch record) a consistent transformer layer; an image answer records
+    the span names and counts ``SpiderDecoder.generate`` records."""
+    from spider_tpu_torch.common.config import Config
+    from spider_tpu_torch.models.pipelines.sdxl_story import build_tiny_sdxl, story_generation
+    from spider_tpu_torch.models.spider_decoder import SpiderDecoderInfer
+
+    pipe = build_tiny_sdxl(device=torch.device("cpu"))
+    story_fn = functools.partial(story_generation, pipe, id_length=4, sa_ratio=0.5,
+                                 num_inference_steps=STEPS, height=16, width=16)
+    image = _tiny_decoder("IMAGE")
+    infer = SpiderDecoderInfer(Config.fromdict(dict(model=dict(type="spider_decoder"))),
+                               decoders=image.decoders, story_fn=story_fn)
+    with P.recording():
+        _, preds, _ = infer({"llm_text_all": [STORY]})
+    rec = P.drain()
+    assert len(preds["IMAGESTORY"][0]) == 5
+    kids = _children(rec.spans)
+    (root,) = kids[None]
+    assert root.name == "decoder.request" and all(s.root == root.id for s in rec.spans)
+    (dispatch,) = kids[root.id]
+    assert dispatch.name == "decoder.dispatch" and dispatch.attrs == {"modality": "IMAGESTORY"}
+    assert [s.name for s in kids[dispatch.id]] == [
+        "pipeline.text_encode", "pipeline.text_encode", "pipeline.denoise",
+        "pipeline.vae_decode"]
+    steps = kids[kids[dispatch.id][2].id]
+    assert [(s.name, s.attrs) for s in steps] == [("pipeline.step", {"i": i})
+                                                 for i in range(STEPS)]
+    layers = 2                   # a tiny up level: 2 transformers of depth 1, each consistent
+    for step in steps:
+        (unet,) = kids[step.id]
+        levels = {s.name: s for s in kids[unet.id]}
+        assert list(levels) == ["unet.down_0", "unet.down_1", "unet.mid", "unet.up_0",
+                                "unet.up_1"]
+        for name, level in levels.items():
+            story_attn = [s for s in kids[level.id] if s.name == "unet.story_attn"]
+            assert len(story_attn) == (layers if name.startswith("unet.up") else 0)
+    attn = [s for s in rec.spans if s.name == "unet.story_attn"]
+    assert len(attn) == 2 * layers * STEPS
+    assert [r.span for r in rec.launches if r.kernel == "story_attention"] == [s.id for s in attn]
+    assert {(r.route, r.shape["T"], r.shape["K"]) for r in rec.launches} == {
+        ("split", 16, 32), ("split", 64, 128)}
+
+    names = []
+    for run_image in (lambda: infer({"llm_text_all": ["Here. <IMAGE>a red fox</IMAGE>"]}),
+                      lambda: _generate(image, "IMAGE")):
+        with P.recording():
+            run_image()
+        names.append(collections.Counter(s.name for s in P.drain().spans))
+    assert names[0] == names[1] and "unet.story_attn" not in names[0]
+    assert sum(names[0].values()) == 6 + STEPS * (2 + 2 * 2 + 1)
 
 
 def test_recording_off_records_nothing():
