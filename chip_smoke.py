@@ -1559,13 +1559,16 @@ def phase_unet3d_check(pipe, dev):
     levels, spatial attention through the flash kernel where
     unet2d.spatial_flash_predicate holds and every GroupNorm through its
     kernel, then all three plain, each against an fp32 copy with plain
-    attention and plain GroupNorms."""
+    attention and plain GroupNorms. Every temporal layer of the routed call
+    reads the spatial layers' channels-last storage in place: one "view"
+    of ``_video_view`` each, no "strided"."""
     import dataclasses
 
     import torch
 
     from spider_tpu_torch.models.unet2d import spatial_flash_config
-    from spider_tpu_torch.models.unet3d import UNet3DConditionModel
+    from spider_tpu_torch.models.unet3d import (TemporalConv, TransformerTemporal,
+                                                UNet3DConditionModel, _video_view)
     from spider_tpu_torch.ops.attention import flash_attention
     from spider_tpu_torch.ops.group_norm import group_norm, group_norm_config
     from spider_tpu_torch.ops.temporal_attention import (temporal_attention,
@@ -1580,9 +1583,13 @@ def phase_unet3d_check(pipe, dev):
         dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
     ref_unet.load_state_dict(pipe.unet.state_dict())
     norms = count_group_norms(pipe.unet)
+    temporal = sum(isinstance(m, (TemporalConv, TransformerTemporal))
+                   for m in pipe.unet.modules())
     with torch.inference_mode():
         before = temporal_attention.launches, flash_attention.launches, group_norm.launches
+        _video_view.routes.update(view=0, strided=0)
         routed = pipe.unet(lat, t, ctx).float()
+        views = dict(_video_view.routes)
         launches = temporal_attention.launches - before[0]
         flash_launches = flash_attention.launches - before[1]
         norm_launches = group_norm.launches - before[2]
@@ -1602,9 +1609,11 @@ def phase_unet3d_check(pipe, dev):
                 tattn_launches_expected=want, flash_launches=flash_launches,
                 flash_launches_expected=want_flash, group_norm_launches=norm_launches,
                 group_norm_launches_expected=norms, group_norm_launches_plain=off_kernel,
+                video_view=views, video_view_expected=dict(view=temporal, strided=0),
                 ok=bool(torch.isfinite(routed).all()) and launches == want
                 and flash_launches == want_flash and flash_launches > 0
                 and norm_launches == norms > 0 and off_kernel == 0
+                and views == dict(view=temporal, strided=0)
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 

@@ -59,7 +59,10 @@ def random_init_(module: nn.Module, generator: torch.Generator,
                 elif name == "lora_b":
                     t.zero_()
                 elif t.is_floating_point():
-                    t.normal_(0.0, scale, generator=generator)
+                    # drawn in index order, so the values do not depend on
+                    # the tensor's memory format (the UNet3D's are channels-last)
+                    t.copy_(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                            .normal_(0.0, scale, generator=generator))
     return module
 
 

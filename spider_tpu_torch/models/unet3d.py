@@ -3,9 +3,13 @@ spider_tpu/models/unet3d.py): the text-to-video denoiser of ZeroScope.
 
 ``forward`` takes and returns [B, F, H, W, C] latents, as the JAX module
 does. Inside, spatial layers run on frames folded b-major into the batch
-([B*F, C, H, W], row b*F + f, NCHW), and temporal layers see [B, F, H*W, C]
-or [B, C, F, H*W] views of the same data. Submodule names follow the JAX
-parameter tree (``down_0_tconv_1.conv2``, ``mid_tattn.block_0.attn1_q``...).
+([B*F, C, H, W], row b*F + f), and temporal layers see [B, F, H*W, C] or
+[B, C, F, H*W] views of the same data. Activations are stored channels-last
+([B*F, H, W, C] in memory), as are the convolution weights, so the temporal
+layers read the spatial layers' storage in place (``_video_view``) and every
+convolution, norm and residual add sees one layout. Submodule names follow
+the JAX parameter tree (``down_0_tconv_1.conv2``,
+``mid_tattn.block_0.attn1_q``...).
 
 Numerics held to the reference:
   * GroupNorm in TemporalConv (eps 1e-5) and TransformerTemporal (eps 1e-6)
@@ -75,10 +79,19 @@ def unet3d_tiny(cross_attention_dim: int = 32) -> UNet3DConfig:
 
 
 def _video_view(x: torch.Tensor, frames: int) -> torch.Tensor:
-    """[B*F, C, H, W] -> [B, C, F, H*W] (a copy): the layout in which torch's
-    GroupNorm reduces per video and a (3, 1) conv runs over the frames."""
+    """[B*F, C, H, W] -> [B, C, F, H*W], a view: the layout in which a
+    GroupNorm reduces per video and a (3, 1) conv runs over the frames. A
+    channels-last x gives a channels-last view of its own storage; any other
+    x a strided view, which the norms and convolutions read as it lies. Each
+    call adds one to ``_video_view.routes``: "view" for a channels-last x,
+    "strided" for any other."""
     BF, C, H, W = x.shape
-    return x.reshape(BF // frames, frames, C, H * W).transpose(1, 2).contiguous()
+    _video_view.routes["view" if x.is_contiguous(memory_format=torch.channels_last)
+                       else "strided"] += 1
+    return x.reshape(BF // frames, frames, C, H * W).transpose(1, 2)
+
+
+_video_view.routes = {"view": 0, "strided": 0}
 
 
 def _frames_view(h: torch.Tensor, shape) -> torch.Tensor:
@@ -250,6 +263,8 @@ class UNet3DConditionModel(nn.Module):
                                                               device=device))
         self.norm_out = nn.GroupNorm(g, cur, eps=1e-5, dtype=dt, device=device)
         self.conv_out = nn.Conv2d(cur, cfg.out_channels, 3, padding=1, dtype=dt, device=device)
+        # channels-last like the activations; loaders copy into them in place
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, sp_group=None) -> torch.Tensor:
@@ -273,7 +288,7 @@ class UNet3DConditionModel(nn.Module):
         temb = self.time_embed_2(F.silu(self.time_embed_1(temb)))
         temb_f = temb.repeat_interleave(Fr, dim=0)                       # row b*F + f
         ctx_f = encoder_hidden_states.to(dt).repeat_interleave(Fr, dim=0)
-        x = sample.to(dt).reshape(B * Fr, H, W, Cin).permute(0, 3, 1, 2).contiguous()
+        x = sample.to(dt).reshape(B * Fr, H, W, Cin).permute(0, 3, 1, 2)   # channels-last
         x = self.transformer_in(self.conv_in(x), Fr, g)
         skips = [x]
         for i in range(n):

@@ -30,6 +30,7 @@ from spider_tpu.ops import temporal_attention as jta
 from spider_tpu_torch.models import clip_text as tclip
 from spider_tpu_torch.models import unet3d as tu3
 from spider_tpu_torch.models.convert import load_jax_params
+from spider_tpu_torch.models.factory import random_init_
 from spider_tpu_torch.models.pipelines import vd as tvd
 from spider_tpu_torch.models.tokenizer import TinyTokenizer
 from spider_tpu_torch.ops import temporal_attention as tta
@@ -160,6 +161,84 @@ def test_unet3d_tiny_matches_jax(pipes):
         got = tpipe.unet(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx))
     assert got.shape == (2, 3, 8, 8, 4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
+
+
+def _channels_last(t):
+    return t.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_unet3d_keeps_channels_last_through_its_temporal_layers(pipes):
+    # Every temporal layer reads the spatial layers' storage in place, and
+    # every convolution (the skips' 1x1 shortcuts after torch.cat, the
+    # upsamples after F.interpolate, the stride-2 downsamples) takes and
+    # gives channels-last.
+    unet = pipes[1].unet
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, a, o: seen.append(
+        (type(m).__name__, _channels_last(a[0]), _channels_last(o))))
+        for m in unet.modules()
+        if isinstance(m, (tu3.TemporalConv, tu3.TransformerTemporal, torch.nn.Conv2d))]
+    tu3._video_view.routes.update(view=0, strided=0)
+    try:
+        with torch.no_grad():
+            unet(torch.from_numpy(_randn(10, 2, 3, 8, 8, 4)), torch.tensor([981, 15]),
+                 torch.from_numpy(_randn(11, 2, 7, 32)))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(seen) == len(hooks) and all(a and o for _, a, o in seen), seen
+    temporal = sum(name != "Conv2d" for name, _, _ in seen)
+    assert temporal == 16
+    assert tu3._video_view.routes == {"view": temporal, "strided": 0}
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_video_view_reads_channels_last_in_place_and_copies_others(layout):
+    x = torch.from_numpy(_randn(12, 6, 8, 4, 5))                     # B 2, F 3
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    want = x.contiguous().reshape(2, 3, 8, 20).transpose(1, 2)
+    tu3._video_view.routes.update(view=0, strided=0)
+    got = tu3._video_view(x, 3)
+    assert torch.equal(got, want)
+    if layout == "channels_last":
+        assert got.data_ptr() == x.data_ptr() and _channels_last(got)
+        assert tu3._video_view.routes == {"view": 1, "strided": 0}
+
+
+@pytest.mark.parametrize("load", ["load_jax_params", "load_state_dict"])
+def test_unet3d_conv_weights_stay_channels_last_when_loaded(pipes, load):
+    jpipe, tpipe = pipes
+    if load == "load_jax_params":
+        unet, params = tpipe.unet, jpipe.unet_params
+        params = params.get("params", params)
+        want = {}
+        for name, t in unet.state_dict().items():
+            if t.dim() == 4:
+                node = params
+                for key in name.split(".")[:-1]:
+                    node = node[key]
+                want[name] = torch.from_numpy(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+    else:
+        unet = tu3.UNet3DConditionModel(tu3.unet3d_tiny())
+        want = {n: torch.from_numpy(_randn(i, *t.shape))
+                for i, (n, t) in enumerate(unet.state_dict().items())}
+        unet.load_state_dict(want)
+    convs = {n: t for n, t in unet.state_dict().items() if t.dim() == 4}
+    assert len(convs) == sum(isinstance(m, torch.nn.Conv2d) for m in unet.modules())
+    assert any(not t.is_contiguous() for t in convs.values())     # 1x1 kernels are both
+    for name, t in convs.items():
+        assert _channels_last(t) and torch.equal(t, want[name]), name
+
+
+def test_random_init_does_not_depend_on_the_memory_format():
+    gen = lambda: torch.Generator().manual_seed(3)
+    cl = random_init_(tu3.UNet3DConditionModel(tu3.unet3d_tiny()), gen())
+    nchw = random_init_(tu3.UNet3DConditionModel(tu3.unet3d_tiny())
+                        .to(memory_format=torch.contiguous_format), gen())
+    a, b = cl.state_dict(), nchw.state_dict()
+    assert any(_channels_last(t) and not t.is_contiguous() for t in a.values())
+    assert all(torch.equal(a[n], b[n]) for n in a)
 
 
 def test_zeroscope_unet3d_runs_34_temporal_attentions_per_call():
