@@ -30,11 +30,11 @@ Phases, each printing one JSON line:
                "ring" and fp32 on "simple", against autograd through the plain form
   unet_routing every self- and cross-attention shape of SD-1.5 512px, AudioLDM 5 s,
                ZeroScope 576x320x16 and the SDXL story (768px, 4 frames, batched CFG)
-               through the flash kernel and through unet2d's plain einsum, with bounds
+               through the flash kernel and through plain_attention's einsum, with bounds
                (the SDXL rows also with an SDPA call): the rows
-               unet2d.spatial_flash_predicate is set from, and a check that it agrees
-               with them; then the story's bank attention at up_0 and up_1
-               (_attention_lse, [2, 4 T] queries over the sampled bank) on the kernel
+               ops.attention.spatial_flash_predicate is set from, and a check that it
+               agrees with them; then the story's bank attention at up_0 and up_1
+               (attention_with_lse, [2, 4 T] queries over the sampled bank) on the kernel
                and in its plain form
   unet_check   the SD-1.5 UNet routed through the flash kernel, against fp32
   unet3d_check the ZeroScope UNet3D routed through the temporal kernel, against fp32
@@ -307,7 +307,7 @@ ANY_TO_MANY_REQUESTS = 2
 VIDEO_HW_FRAMES = (320, 576, 16)
 AUDIO_SECONDS = 5.0
 AUDIO_LATENT_HW = (256, 32)           # AudioLDM's latent for 5 s; main() holds it to the pipe's
-# unet2d.spatial_flash_predicate may send a shape to the side that is slower
+# ops.attention.spatial_flash_predicate may send a shape to the side that is slower
 # on the device by at most this factor (timing noise near a crossover).
 ROUTING_SLACK = 1.25
 # "No slower" on launch-bound shapes, where two ~10-40 us device times are
@@ -503,7 +503,7 @@ def launch_counters():
 
 
 def reset_launches() -> None:
-    from spider_tpu_torch.ops.launch_count import reset_launches as reset
+    from spider_tpu_torch.ops.launch import reset_launches as reset
 
     for fn in launch_counters().values():
         reset(fn)
@@ -574,8 +574,8 @@ def flash_launches_per_unet_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
                                  batch: int) -> int:
     """Flash launches in one UNet2D or UNet3D call (batch = samples x frames):
     each transformer block's self- and cross-attention where
-    unet2d.spatial_flash_predicate holds."""
-    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+    ops.attention.spatial_flash_predicate holds."""
+    from spider_tpu_torch.ops.attention import spatial_flash_predicate
 
     return sum(blocks * (spatial_flash_predicate(batch, T, T, H, D)
                          + spatial_flash_predicate(batch, T, ctx_len, H, D))
@@ -949,12 +949,12 @@ def phase_unet_routing(dev):
     """Every self- and cross-attention shape of the four UNets at the sizes
     the main path runs them (CFG batch 2; ZeroScope's 16 frames fold into the
     batch; the SDXL story's 4 frames and batched CFG make a batch of 8),
-    through the flash kernel and through unet2d's plain einsum, both timed on
+    through the flash kernel and through plain_attention's einsum, both timed on
     the device (calls queued behind a sleeping kernel) and as single calls,
     each with its bound; the SDXL rows also with one SDPA call's device time.
     Inputs as routing_qkv makes them; the kernel's output is held to the
     fp32 plain form by routing_excess, the bf16 plain form is only timed.
-    unet2d.spatial_flash_predicate is set from these rows; the row fails if
+    ops.attention.spatial_flash_predicate is set from these rows; the row fails if
     the rule sends a shape to the slower side by more than ROUTING_SLACK, or
     to a kernel that does not take it. Then the same rows for the attention
     shapes of Grounding DINO's decoder and SAM's mask decoder
@@ -984,19 +984,19 @@ def phase_unet_routing(dev):
 def routing_row(dev, seed: int, model: str, level: str, kind: str, blocks: int, B: int,
                 T: int, S: int, H: int, D: int, sdpa: bool) -> dict:
     """One unet_routing row: the shape through the flash kernel and through
-    unet2d's plain einsum (and, with `sdpa`, one SDPA call), device times and
+    plain_attention's einsum (and, with `sdpa`, one SDPA call), device times and
     the bound, the kernel held to the fp32 plain form by routing_excess."""
     import torch
 
-    from spider_tpu_torch.models.unet2d import (_attention, spatial_flash_config,
-                                                spatial_flash_predicate)
     from spider_tpu_torch.ops import attention as A
+    from spider_tpu_torch.ops.attention import (attention, spatial_flash_config,
+                                                spatial_flash_predicate)
 
     q, k, v = routing_qkv(dev, seed, B, T, S, H * D)
     with spatial_flash_config("einsum"):
-        plain = lambda: _attention(q, k, v, H)
+        plain = lambda: attention(q, k, v, H)
         einsum_ms, einsum_dev = cuda_ms(plain), device_ms(plain)
-        want = _attention(q.float(), k.float(), v.float(), H)
+        want = attention(q.float(), k.float(), v.float(), H)
     flash_ms = flash_dev = err = excess = None
     if D <= A.MAX_HEAD_DIM:
         flash = lambda: A.flash_attention(
@@ -1509,7 +1509,7 @@ def _rel_errors(routed, plain, ref):
 
 def phase_unet_check(pipe, dev):
     """One full-size CFG UNet call in bf16 routed as the main path routes it
-    (the kernel where unet2d.spatial_flash_predicate holds, every GroupNorm
+    (the kernel where ops.attention.spatial_flash_predicate holds, every GroupNorm
     on its kernel), and the same call with plain bf16 attention and plain
     GroupNorms everywhere, each against an fp32 copy of the UNet (plain
     attention, plain GroupNorms): the kernels inside the real model at its
@@ -1518,7 +1518,8 @@ def phase_unet_check(pipe, dev):
 
     import torch
 
-    from spider_tpu_torch.models.unet2d import UNet2DConditionModel, spatial_flash_config
+    from spider_tpu_torch.models.unet2d import UNet2DConditionModel
+    from spider_tpu_torch.ops.attention import spatial_flash_config
     from spider_tpu_torch.ops.group_norm import group_norm, group_norm_config
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1557,19 +1558,19 @@ def phase_unet3d_check(pipe, dev):
     """The same check for the ZeroScope UNet3D at full size (CFG batch 2,
     16 frames, 576x320): temporal attention through its kernel at all four
     levels, spatial attention through the flash kernel where
-    unet2d.spatial_flash_predicate holds and every GroupNorm through its
+    ops.attention.spatial_flash_predicate holds and every GroupNorm through its
     kernel, then all three plain, each against an fp32 copy with plain
     attention and plain GroupNorms. Every temporal layer of the routed call
-    reads the spatial layers' channels-last storage in place: one "view"
-    of ``_video_view`` each, no "strided"."""
+    takes a channels-last input and reads the spatial layers' storage in
+    place: each of ``_video_view``'s results shares its input's storage."""
     import dataclasses
 
     import torch
 
-    from spider_tpu_torch.models.unet2d import spatial_flash_config
+    from spider_tpu_torch.models import unet3d
     from spider_tpu_torch.models.unet3d import (TemporalConv, TransformerTemporal,
-                                                UNet3DConditionModel, _video_view)
-    from spider_tpu_torch.ops.attention import flash_attention
+                                                UNet3DConditionModel)
+    from spider_tpu_torch.ops.attention import flash_attention, spatial_flash_config
     from spider_tpu_torch.ops.group_norm import group_norm, group_norm_config
     from spider_tpu_torch.ops.temporal_attention import (temporal_attention,
                                                          temporal_attention_config)
@@ -1583,13 +1584,26 @@ def phase_unet3d_check(pipe, dev):
         dataclasses.replace(pipe.unet.config, dtype=torch.float32), dev).eval()
     ref_unet.load_state_dict(pipe.unet.state_dict())
     norms = count_group_norms(pipe.unet)
-    temporal = sum(isinstance(m, (TemporalConv, TransformerTemporal))
-                   for m in pipe.unet.modules())
+    temporal = [m for m in pipe.unet.modules()
+                if isinstance(m, (TemporalConv, TransformerTemporal))]
+    inputs_cl, in_place, video_view = [], [], unet3d._video_view
+
+    def view(x, frames):
+        out = video_view(x, frames)
+        in_place.append(out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr())
+        return out
+
+    hooks = [m.register_forward_pre_hook(lambda m, a: inputs_cl.append(
+        a[0].is_contiguous(memory_format=torch.channels_last))) for m in temporal]
+    unet3d._video_view = view
     with torch.inference_mode():
         before = temporal_attention.launches, flash_attention.launches, group_norm.launches
-        _video_view.routes.update(view=0, strided=0)
-        routed = pipe.unet(lat, t, ctx).float()
-        views = dict(_video_view.routes)
+        try:
+            routed = pipe.unet(lat, t, ctx).float()
+        finally:
+            unet3d._video_view = video_view
+            for hook in hooks:
+                hook.remove()
         launches = temporal_attention.launches - before[0]
         flash_launches = flash_attention.launches - before[1]
         norm_launches = group_norm.launches - before[2]
@@ -1609,11 +1623,12 @@ def phase_unet3d_check(pipe, dev):
                 tattn_launches_expected=want, flash_launches=flash_launches,
                 flash_launches_expected=want_flash, group_norm_launches=norm_launches,
                 group_norm_launches_expected=norms, group_norm_launches_plain=off_kernel,
-                video_view=views, video_view_expected=dict(view=temporal, strided=0),
+                temporal_layers=len(temporal), temporal_inputs_channels_last=sum(inputs_cl),
+                video_views=len(in_place), video_views_in_place=sum(in_place),
                 ok=bool(torch.isfinite(routed).all()) and launches == want
                 and flash_launches == want_flash and flash_launches > 0
                 and norm_launches == norms > 0 and off_kernel == 0
-                and views == dict(view=temporal, strided=0)
+                and inputs_cl == [True] * len(temporal) and in_place and all(in_place)
                 and err_kernel <= UNET_REL_SLACK * err_plain + 1e-3)
 
 
@@ -1720,8 +1735,8 @@ def phase_video_sharded(pipe, dev, smi: str):
     import torch
 
     from spider_tpu_torch.common import dist
-    from spider_tpu_torch.models.unet2d import spatial_flash_config
     from spider_tpu_torch.models.unet3d import UNet3DConditionModel
+    from spider_tpu_torch.ops.attention import spatial_flash_config
     from spider_tpu_torch.ops.temporal_attention import temporal_attention_config
     from spider_tpu_torch.parallel.collectives import group_of
 
@@ -4926,11 +4941,11 @@ def story_bank_shapes(cfg, lat_h: int, lat_w: int):
 def story_flash_launches_per_unet_call(cfg, lat_h: int, lat_w: int, ctx_len: int,
                                        batch: int) -> int:
     """Flash launches in one story UNet call: each transformer block's self-
-    and cross-attention where unet2d.spatial_flash_predicate holds (a story
-    block's self-attention goes through _attention_lse by the same rule),
+    and cross-attention where ops.attention.spatial_flash_predicate holds (a story
+    block's self-attention goes through attention_with_lse by the same rule),
     plus one bank attention in each transformer block of the up blocks where
     the same predicate holds for the bank's shape."""
-    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+    from spider_tpu_torch.ops.attention import spatial_flash_predicate
 
     groups = 2
     bank = sum(blocks for _, blocks, T, H, D, K in story_bank_shapes(cfg, lat_h, lat_w)
@@ -4941,7 +4956,7 @@ def story_flash_launches_per_unet_call(cfg, lat_h: int, lat_w: int, ctx_len: int
 def phase_story_bank_routing(dev):
     """The story bank attention at the SDXL story point (768 px, 4 frames,
     id_length 4, sa_ratio 0.5, batched CFG: 2 groups): [2, 4 T] queries over
-    the bank keys through unet2d._attention_lse on the flash kernel and in
+    the bank keys through ops.attention.attention_with_lse on the flash kernel and in
     its plain form, device ms, with the bound and one SDPA call on the same
     q, k, v (which returns no lse). Inputs as routing_qkv makes them. Output
     (by routing_excess) and lse are held to the plain form on the same inputs
@@ -4951,25 +4966,26 @@ def phase_story_bank_routing(dev):
     if it disagrees with the fp32 form."""
     import torch
 
-    from spider_tpu_torch.models.unet2d import (_attention_lse, spatial_flash_config,
-                                                spatial_flash_predicate, unet_sdxl)
+    from spider_tpu_torch.models.unet2d import unet_sdxl
+    from spider_tpu_torch.ops.attention import (attention_with_lse, spatial_flash_config,
+                                                spatial_flash_predicate)
 
     lat = STORY_HW // 8
     rows = []
     for level, blocks, T, H, D, K in story_bank_shapes(unet_sdxl(), lat, lat):
         B, Tq = 2, len(STORY_PROMPTS) * T
         q, k, v = routing_qkv(dev, 900 + len(rows), B, Tq, K, H * D)
-        flash = lambda: _attention_lse(q, k, v, H)
+        flash = lambda: attention_with_lse(q, k, v, H)
         reset_launches()
         out, lse = flash()
         routed = read_launches()["flash_fwd"] == 1
         with spatial_flash_config("einsum"):
-            plain = lambda: _attention_lse(q, k, v, H)
+            plain = lambda: attention_with_lse(q, k, v, H)
             got_plain, plain_lse = plain()
             plain_dev = device_ms(plain, calls=5)
             # held as the kernel rows are, to the same inputs in fp32: the bf16
             # plain form rounds its logits to bf16 before the softmax
-            want, want_lse = _attention_lse(q.float(), k.float(), v.float(), H)
+            want, want_lse = attention_with_lse(q.float(), k.float(), v.float(), H)
         err = (out.float() - want).abs().max().item()
         excess = routing_excess(out, want)
         typical = want.abs().mean().item()
@@ -5074,7 +5090,8 @@ def phase_story_check(pipe, dev):
 
     import torch
 
-    from spider_tpu_torch.models.unet2d import UNet2DConditionModel, spatial_flash_config
+    from spider_tpu_torch.models.unet2d import UNet2DConditionModel
+    from spider_tpu_torch.ops.attention import spatial_flash_config
     from spider_tpu_torch.ops.group_norm import group_norm_config
 
     x, t, ctx, cond, story = _story_unet_inputs(pipe, dev)
@@ -5344,7 +5361,7 @@ GROUNDING_LABELS = ("grounding::msda", "sam::vit_attention")
 def grounding_attention_shapes():
     """(model, where, kind, calls per model call, B, T, S, heads, D) of every
     attention of Grounding DINO (at 512 px) and of SAM ViT-H's mask decoder
-    that goes through unet2d._attention: the DINO decoder's query
+    that goes through ops.attention.attention: the DINO decoder's query
     self-attention (900 queries, 8 heads of 32); SAM's prompt-token
     self-attention, token-to-image (twice in the two-way blocks and once at
     the end) and image-to-token over the 64 x 64 grid, for a box prompt (2
@@ -5370,8 +5387,8 @@ def grounding_attention_shapes():
 def grounding_flash_calls(model: str, batch: int = None) -> int:
     """Flash launches of one call of `model` (a grounding_attention_shapes
     name), at its own batch or at `batch`: its attentions that
-    unet2d.spatial_flash_predicate routes there."""
-    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+    ops.attention.spatial_flash_predicate routes there."""
+    from spider_tpu_torch.ops.attention import spatial_flash_predicate
 
     return sum(calls for m, _, _, calls, B, T, S, H, D in grounding_attention_shapes()
                if m == model and spatial_flash_predicate(batch or B, T, S, H, D))
@@ -5455,7 +5472,7 @@ def phase_grounding(dev, smi: str):
     from spider_tpu_torch.models.dino import GroundingDINO, with_dtype
     from spider_tpu_torch.models.sam import Sam, SamViTBlock, postprocess_masks
     from spider_tpu_torch.models.spider_decoder import SpiderDecoderInfer
-    from spider_tpu_torch.models.unet2d import spatial_flash_config
+    from spider_tpu_torch.ops.attention import spatial_flash_config
     from spider_tpu_torch.processors.vision import sam_preprocess
     from spider_tpu_torch.spider_decoder_infer import build_default_decoders
 

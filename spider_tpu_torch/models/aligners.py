@@ -13,7 +13,7 @@ spider_tpu/models/aligners.py).
 Submodule and parameter names follow the flax tree (``enc0_ln1``,
 ``expert_fc_0``, ``router_IMAGE`` ...) so ``convert.load_jax_params`` fills
 them. GELU is the tanh form and LayerNorm's eps is 1e-6, as flax's defaults
-are. Attention is ``unet2d.plain_attention``, the einsum with an fp32
+are. Attention is ``ops.attention.plain_attention``, the einsum with an fp32
 softmax: fp32 at T <= 257 is not the flash kernels' work, so no kernel
 launches here.
 """
@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.models.unet2d import plain_attention
+from spider_tpu_torch.ops.attention import plain_attention
+
 
 LN_EPS = 1e-6
 

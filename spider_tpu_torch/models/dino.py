@@ -5,7 +5,7 @@ language-guided query selection and a decoder with per-layer box
 refinement.
 
 Attention by kind, as the reference computes it: the decoder's query
-self-attention goes through ``unet2d._attention``, so on the card it is the
+self-attention goes through ``ops.attention.attention``, so on the card it is the
 flash kernel (900 queries, 8 heads of 32); the text self-attention and the
 queries' text cross-attention are the plain ``mha_reference`` with the live
 text length; the image-text fusion (``BiAttentionBlock``) is an einsum
@@ -35,8 +35,7 @@ from torch import nn
 
 from spider_tpu_torch.models.bert import BertConfig, BertModel, bert_base, bert_test
 from spider_tpu_torch.models.swin import SwinConfig, SwinTransformer, swin_test, swin_tiny
-from spider_tpu_torch.models.unet2d import _attention
-from spider_tpu_torch.ops.attention import mha_reference
+from spider_tpu_torch.ops.attention import attention, mha_reference
 from spider_tpu_torch.ops.msda import msda
 
 LN_EPS = 1e-6
@@ -223,7 +222,7 @@ class DecoderLayer(nn.Module):
         B, Q, C = queries.shape
         H = self.heads
         qk = queries + query_pos
-        a = _attention(self.self_q(qk), self.self_k(qk), self.self_v(queries), H)
+        a = attention(self.self_q(qk), self.self_k(qk), self.self_v(queries), H)
         queries = self.ln1(queries + self.self_out(a))
         T = txt.shape[1]
         a = mha_reference(self.txt_q(queries + query_pos).reshape(B, Q, H, C // H),

@@ -12,7 +12,7 @@ module transposes to channels-last for its convolutions, ``nn.Conv3d`` and
 (flax's default): the audio patch grid is ceil(M/10) x ceil(T/10), padded
 here explicitly. Names follow the flax tree; GELU is the tanh form and
 LayerNorm's eps 1e-6, flax's defaults. Attention is
-``unet2d.plain_attention``: 257 vision tokens stay on the einsum.
+``ops.attention.plain_attention``: 257 vision tokens stay on the einsum.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.models.unet2d import plain_attention
+from spider_tpu_torch.ops.attention import plain_attention
+
 
 LN_EPS = 1e-6
 

@@ -12,7 +12,7 @@ Numerics held to the reference: every LayerNorm uses Flax's default
 eps=1e-6; the vision MLP uses quick GELU and the fuse MLPs the tanh form of
 GELU (jax.nn.gelu's default); the class and position embeddings are held in
 fp32, as the reference's params are, and cast at use. The tower's attention
-(T 257, D 64 at photomaker_v1) is ``unet2d.plain_attention``: no UNet shape,
+(T 257, D 64 at photomaker_v1) is ``ops.attention.plain_attention``: no UNet shape,
 so it stays off the flash kernel.
 """
 
@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.models.clip_text import quick_gelu
-from spider_tpu_torch.models.unet2d import plain_attention
+from spider_tpu_torch.ops.attention import plain_attention
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,7 @@ Numerics held to the reference: channels-last, the convolutions in NCHW;
 LayerNorm's eps 1e-6 (flax's default); GELU the tanh form; the ViT blocks
 are the einsum with SAM's decomposed relative positions (a window of 14
 pads the 64x64 grid to 70, and the padded keys are not masked, as in the
-reference); the mask decoder's attentions go through ``unet2d._attention``,
+reference); the mask decoder's attentions go through ``ops.attention.attention``,
 so on the card they are the flash kernel (the prompt tokens' self-attention
 at head dim 32, token-to-image and image-to-token at 16). The upscaling is
 flax's ``nn.ConvTranspose``, which applies its kernel unflipped: as a torch
@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spider_tpu_torch.models.unet2d import _attention
+from spider_tpu_torch.ops.attention import attention
+
 
 LN_EPS = 1e-6
 
@@ -298,7 +299,7 @@ class TwoWayBlock(nn.Module):
 
     def _attn(self, name: str, q, k, v):
         part = lambda p, x: getattr(self, f"{name}_{p}")(x)
-        return part("out", _attention(part("q", q), part("k", k), part("v", v), self.heads))
+        return part("out", attention(part("q", q), part("k", k), part("v", v), self.heads))
 
     def forward(self, queries, keys, query_pe, key_pe):
         q_in = queries if self.skip_first_pe else queries + query_pe
@@ -352,7 +353,7 @@ class MaskDecoder(nn.Module):
         queries = tokens
         for i in range(cfg.decoder_depth):
             queries, keys = getattr(self, f"block_{i}")(queries, keys, tokens, pos)
-        a = _attention(self.final_q(queries + tokens), self.final_k(keys + pos),
+        a = attention(self.final_q(queries + tokens), self.final_k(keys + pos),
                        self.final_v(keys), cfg.decoder_heads)
         queries = self.final_ln(queries + self.final_out(a))
         iou_out, mask_toks = queries[:, 0], queries[:, 1: 1 + self.num_tokens]

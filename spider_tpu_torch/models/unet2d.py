@@ -18,16 +18,17 @@ self-attention block may take extra keys and values (``story_kv``, by block
 path) or sample them from the first ``id_length`` rows of each consistency
 group (``story``, on the up blocks). A bank shared by a group runs as two
 partial attentions, over the row's own keys and over the bank, merged
-exactly through their logsumexps (``_attention_lse``); ``story_bank_config``
-picks that form ("split"), one attention over the bank broadcast to every
-row ("concat") or the ablation without the bank ("self_only").
+exactly through their logsumexps (``ops.attention.attention_with_lse``);
+``story_bank_config`` picks that form ("split") or the ablation without the
+bank ("self_only").
+
+Attention on the [B, T, C] projections, and which kernel it takes, is
+``ops/attention.py``'s: ``attention`` and ``attention_with_lse``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from contextvars import ContextVar
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,8 +37,9 @@ from torch import nn
 
 from spider_tpu_torch.common.profiler import record_launch, recording_on, span
 from spider_tpu_torch.models.schedulers import timestep_embedding
-from spider_tpu_torch.ops.attention import flash_attention, flash_attention_with_lse
+from spider_tpu_torch.ops.attention import attention, attention_with_lse
 from spider_tpu_torch.ops.group_norm import group_norm
+from spider_tpu_torch.ops.launch import scoped_mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,178 +92,16 @@ def unet_tiny(cross_attention_dim: int = 32, addition_embed_type: Optional[str] 
                         projection_class_embeddings_input_dim=projection_dim)
 
 
-# Spatial-attention routing override for A/B checks: "auto" = the
-# predicate below; "einsum" = plain attention everywhere.
-_SPATIAL_FLASH = ContextVar("spatial_flash", default="auto")
-
-
-@contextlib.contextmanager
-def spatial_flash_config(mode: str):
-    if mode not in ("auto", "einsum"):
-        raise ValueError(mode)
-    tok = _SPATIAL_FLASH.set(mode)
-    try:
-        yield
-    finally:
-        _SPATIAL_FLASH.reset(tok)
-
-
-# The wgmma forward's work item is (128 query rows, head, batch), one
-# persistent block an SM. With fewer items than this, over more keys than
-# FLASH_FEW_ITEMS_MAX_KEYS, a few SMs walk every key alone (SAM's
-# token-to-image at batch 1: 8 items over 4096 keys).
-FLASH_MIN_ITEMS = 16
-FLASH_FEW_ITEMS_MAX_KEYS = 1024
-
-
-def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
-    """Where spatial attention goes to the flash kernel on the card: every
-    head dim the kernel takes, D <= 128, except a call with fewer than
-    FLASH_MIN_ITEMS work items (B x heads x ceil(T / 128)) over more than
-    FLASH_FEW_ITEMS_MAX_KEYS keys, which stays on the einsum. Every UNet
-    shape has at least 16 items and goes to the kernel.
-
-    The reference's rule for its TPU kernel (unet2d.py:163-165: T >= 4096 or,
-    for D >= 64, fp32 logits over 512 MiB) kept the plain einsum at every
-    level but the first of SD-1.5 and AudioLDM and at all of ZeroScope. On an
-    H100 the rows of ``chip_smoke.py``'s phase ``unet_routing`` (flash against
-    this module's einsum, device time in ms, bf16, CFG batch 2, ZeroScope's 16
-    frames in the batch; NVIDIA H100 80GB HBM3, 700 W) put the kernel ahead at
-    every UNet shape it takes, self- and cross-attention alike, down to
-    T = 128, and at the grounding shapes but one, which the rule's exception
-    keeps on the einsum:
-
-      SD-1.5 512px     L0 T 4096 D 40: self 0.178 / 3.41, cross (S 77) 0.018 / 0.115
-                       L1 T 1024 D 80: self 0.020 / 0.261, cross 0.010 / 0.057
-      AudioLDM 5 s     L0 T 8192 D 16: self 0.596 / 14.3, cross (S 1) 0.015 / 0.041
-                       L1 T 2048 D 32: self 0.045 / 0.857, cross 0.007 / 0.031
-                       L2 T 512 D 48: self 0.010 / 0.072, cross 0.005 / 0.025
-                       L3, mid T 128 D 80: self 0.007 / 0.034, cross 0.006 / 0.024
-      ZeroScope 576x320x16  L0 T 2880 D 40 (B 32): self 1.39 / 27.7, cross 0.156 / 1.13
-                       L1 T 720 D 80: self 0.165 / 1.88, cross 0.059 / 0.389
-      SDXL story 768px (B 8: 4 frames, batched CFG; chip_smoke.py story, same card)
-                       L1 T 2304 D 64: self 0.289 / 5.92, cross 0.048 / 0.349
-                       L2, mid T 576 D 64: self 0.069 / 0.766, cross 0.030 / 0.183
-      Grounding DINO 512px (B 1, 8 heads; chip_smoke.py grounding, same card)
-                       decoder self T 900 D 32: 0.0155 / 0.104 (SDPA 0.0157)
-      SAM ViT-H mask decoder, 8 heads, the 64 x 64 grid (S or T 4096)
-                       box prompt, B 1: self T 7 D 32 0.0043 / 0.0193,
-                       image-to-token T 4096 S 7 D 16 0.0063 / 0.0274,
-                       token-to-image T 7 S 4096 D 16 0.0433 / 0.0281 (8 items:
-                       the einsum's)
-                       MASK train step, B 4: self T 6 0.0043 / 0.0286,
-                       image-to-token 0.0150 / 0.0551, token-to-image T 6
-                       0.0450 / 0.0636 (32 items)
-
-    As single calls with the host's time in them, the large shapes rank the
-    same way and the small ones are host-bound on either side (0.07-0.2 ms
-    for the one-launch wrapper, 0.15-0.47 ms for the einsum's eight launches).
-    SD-1.5's and ZeroScope's levels 2 and mid have D = 160, which no flash
-    kernel here takes: they stay on the einsum (T <= 256, 0.04-0.29 ms)."""
-    items = B * heads * -(-T // 128)
-    return D <= 128 and not (items < FLASH_MIN_ITEMS and S > FLASH_FEW_ITEMS_MAX_KEYS)
-
-
-def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    heads: int) -> torch.Tensor:
-    """Softmax attention on [B, T, C] projections: the reference's einsum
-    with an fp32 softmax. The aligners and ImageBind call it directly: their
-    attention (T <= 257, fp32 in the aligners) is no UNet's and stays off the
-    flash kernel."""
-    B, T, C = q.shape
-    S = k.shape[1]
-    D = C // heads
-    q = q.reshape(B, T, heads, D).transpose(1, 2)
-    k = k.reshape(B, S, heads, D).transpose(1, 2)
-    v = v.reshape(B, S, heads, D).transpose(1, 2)
-    logits = torch.einsum("bhtd,bhsd->bhts", q, k).float() / (D ** 0.5)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhts,bhsd->bhtd", probs, v)
-    return out.transpose(1, 2).reshape(B, T, C)
-
-
-def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
-    """The UNets' spatial attention on [B, T, C] projections.
-
-    Routed to the flash kernel on CUDA tensors where
-    ``spatial_flash_predicate`` holds: at SD-1.5 512px and ZeroScope levels 0
-    and 1 (D = 40, 80), at AudioLDM every level (D = 16 to 80; S = 1 in
-    cross-attention), self- and cross-attention; Grounding DINO's decoder
-    self-attention and SAM's mask decoder, but for its token-to-image
-    attention at batch 1. The kernel masks the ragged
-    edges and takes those head dims itself, so none of the reference's
-    padding is needed. Elsewhere (D = 160, CPU tensors, the "einsum"
-    override): ``plain_attention``.
-    """
-    B, T, C = q.shape
-    S = k.shape[1]
-    D = C // heads
-    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda
-                 and spatial_flash_predicate(B, T, S, heads, D))
-    if use_flash:
-        out = flash_attention(q.reshape(B, T, heads, D), k.reshape(B, S, heads, D),
-                              v.reshape(B, S, heads, D), causal=False,
-                              sm_scale=1.0 / (D ** 0.5))
-        return out.reshape(B, T, C)
-    return plain_attention(q, k, v, heads)
-
-
-def _attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
-    """``_attention`` that also returns the logsumexp of each row's scaled
-    logits, lse [B, heads, T] fp32, so that two partial attentions over
-    disjoint key sets merge exactly (the story bank).
-
-    On CUDA tensors it calls ``flash_attention_with_lse`` where
-    ``spatial_flash_predicate`` holds, as ``_attention`` routes; the kernel
-    masks the ragged edges itself, so none of the reference's padding is
-    needed. Elsewhere (CPU tensors, the "einsum" override): the reference's
-    plain form, fp32 logits with m + log(l)."""
-    B, T, C = q.shape
-    S = k.shape[1]
-    D = C // heads
-    use_flash = (_SPATIAL_FLASH.get() == "auto" and q.is_cuda
-                 and spatial_flash_predicate(B, T, S, heads, D))
-    if use_flash:
-        out, lse = flash_attention_with_lse(
-            q.reshape(B, T, heads, D), k.reshape(B, S, heads, D), v.reshape(B, S, heads, D),
-            causal=False, sm_scale=1.0 / (D ** 0.5))
-        return out.reshape(B, T, C), lse
-    qt = q.reshape(B, T, heads, D).transpose(1, 2)
-    kt = k.reshape(B, S, heads, D).transpose(1, 2)
-    vt = v.reshape(B, S, heads, D).transpose(1, 2)
-    logits = torch.einsum("bhtd,bhsd->bhts", qt, kt).float() / (D ** 0.5)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhts,bhsd->bhtd", (p / l).to(vt.dtype), vt)
-    return out.transpose(1, 2).reshape(B, T, C), (m + torch.log(l))[..., 0]
-
-
 # The story bank's form: "split" runs self and bank attention separately and
-# merges them by logsumexp; "concat" broadcasts the group's bank to every row
-# and runs one attention over the concatenated keys; "self_only" drops the
-# bank (an ablation). The bank call routes as every other call does, by
-# spatial_flash_predicate. At the story point (SDXL 768px, 4 frames,
-# id_length 4, batched CFG) the kernel takes the up_1 bank, [2, 9216]
-# queries over 4608 keys, in 0.555 ms of device time against 18.1 ms for the
-# plain form, and the up_0 bank ([2, 2304] over 1152) in 0.089 against 2.40
-# (chip_smoke.py's unet_routing bank rows; NVIDIA H100 80GB HBM3, 700 W).
-# A ContextVar, so an override stays inside its scope and its thread.
-BANK_IMPLS = ("split", "concat", "self_only")
-_STORY_BANK_IMPL = ContextVar("story_bank_impl", default="split")
-
-
-@contextlib.contextmanager
-def story_bank_config(impl: str):
-    """Scoped override of the story bank attention (split | concat |
-    self_only)."""
-    if impl not in BANK_IMPLS:
-        raise ValueError(f"impl must be one of {BANK_IMPLS}, got {impl!r}")
-    tok = _STORY_BANK_IMPL.set(impl)
-    try:
-        yield
-    finally:
-        _STORY_BANK_IMPL.reset(tok)
+# merges them by logsumexp; "self_only" drops the bank (an ablation). The
+# bank call routes as every other call does (ops.attention). At
+# the story point (SDXL 768px, 4 frames, id_length 4, batched CFG) the kernel
+# takes the up_1 bank, [2, 9216] queries over 4608 keys, in 0.555 ms of
+# device time against 18.1 ms for the plain form, and the up_0 bank ([2,
+# 2304] over 1152) in 0.089 against 2.40 (chip_smoke.py's unet_routing bank
+# rows; NVIDIA H100 80GB HBM3, 700 W).
+BANK_IMPLS = ("split", "self_only")
+story_bank_config, _story_bank_impl = scoped_mode("story_bank_impl", BANK_IMPLS, "split")
 
 
 def _bank_attention(q, k, v, ek, ev, heads: int) -> torch.Tensor:
@@ -276,22 +116,18 @@ def _bank_attention(q, k, v, ek, ev, heads: int) -> torch.Tensor:
     g, K, C = ek.shape
     B, T, _ = q.shape
     rows, D = B // g, C // heads
-    impl = _STORY_BANK_IMPL.get()
+    impl = _story_bank_impl()
     with span("unet.story_attn"):
         if recording_on():
             record_launch("story_attention", impl, dict(
                 B=B, g=g, T=T, K=0 if impl == "self_only" else K, heads=heads, D=D,
                 elem_bytes=q.element_size()))
         if impl == "self_only":
-            return _attention(q, k, v, heads)
-        if impl == "concat":
-            ekb = ek[:, None].expand(g, rows, K, C).reshape(B, K, C)
-            evb = ev[:, None].expand(g, rows, K, C).reshape(B, K, C)
-            return _attention(q, torch.cat([ekb, k], dim=1), torch.cat([evb, v], dim=1), heads)
+            return attention(q, k, v, heads)
         # split: the bank side folds each group's rows into one call
         # ([g, rows * T] queries over [g, K] keys), so the bank stays at group size.
-        o_self, l_self = _attention_lse(q, k, v, heads)
-        o_bank, l_bank = _attention_lse(q.reshape(g, rows * T, C), ek, ev, heads)
+        o_self, l_self = attention_with_lse(q, k, v, heads)
+        o_bank, l_bank = attention_with_lse(q.reshape(g, rows * T, C), ek, ev, heads)
         l_bank = l_bank.reshape(g, heads, rows, T).transpose(1, 2).reshape(B, heads, T)
         l_tot = torch.logaddexp(l_self, l_bank)
         w_self = torch.exp(l_self - l_tot).transpose(1, 2)[..., None]      # [B, T, heads, 1]
@@ -338,11 +174,11 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if extra_kv is None:
-            return self.to_out(_attention(q, k, v, self.heads))
+            return self.to_out(attention(q, k, v, self.heads))
         ek, ev = self.to_k(extra_kv), self.to_v(extra_kv)
         if ek.shape[0] != k.shape[0]:
             return self.to_out(_bank_attention(q, k, v, ek, ev, self.heads))
-        return self.to_out(_attention(q, torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1),
+        return self.to_out(attention(q, torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1),
                                       self.heads))
 
 

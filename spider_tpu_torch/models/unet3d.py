@@ -82,16 +82,9 @@ def _video_view(x: torch.Tensor, frames: int) -> torch.Tensor:
     """[B*F, C, H, W] -> [B, C, F, H*W], a view: the layout in which a
     GroupNorm reduces per video and a (3, 1) conv runs over the frames. A
     channels-last x gives a channels-last view of its own storage; any other
-    x a strided view, which the norms and convolutions read as it lies. Each
-    call adds one to ``_video_view.routes``: "view" for a channels-last x,
-    "strided" for any other."""
+    x a strided view, which the norms and convolutions read as it lies."""
     BF, C, H, W = x.shape
-    _video_view.routes["view" if x.is_contiguous(memory_format=torch.channels_last)
-                       else "strided"] += 1
     return x.reshape(BF // frames, frames, C, H * W).transpose(1, 2)
-
-
-_video_view.routes = {"view": 0, "strided": 0}
 
 
 def _frames_view(h: torch.Tensor, shape) -> torch.Tensor:

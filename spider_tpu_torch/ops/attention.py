@@ -14,6 +14,12 @@ staging and warpgroup products, csrc/hopper.cuh) for bf16 with D a multiple
 of 8, "mma" (the general mma.sync form) for fp32 inputs and other head dims.
 Each route counts its launches in ``route_launches`` beside ``launches``.
 
+``attention`` and ``attention_with_lse`` take [B, T, C] projections, as the
+UNets, the story bank, Grounding DINO's decoder and SAM's mask decoder hold
+them, and send a call to the flash kernel or to ``plain_attention`` by
+``spatial_flash_predicate``: the one place that decides where such a call
+runs.
+
 Rows with no live key: the forward kernel returns the mean of V and a
 finite lse there (``mha_reference_with_lse`` gives -inf). The backward
 kernels and ``flash_backward_reference`` mask P to exactly zero, so such a
@@ -41,7 +47,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from spider_tpu_torch.common import profiler
-from spider_tpu_torch.ops.launch_count import count_launch
+from spider_tpu_torch.ops.launch import count_launch, current_stream_handle, scoped_mode
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -256,7 +262,7 @@ def _flash_cuda(q, k, v, causal, sm_scale, kv_len, q_offset, route=None):
             live.data_ptr(), off.data_ptr(), B, T, S, Hq, Hkv, D, float(scale),
             int(bool(causal)))
     with torch.cuda.device(q.device):   # the launch goes to the current device
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = current_stream_handle(q.device.index)
         if route == "wgmma":
             err = _library().spider_flash_fwd_wgmma(*args, stream)
         else:
@@ -320,7 +326,7 @@ def _bwd_scalars(q, k, causal, sm_scale):
     B, T, Hq, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     return (B, T, k.shape[1], Hq, k.shape[2], D, float(scale), int(bool(causal)),
-            int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
+            int(q.dtype == torch.float32), current_stream_handle(q.device.index))
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, live, off, causal, sm_scale, route=None):
@@ -455,3 +461,147 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------------------
+# Attention on [B, T, C] projections: the UNets', the story bank's, Grounding
+# DINO's decoder and SAM's mask decoder
+# ---------------------------------------------------------------------------
+
+# Routing override for A/B checks: "auto" = the predicate below; "einsum" =
+# plain_attention everywhere.
+spatial_flash_config, _spatial_mode = scoped_mode("spatial_flash", ("auto", "einsum"), "auto")
+
+# The wgmma forward's work item is (128 query rows, head, batch), one
+# persistent block an SM. With fewer items than this, over more keys than
+# FLASH_FEW_ITEMS_MAX_KEYS, a few SMs walk every key alone (SAM's
+# token-to-image at batch 1: 8 items over 4096 keys).
+FLASH_MIN_ITEMS = 16
+FLASH_FEW_ITEMS_MAX_KEYS = 1024
+
+
+def spatial_flash_predicate(B: int, T: int, S: int, heads: int, D: int) -> bool:
+    """Where attention on projections goes to the flash kernel on the card:
+    every head dim the kernel takes, D <= 128, except a call with fewer than
+    FLASH_MIN_ITEMS work items (B x heads x ceil(T / 128)) over more than
+    FLASH_FEW_ITEMS_MAX_KEYS keys, which stays on the einsum. Every UNet
+    shape has at least 16 items and goes to the kernel.
+
+    The reference's rule for its TPU kernel (unet2d.py:163-165: T >= 4096 or,
+    for D >= 64, fp32 logits over 512 MiB) kept the plain einsum at every
+    level but the first of SD-1.5 and AudioLDM and at all of ZeroScope. On an
+    H100 the rows of ``chip_smoke.py``'s phase ``unet_routing`` (flash against
+    ``plain_attention``, device time in ms, bf16, CFG batch 2, ZeroScope's 16
+    frames in the batch; NVIDIA H100 80GB HBM3, 700 W) put the kernel ahead at
+    every UNet shape it takes, self- and cross-attention alike, down to
+    T = 128, and at the grounding shapes but one, which the rule's exception
+    keeps on the einsum:
+
+      SD-1.5 512px     L0 T 4096 D 40: self 0.178 / 3.41, cross (S 77) 0.018 / 0.115
+                       L1 T 1024 D 80: self 0.020 / 0.261, cross 0.010 / 0.057
+      AudioLDM 5 s     L0 T 8192 D 16: self 0.596 / 14.3, cross (S 1) 0.015 / 0.041
+                       L1 T 2048 D 32: self 0.045 / 0.857, cross 0.007 / 0.031
+                       L2 T 512 D 48: self 0.010 / 0.072, cross 0.005 / 0.025
+                       L3, mid T 128 D 80: self 0.007 / 0.034, cross 0.006 / 0.024
+      ZeroScope 576x320x16  L0 T 2880 D 40 (B 32): self 1.39 / 27.7, cross 0.156 / 1.13
+                       L1 T 720 D 80: self 0.165 / 1.88, cross 0.059 / 0.389
+      SDXL story 768px (B 8: 4 frames, batched CFG; chip_smoke.py story, same card)
+                       L1 T 2304 D 64: self 0.289 / 5.92, cross 0.048 / 0.349
+                       L2, mid T 576 D 64: self 0.069 / 0.766, cross 0.030 / 0.183
+      Grounding DINO 512px (B 1, 8 heads; chip_smoke.py grounding, same card)
+                       decoder self T 900 D 32: 0.0155 / 0.104 (SDPA 0.0157)
+      SAM ViT-H mask decoder, 8 heads, the 64 x 64 grid (S or T 4096)
+                       box prompt, B 1: self T 7 D 32 0.0043 / 0.0193,
+                       image-to-token T 4096 S 7 D 16 0.0063 / 0.0274,
+                       token-to-image T 7 S 4096 D 16 0.0433 / 0.0281 (8 items:
+                       the einsum's)
+                       MASK train step, B 4: self T 6 0.0043 / 0.0286,
+                       image-to-token 0.0150 / 0.0551, token-to-image T 6
+                       0.0450 / 0.0636 (32 items)
+
+    As single calls with the host's time in them, the large shapes rank the
+    same way and the small ones are host-bound on either side (0.07-0.2 ms
+    for the one-launch wrapper, 0.15-0.47 ms for the einsum's eight launches).
+    SD-1.5's and ZeroScope's levels 2 and mid have D = 160, which no flash
+    kernel here takes: they stay on the einsum (T <= 256, 0.04-0.29 ms)."""
+    items = B * heads * -(-T // 128)
+    return D <= 128 and not (items < FLASH_MIN_ITEMS and S > FLASH_FEW_ITEMS_MAX_KEYS)
+
+
+def _projection_flash(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
+    """Whether a call on projections q [B, T, C], k [B, S, C] takes the flash
+    kernel: outside ``spatial_flash_config("einsum")``, on CUDA tensors, where
+    ``spatial_flash_predicate`` holds."""
+    B, T, C = q.shape
+    return (_spatial_mode() == "auto" and q.is_cuda
+            and spatial_flash_predicate(B, T, k.shape[1], heads, C // heads))
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """Softmax attention on [B, T, C] projections: the reference's einsum
+    in the input dtype with an fp32 softmax. The aligners, ImageBind and
+    PhotoMaker's ID encoder call it directly: their attention (T <= 257, fp32
+    in the aligners) is no UNet's and stays off the flash kernel."""
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    q = q.reshape(B, T, heads, D).transpose(1, 2)
+    k = k.reshape(B, S, heads, D).transpose(1, 2)
+    v = v.reshape(B, S, heads, D).transpose(1, 2)
+    logits = torch.einsum("bhtd,bhsd->bhts", q, k).float() / (D ** 0.5)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, v)
+    return out.transpose(1, 2).reshape(B, T, C)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Softmax attention on [B, T, C] projections: the UNets' spatial
+    attention, Grounding DINO's decoder self-attention and SAM's mask
+    decoder.
+
+    Routed to the flash kernel on CUDA tensors where
+    ``spatial_flash_predicate`` holds: at SD-1.5 512px and ZeroScope levels 0
+    and 1 (D = 40, 80), at AudioLDM every level (D = 16 to 80; S = 1 in
+    cross-attention), self- and cross-attention; Grounding DINO's decoder
+    self-attention and SAM's mask decoder, but for its token-to-image
+    attention at batch 1. The kernel masks the ragged edges and takes those
+    head dims itself, so none of the reference's padding is needed.
+    Elsewhere (D = 160, CPU tensors, the "einsum" override):
+    ``plain_attention``.
+    """
+    if not _projection_flash(q, k, heads):
+        return plain_attention(q, k, v, heads)
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    out = flash_attention(q.reshape(B, T, heads, D), k.reshape(B, S, heads, D),
+                          v.reshape(B, S, heads, D), causal=False, sm_scale=1.0 / (D ** 0.5))
+    return out.reshape(B, T, C)
+
+
+def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
+    """``attention`` that also returns the logsumexp of each row's scaled
+    logits, lse [B, heads, T] fp32, so that two partial attentions over
+    disjoint key sets merge exactly (the story bank).
+
+    Routed as ``attention`` is, to ``flash_attention_with_lse``. Elsewhere
+    (CPU tensors, the "einsum" override): the reference's plain form, fp32
+    logits with m + log(l)."""
+    B, T, C = q.shape
+    S = k.shape[1]
+    D = C // heads
+    if _projection_flash(q, k, heads):
+        out, lse = flash_attention_with_lse(
+            q.reshape(B, T, heads, D), k.reshape(B, S, heads, D), v.reshape(B, S, heads, D),
+            causal=False, sm_scale=1.0 / (D ** 0.5))
+        return out.reshape(B, T, C), lse
+    qt = q.reshape(B, T, heads, D).transpose(1, 2)
+    kt = k.reshape(B, S, heads, D).transpose(1, 2)
+    vt = v.reshape(B, S, heads, D).transpose(1, 2)
+    logits = torch.einsum("bhtd,bhsd->bhts", qt, kt).float() / (D ** 0.5)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bhsd->bhtd", (p / l).to(vt.dtype), vt)
+    return out.transpose(1, 2).reshape(B, T, C), (m + torch.log(l))[..., 0]

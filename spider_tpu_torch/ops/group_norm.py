@@ -26,11 +26,9 @@ for A/B checks.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
-from contextvars import ContextVar
 from typing import Optional, Tuple
 
 import torch
@@ -38,8 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.common import profiler
-from spider_tpu_torch.ops.launch_count import count_launch
-from spider_tpu_torch.ops.quant import current_stream_handle, sm_count
+from spider_tpu_torch.ops.launch import (count_launch, current_stream_handle, scoped_mode,
+                                         sm_count)
 
 ROUTES = ("split",)
 VEC = 8                  # bf16 elements in a 16-byte vector
@@ -59,19 +57,8 @@ CL_THREADS = 256
 
 # Routing override for A/B checks: "auto" = the rule above; "plain" = the
 # plain form everywhere.
-_MODE = ContextVar("group_norm_mode", default="auto")
+group_norm_config, _mode = scoped_mode("group_norm_mode", ("auto", "plain"), "auto")
 _FN = None
-
-
-@contextlib.contextmanager
-def group_norm_config(mode: str):
-    if mode not in ("auto", "plain"):
-        raise ValueError(mode)
-    tok = _MODE.set(mode)
-    try:
-        yield
-    finally:
-        _MODE.reset(tok)
 
 
 def split_plan(rows: int, units: int, unit_elems: int, sms: int, threads: int,
@@ -251,7 +238,7 @@ class GroupNormFunction(torch.autograd.Function):
 
 def kernel_takes(x: torch.Tensor) -> bool:
     """The kernel's rule: a bf16 CUDA tensor, outside ``group_norm_config("plain")``."""
-    return x.is_cuda and x.dtype == torch.bfloat16 and _MODE.get() == "auto"
+    return x.is_cuda and x.dtype == torch.bfloat16 and _mode() == "auto"
 
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, silu: bool = False) -> torch.Tensor:

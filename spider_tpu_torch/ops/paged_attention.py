@@ -26,34 +26,21 @@ plain version, like the reference's gather route, returns the mean of V
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-from contextvars import ContextVar
 from typing import Optional, Tuple
 
 import torch
 
 from spider_tpu_torch.ops.attention import mha_reference
-from spider_tpu_torch.ops.launch_count import count_launch
-from spider_tpu_torch.ops.quant import current_stream_handle, sm_count, stream_buffers
+from spider_tpu_torch.ops.launch import (count_launch, current_stream_handle, scoped_mode,
+                                         sm_count, stream_buffers)
 
 MAX_HEAD_DIM = 256
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Routing override for A/B checks on the card: "auto" = the kernel on CUDA
 # tensors; "plain" = paged_decode_reference everywhere.
-_MODE = ContextVar("paged_decode_mode", default="auto")
-
-
-@contextlib.contextmanager
-def paged_decode_config(mode: str):
-    if mode not in ("auto", "plain"):
-        raise ValueError(mode)
-    tok = _MODE.set(mode)
-    try:
-        yield
-    finally:
-        _MODE.reset(tok)
+paged_decode_config, _mode = scoped_mode("paged_decode_mode", ("auto", "plain"), "auto")
 
 
 def paged_decode_reference(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -269,7 +256,7 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
 
     CPU tensors take paged_decode_reference; CUDA tensors launch the kernel
     and add one to ``paged_decode_attention.launches``."""
-    if q.device.type == "cpu" or _MODE.get() == "plain":
+    if q.device.type == "cpu" or _mode() == "plain":
         return paged_decode_reference(q, pool_k, pool_v, page_table, kv_len, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda tensors, got {q.device}")

@@ -38,14 +38,13 @@ stream) and the counters are left zeroed by every launch.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-from contextvars import ContextVar
 from typing import Optional, Tuple
 
 import torch
 
-from spider_tpu_torch.ops.launch_count import count_launch
+from spider_tpu_torch.ops.launch import (count_launch, current_stream_handle, scoped_mode,
+                                         sm_count, stream_buffers)
 
 # Rows of x up to which the kernel runs (the JAX wrapper's M <= 4 * block_m).
 MAX_KERNEL_M = 1024
@@ -53,18 +52,7 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Routing override for A/B checks on the card: "auto" = the rule above;
 # "plain" = int4_matmul_reference everywhere.
-_MODE = ContextVar("int4_matmul_mode", default="auto")
-
-
-@contextlib.contextmanager
-def int4_matmul_config(mode: str):
-    if mode not in ("auto", "plain"):
-        raise ValueError(mode)
-    tok = _MODE.set(mode)
-    try:
-        yield
-    finally:
-        _MODE.reset(tok)
+int4_matmul_config, _mode = scoped_mode("int4_matmul_mode", ("auto", "plain"), "auto")
 
 
 def pack_int4(w: torch.Tensor) -> torch.Tensor:
@@ -169,39 +157,10 @@ def wgmma_plan(M: int, N: int, K2: int, sms: int) -> Tuple[int, int]:
 
 
 _FNS = None
-_SMS = {}
-# Per (device, stream): a zeroed int32 tensor of counters, which every launch
-# leaves zeroed, and an fp32 scratch tensor for partial tiles. Launches on one
-# stream run in order, so they can share both.
+# Per (device, stream): the wgmma form's counters and fp32 scratch for
+# partial tiles (``launch.stream_buffers``).
 _COUNTERS = {}
 _SCRATCH = {}
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def current_stream_handle(index: int) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-def sm_count(index: int) -> int:
-    n = _SMS.get(index)
-    if n is None:
-        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return n
-
-
-def stream_buffers(counters, scratch, device, stream: int, n_counters: int, n_floats: int):
-    """The (counters, scratch) pair of (device, stream) from the two caches,
-    grown to at least the sizes asked for."""
-    key = (device.index, stream)
-    c = counters.get(key)
-    if c is None or c.numel() < n_counters:
-        c = counters[key] = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
-    f = scratch.get(key)
-    if f is None or f.numel() < n_floats:
-        f = scratch[key] = torch.empty(n_floats, dtype=torch.float32, device=device)
-    return c, f
 
 
 def _functions():
@@ -302,7 +261,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     ``int4_matmul.launches``); CUDA tensors with more rows dequantise and
     call torch.matmul, the JAX wrapper's routing for a long prefill."""
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu" or _MODE.get() == "plain":
+    if x.device.type == "cpu" or _mode() == "plain":
         return int4_matmul_reference(x, packed, scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cpu or cuda tensors, got {x.device}")

@@ -17,15 +17,13 @@ Layouts: q, k, v [B, F, P, C] ("bfpc", what UNet3D uses) or [B, P, F, C]
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-from contextvars import ContextVar
 from typing import Optional
 
 import torch
 
 from spider_tpu_torch.common import profiler
-from spider_tpu_torch.ops.launch_count import count_launch
+from spider_tpu_torch.ops.launch import count_launch, current_stream_handle, scoped_mode
 
 LAYOUTS = ("bfpc", "bpfc")
 MAX_FRAMES = 32
@@ -34,18 +32,8 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Routing override for A/B checks: "auto" = the reference's predicate;
 # "plain" = the einsum form everywhere.
-_MODE = ContextVar("temporal_attention_mode", default="auto")
-
-
-@contextlib.contextmanager
-def temporal_attention_config(mode: str):
-    if mode not in ("auto", "plain"):
-        raise ValueError(mode)
-    tok = _MODE.set(mode)
-    try:
-        yield
-    finally:
-        _MODE.reset(tok)
+temporal_attention_config, _mode = scoped_mode("temporal_attention_mode", ("auto", "plain"),
+                                               "auto")
 
 
 def _dims(q: torch.Tensor, layout: str):
@@ -166,7 +154,7 @@ def temporal_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, P, heads, D,
             *_frame_pixel_strides(q, layout), *_frame_pixel_strides(out, layout), float(scale))
     with torch.cuda.device(q.device):   # the launch goes to the current device
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = current_stream_handle(q.device.index)
         if route == "ring":
             err = _library().spider_tattn_fwd_ring(*args, stream)
         else:
@@ -224,7 +212,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads:
     B, F, P, C = _dims(q, layout)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"temporal_attention runs on cpu or cuda tensors, got {q.device}")
-    if (q.device.type == "cuda" and _MODE.get() == "auto"
+    if (q.device.type == "cuda" and _mode() == "auto"
             and kernel_predicate(heads, F, P if pixels is None else pixels, C)):
         return TemporalAttentionFunction.apply(q, k, v, heads, scale, layout)
     return temporal_attention_reference(q, k, v, heads, scale=scale, layout=layout)

@@ -4,8 +4,9 @@ UNet attention path on the card, and of the kernel library's build digest.
 ``flash_route`` (ops/attention.py) names the forward, dq and dk/dv kernel a
 call takes from its dtype and head dim; ``tattn_route``
 (ops/temporal_attention.py) the temporal kernel from its dtype;
-``spatial_flash_predicate`` (models/unet2d.py) says where the UNets' spatial
-attention goes to the flash kernel. All are pure functions, so the CPU can
+``spatial_flash_predicate`` (ops/attention.py) says where attention on
+[B, T, C] projections (the UNets', Grounding DINO's, SAM's) goes to the flash
+kernel. All are pure functions, so the CPU can
 hold them to every shape the main paths run. Nothing here launches a kernel:
 on CPU tensors the wrappers take the plain versions, whatever the rules say.
 """
@@ -16,12 +17,12 @@ import shutil
 import pytest
 import torch
 
-from spider_tpu_torch.models.unet2d import (spatial_flash_config, spatial_flash_predicate,
-                                            unet_audioldm, unet_sd15)
+from spider_tpu_torch.models.unet2d import unet_audioldm, unet_sd15
 from spider_tpu_torch.models.unet3d import UNet3DConfig
 from spider_tpu_torch.ops import attention as A
 from spider_tpu_torch.ops import cuda_build
 from spider_tpu_torch.ops import temporal_attention as TA
+from spider_tpu_torch.ops.attention import spatial_flash_config, spatial_flash_predicate
 
 # (name, dtype, head dim): every flash shape of the main paths.
 MAIN_PATH = [("llama3_8b prefill / train", torch.bfloat16, 128),
@@ -242,7 +243,7 @@ def test_spatial_flash_predicate_at_the_timed_shapes(model, level, B, T, S, H, D
 def test_spatial_flash_predicate_is_a_pure_rule_with_an_override():
     assert spatial_flash_predicate(2, 4096, 4096, 8, 40) is True
     assert spatial_flash_predicate(2, 4096, 4096, 8, 160) is False
-    # the override changes what _attention does, not what the rule says
+    # the override changes what A.attention does, not what the rule says
     with spatial_flash_config("einsum"):
         assert spatial_flash_predicate(2, 4096, 4096, 8, 40) is True
     with pytest.raises(ValueError):
@@ -251,18 +252,26 @@ def test_spatial_flash_predicate_is_a_pure_rule_with_an_override():
 
 
 def test_only_the_unets_route_by_the_predicate():
-    """The aligners (fp32, trained) and ImageBind share the UNets' einsum but
-    not their routing: they call plain_attention, whatever the predicate
-    says of their shapes."""
-    from spider_tpu_torch.models import aligners, imagebind, unet2d
+    """Every model takes its attention on projections from ops/attention.py.
+    The UNets, Grounding DINO and SAM call ``attention``, routed by the
+    predicate; the aligners (fp32, trained), ImageBind and PhotoMaker's ID
+    encoder call ``plain_attention``, whatever the predicate says of their
+    shapes. No model keeps a routing of its own."""
+    from spider_tpu_torch.models import aligners, dino, imagebind, photomaker, sam, unet2d
 
-    assert aligners.plain_attention is unet2d.plain_attention
-    assert imagebind.plain_attention is unet2d.plain_attention
-    assert not hasattr(aligners, "_attention") and not hasattr(imagebind, "_attention")
+    for routed in (unet2d, dino, sam):
+        assert routed.attention is A.attention and not hasattr(routed, "plain_attention")
+    assert unet2d.attention_with_lse is A.attention_with_lse
+    for plain in (aligners, imagebind, photomaker):
+        assert plain.plain_attention is A.plain_attention
+        assert not hasattr(plain, "attention")
+    for model in (unet2d, dino, sam, aligners, imagebind, photomaker):
+        assert not {"_attention", "_attention_lse", "spatial_flash_predicate",
+                    "spatial_flash_config"} & set(vars(model)), model.__name__
     assert spatial_flash_predicate(4, 257, 257, 16, 80)        # ImageBind-huge's shape
     g = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn((2, 10, 32), generator=g) for _ in range(3))
-    assert torch.equal(unet2d._attention(q, k, v, 4), unet2d.plain_attention(q, k, v, 4))
+    assert torch.equal(A.attention(q, k, v, 4), A.plain_attention(q, k, v, 4))
 
 
 # ---------------------------------------------------------------------------

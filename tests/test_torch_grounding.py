@@ -369,7 +369,7 @@ def test_grounding_dino_twin_refuses_cuda_without_a_card():
     assert out.returncode != 0 and "--device cpu" in out.stderr
 
 
-# ---- routing of the new callers of unet2d._attention -----------------------------
+# ---- routing of the grounding callers of ops.attention.attention ---------------
 
 def test_flash_routing_of_the_grounding_and_sam_shapes():
     # chip_smoke.py's unet_routing rows time these shapes on the card; the
@@ -378,7 +378,7 @@ def test_flash_routing_of_the_grounding_and_sam_shapes():
     # (test_torch_flash_routes.py) where it was
     sys.path.insert(0, ROOT)
     import chip_smoke
-    from spider_tpu_torch.models.unet2d import spatial_flash_predicate
+    from spider_tpu_torch.ops.attention import spatial_flash_predicate
 
     routed = {(m, kind): spatial_flash_predicate(B, T, S, H, D)
               for m, _, kind, _, B, T, S, H, D in chip_smoke.grounding_attention_shapes()}

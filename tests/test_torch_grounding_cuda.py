@@ -22,7 +22,7 @@ import torch
 from spider_tpu_torch.models import dino as tD
 from spider_tpu_torch.models import sam as tSam
 from spider_tpu_torch.models.factory import random_init_
-from spider_tpu_torch.models.unet2d import spatial_flash_config
+from spider_tpu_torch.ops.attention import spatial_flash_config
 from spider_tpu_torch.ops.attention import flash_attention
 
 pytestmark = pytest.mark.cuda

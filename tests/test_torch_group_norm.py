@@ -12,7 +12,7 @@ from torch import nn
 
 from spider_tpu_torch.models import unet2d, unet3d, vae
 from spider_tpu_torch.ops import group_norm as GN
-from spider_tpu_torch.ops.launch_count import reset_launches
+from spider_tpu_torch.ops.launch import reset_launches
 
 # The library's threads a block (csrc/group_norm.cu's CONTIG_THREADS and
 # MAX_CL_THREADS, which the wrapper reads from it on the card).

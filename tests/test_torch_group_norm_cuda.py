@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spider_tpu_torch.ops import group_norm as GN
-from spider_tpu_torch.ops.launch_count import reset_launches
+from spider_tpu_torch.ops.launch import reset_launches
 
 pytestmark = pytest.mark.cuda
 

@@ -99,11 +99,11 @@ def _port_eps(pipe, inputs, id_length, groups, impl):
 SHAPES = [(5, 4, 2), (3, 2, 1)]           # (rows a group, id_length, groups)
 
 
-@pytest.mark.parametrize("impl", ["split", "concat", "self_only"])
+@pytest.mark.parametrize("impl", ["split", "self_only"])
 @pytest.mark.parametrize("rows,id_length,groups", SHAPES)
 def test_one_unet_call_in_each_bank_form(pair, impl, rows, id_length, groups):
-    """"split" and "concat" against the reference with the bank,
-    "self_only" against the reference without it."""
+    """"split" against the reference with the bank, "self_only" against the
+    reference without it."""
     pipe, (_, _, unet, _), cfg, point = pair
     inputs = _unet_inputs(cfg, point, rows, id_length, groups)
     x, t, ctx, embeds, time_ids, idx = inputs

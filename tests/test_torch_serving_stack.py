@@ -28,7 +28,7 @@ from spider_tpu.serving import http_server as jhttp
 from spider_tpu.serving import orchestrator as jorch
 from spider_tpu.serving import spider_free as jsf
 from spider_tpu_torch.common.config import Config
-from spider_tpu_torch.ops import launch_count
+from spider_tpu_torch.ops import launch
 from spider_tpu_torch.serving import http_server as thttp
 from spider_tpu_torch.serving import orchestrator as torch_orch
 from spider_tpu_torch.serving import spider_free as tsf
@@ -51,7 +51,7 @@ def test_count_launch_is_exact_under_threads():
 
     def hammer(i):
         for _ in range(per):
-            launch_count.count_launch(wrapper, "a" if i % 2 else "b")
+            launch.count_launch(wrapper, "a" if i % 2 else "b")
 
     pool = [threading.Thread(target=hammer, args=(i,)) for i in range(threads)]
     switch = sys.getswitchinterval()
@@ -65,7 +65,7 @@ def test_count_launch_is_exact_under_threads():
         sys.setswitchinterval(switch)
     assert wrapper.launches == threads * per
     assert wrapper.route_launches == {"a": threads * per // 2, "b": threads * per // 2}
-    launch_count.reset_launches(wrapper)
+    launch.reset_launches(wrapper)
     assert wrapper.launches == 0 and wrapper.route_launches == {"a": 0, "b": 0}
 
 

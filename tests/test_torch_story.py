@@ -1,6 +1,6 @@
 """Parity of the port's SDXL story path at the module level with the JAX
 package, in fp32 on the CPU at tiny widths: the Euler scheduler,
-``_attention_lse``, the tiny text_time UNet with and without consistent
+``attention_with_lse``, the tiny text_time UNet with and without consistent
 self-attention (every bank form, one and two consistency groups, extra keys
 on a down block), and the sampled story indices, bit-equal at the tiny and
 at the full SDXL configuration. The pipeline (prompt encoding, the CFG
@@ -8,7 +8,8 @@ denoise loop, story generation) is in tests/test_torch_story_pipeline.py.
 
 Weights come from the JAX package's tiny SDXL pipeline through
 load_jax_params; inputs are made with numpy from a seed. On the CPU the
-reference's ``_attention_lse`` takes its einsum form, as the port's does.
+reference's ``_attention_lse`` takes its einsum form, as the port's
+``attention_with_lse`` does.
 Tolerances: the timesteps are equal; the sigmas agree to a relative 3e-6
 (both are the same fp32 formulas, but XLA takes the cumulative product of
 the 1000 alphas as a blocked scan and torch in sequence: a few ulps apart
@@ -33,6 +34,7 @@ from spider_tpu_torch.models import schedulers as tsched
 from spider_tpu_torch.models import unet2d as tunet
 from spider_tpu_torch.models.convert import load_jax_params
 from spider_tpu_torch.models.pipelines import sdxl_story as tstory
+from spider_tpu_torch.ops import attention as tattn
 from spider_tpu_torch.models.tokenizer import TinyTokenizer
 
 
@@ -93,25 +95,26 @@ def test_euler_step_and_input_scale_match_jax(prediction_type):
 def test_attention_lse_matches_jax(B, T, S, heads, C):
     q, k, v = _randn(1, B, T, C), _randn(2, B, S, C), _randn(3, B, S, C)
     jout, jlse = junet._attention_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
-    tout, tlse = tunet._attention_lse(torch.from_numpy(q), torch.from_numpy(k),
-                                      torch.from_numpy(v), heads)
+    tout, tlse = tattn.attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
+                                          torch.from_numpy(v), heads)
     assert tout.shape == (B, T, C) and tlse.shape == (B, heads, T)
     assert tlse.dtype == torch.float32
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=2e-4, rtol=0)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=2e-4, rtol=0)
     # the plain path it replaces gives the same output
-    np.testing.assert_allclose(tout.numpy(), tunet.plain_attention(
+    np.testing.assert_allclose(tout.numpy(), tattn.plain_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), heads).numpy(),
         atol=1e-6, rtol=0)
 
 
 def test_bank_config_rejects_unknown_forms():
-    with pytest.raises(ValueError, match="impl"):
-        with tunet.story_bank_config(impl="merge"):
-            pass
-    with tunet.story_bank_config(impl="concat"):
-        assert tunet._STORY_BANK_IMPL.get() == "concat"
-    assert tunet._STORY_BANK_IMPL.get() == "split"
+    for impl in ("merge", "concat"):      # the port's bank runs "split" or "self_only"
+        with pytest.raises(ValueError, match="impl"):
+            with tunet.story_bank_config(impl):
+                pass
+    with tunet.story_bank_config("self_only"):
+        assert tunet._story_bank_impl() == "self_only"
+    assert tunet._story_bank_impl() == "split"
 
 
 # ---- the text_time UNet ----------------------------------------------------
@@ -171,9 +174,13 @@ def _tiny_story(num_groups, id_length=2, rows=3, seed=3):
 @pytest.mark.parametrize("impl", ["split", "concat", "self_only"])
 @pytest.mark.parametrize("num_groups", [1, 2])
 def test_story_unet_matches_jax(unets, num_groups, impl):
+    """`impl` is the JAX bank form; the port runs "split" against the JAX
+    package's "split" and "concat" (one softmax over the union of both key
+    sets), and "self_only" against "self_only"."""
     jpipe, tunet_mod = unets
     story = _tiny_story(num_groups)
-    with junet.story_bank_config(impl=impl), tunet.story_bank_config(impl=impl):
+    port_impl = "split" if impl == "concat" else impl
+    with junet.story_bank_config(impl=impl), tunet.story_bank_config(port_impl):
         got, want = _run_both(jpipe, tunet_mod, 3 * num_groups, story=story, seed=4)
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
     if impl == "self_only":      # the ablation drops the bank: the plain UNet
@@ -181,7 +188,19 @@ def test_story_unet_matches_jax(unets, num_groups, impl):
         np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
 
 
-def test_split_and_concat_bank_agree(unets):
+def test_split_and_concat_bank_agree(unets, monkeypatch):
+    """The split bank against one softmax over the union of both key sets:
+    each group's bank broadcast to its rows, put before the row's own keys
+    and values, through ``plain_attention``."""
+
+    def concat(q, k, v, ek, ev, heads):
+        g, K, C = ek.shape
+        rows = q.shape[0] // g
+        ekb = ek[:, None].expand(g, rows, K, C).reshape(g * rows, K, C)
+        evb = ev[:, None].expand(g, rows, K, C).reshape(g * rows, K, C)
+        return tattn.plain_attention(q, torch.cat([ekb, k], dim=1), torch.cat([evb, v], dim=1),
+                                     heads)
+
     _, tunet_mod = unets
     story = {p: dict(s, indices=torch.from_numpy(s["indices"]))
              for p, s in _tiny_story(2).items()}
@@ -189,9 +208,11 @@ def test_split_and_concat_bank_agree(unets):
                        {k: torch.from_numpy(v) for k, v in a.items()} for a in _unet_inputs(6))
     outs = {}
     with torch.inference_mode():
-        for impl in ("split", "concat", "self_only"):
-            with tunet.story_bank_config(impl=impl):
+        for impl in ("split", "self_only"):
+            with tunet.story_bank_config(impl):
                 outs[impl] = tunet_mod(x, t, ctx, added_cond=cond, story=story)
+        monkeypatch.setattr(tunet, "_bank_attention", concat)
+        outs["concat"] = tunet_mod(x, t, ctx, added_cond=cond, story=story)
     torch.testing.assert_close(outs["split"], outs["concat"], atol=2e-5, rtol=0)
     assert (outs["split"] - outs["self_only"]).abs().max() > 1e-4      # the bank matters
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from spider_tpu_torch.common import profiler as P
-from spider_tpu_torch.ops import launch_count
+from spider_tpu_torch.ops import launch
 
 STEPS = 3
 
@@ -240,14 +240,14 @@ def test_count_launch_keeps_the_shape_under_the_open_span():
 
     wrapper.launches, wrapper.route_launches = 0, {"r": 0}
     shape = dict(B=2, T=8, S=8, Hq=2, Hkv=2, D=16, causal=False, elem_bytes=2)
-    launch_count.count_launch(wrapper, "r", shape)          # not recording: counted only
+    launch.count_launch(wrapper, "r", shape)          # not recording: counted only
     with P.recording():
-        launch_count.count_launch(wrapper, "r")              # no shape: counted only
+        launch.count_launch(wrapper, "r")              # no shape: counted only
         with P.span("unet") as outer:
             with P.span("unet.mid") as mid:
-                launch_count.count_launch(wrapper, "r", shape)
-            launch_count.count_launch(wrapper, "r", dict(shape, T=16))
-        launch_count.count_launch(wrapper, "r", dict(shape, T=32))
+                launch.count_launch(wrapper, "r", shape)
+            launch.count_launch(wrapper, "r", dict(shape, T=16))
+        launch.count_launch(wrapper, "r", dict(shape, T=32))
     rec = P.drain()
     assert wrapper.launches == 5 and wrapper.route_launches == {"r": 5}
     assert [(r.kernel, r.route, r.shape["T"], r.span) for r in rec.launches] == [

@@ -1,8 +1,8 @@
 """The UNet3D's one activation layout on the card: a bf16 call at ZeroScope's
 widths (CFG batch 2, 16 frames, 16 x 24 latents) keeps every activation
 and convolution channels-last, its temporal layers read the spatial layers'
-storage in place (``_video_view`` counts 39 "view" and no "strided"), and
-it agrees with the same call whose temporal layers copy to NCHW.
+storage in place (all 39 of ``_video_view``'s results share their input's
+storage), and it agrees with the same call whose temporal layers copy to NCHW.
 
 These tests need an NVIDIA GPU (the GroupNorm, flash and temporal attention
 kernels the call runs have no CPU mode), so without a card they skip. They
@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from spider_tpu_torch.models import unet3d as u3
-from spider_tpu_torch.models.unet2d import spatial_flash_config
+from spider_tpu_torch.ops.attention import spatial_flash_config
 from spider_tpu_torch.ops.group_norm import group_norm_config
 from spider_tpu_torch.ops.temporal_attention import temporal_attention_config
 
@@ -65,14 +65,27 @@ def test_conv_weights_are_channels_last_on_the_card(call):
         assert convs and all(_channels_last(w) for w in convs)
 
 
-def test_a_call_keeps_channels_last_and_reads_in_place(call):
+def _in_place(views, video_view):
+    """`video_view` that appends whether its result shares x's storage."""
+    def view(x, frames):
+        out = video_view(x, frames)
+        views.append(out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr())
+        return out
+    return view
+
+
+def test_a_call_keeps_channels_last_and_reads_in_place(call, monkeypatch):
     model, _, lat, t, ctx = call
-    seen = []
+    seen, inputs, views = [], [], []
+    temporal = [m for m in model.modules()
+                if isinstance(m, (u3.TemporalConv, u3.TransformerTemporal))]
     hooks = [m.register_forward_hook(lambda m, a, o: seen.append(
         (type(m).__name__, _channels_last(a[0]), _channels_last(o))))
         for m in model.modules()
         if isinstance(m, (u3.TemporalConv, u3.TransformerTemporal, torch.nn.Conv2d))]
-    u3._video_view.routes.update(view=0, strided=0)
+    hooks += [m.register_forward_pre_hook(lambda m, a: inputs.append(_channels_last(a[0])))
+              for m in temporal]
+    monkeypatch.setattr(u3, "_video_view", _in_place(views, u3._video_view))
     try:
         with torch.inference_mode():
             out = model(lat.bfloat16(), t, ctx.bfloat16())
@@ -81,19 +94,22 @@ def test_a_call_keeps_channels_last_and_reads_in_place(call):
         for h in hooks:
             h.remove()
     assert torch.isfinite(out).all() and out.is_contiguous()
-    assert len(seen) == len(hooks) and all(a and o for _, a, o in seen), \
+    assert len(seen) == len(hooks) - len(temporal) and all(a and o for _, a, o in seen), \
         [s for s in seen if not (s[1] and s[2])]
     assert seen[-1][0] == "Conv2d"                         # conv_out, before the exit permute
-    assert u3._video_view.routes == {"view": 39, "strided": 0}
+    assert inputs == [True] * len(temporal)
+    assert views == [True] * 39
 
 
 def test_a_call_agrees_with_temporal_layers_that_copy(call, monkeypatch):
     model, ref_model, lat, t, ctx = call
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     with torch.inference_mode():
-        u3._video_view.routes.update(view=0, strided=0)
+        views = []
+        monkeypatch.setattr(u3, "_video_view", _in_place(views, u3._video_view))
         in_place = model(lat.bfloat16(), t, ctx.bfloat16()).float()
-        assert u3._video_view.routes == {"view": 39, "strided": 0}
+        assert views == [True] * 39
+        monkeypatch.undo()
         copies = []
 
         def copying(x, frames):            # the form before channels-last: always a copy
